@@ -1,0 +1,119 @@
+"""Multi-head attention: the hand-written Hopper kernel and its plain version.
+
+`flash_attention` replaces ``mast3r_slam_tpu/ops/attention.py``
+``flash_attention`` / ``_flash_kernel``. For a CUDA tensor it launches the
+kernel in ``csrc/flash_attention.cu`` (CUDA C++ for sm_90a, bound with
+ctypes) or raises; for a CPU tensor it computes `attention_reference`, the
+plain version. There is no other path: every attention call of the model
+goes through this wrapper, and the JAX package's ``FLASH_MIN_KV`` dispatch
+rule (a TPU measurement) is not carried over.
+
+What bounds the kernel on the card, and what its design does about it, is
+written at the top of the CUDA source: at the main-path shapes it is bound by
+latency and occupancy, not by bytes or flops. Its least time, the larger of
+bytes over 3.35 TB/s and flops over 989 TFLOP/s, is `roofline`.
+
+`flash_attention.launches` counts kernel launches (and nothing else), so a
+run can show that the model went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+_HEAD_DIM = 64
+_HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+_BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
+
+
+def attention_reference(q, k, v, scale: float | None = None) -> torch.Tensor:
+    """Plain softmax attention in f32; q/k/v [B, H, S, D], output in q's dtype."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    p = torch.softmax(s * scale, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def roofline(b: int, h: int, sq: int, skv: int, d: int = _HEAD_DIM, itemsize: int = 2):
+    """Least time of one call on an H100 SXM -> (ms, "bytes" | "operations"):
+    the larger of bytes over the HBM rate (q/k/v read once, o written once)
+    and flops over the bf16 tensor-core peak."""
+    t_bytes = itemsize * b * h * d * (2 * sq + 2 * skv) / _HBM_BYTES_PER_S
+    t_ops = 4.0 * b * h * sq * skv * d / _BF16_FLOPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _kernel():
+    from mast3r_slam_torch.ops import build
+
+    lib = build.load("flash_attention")
+    fn = lib.flash_attention_fwd_bf16
+    if fn.argtypes is None:
+        fn.argtypes = (
+            [ctypes.c_void_p] * 4
+            + [ctypes.c_int] * 4
+            + [ctypes.c_longlong] * 12
+            + [ctypes.c_float, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _kernel_layout(x: torch.Tensor) -> torch.Tensor:
+    """The kernel reads 16-byte rows: contiguous last dim, B/H/S strides that
+    are multiples of 8 elements and a 16-byte aligned base. Other layouts are
+    copied once (never the case for the model's own q/k/v)."""
+    ok = (
+        x.stride(-1) == 1
+        and all(s % 8 == 0 for s in x.stride()[:-1])
+        and x.data_ptr() % 16 == 0
+    )
+    return x if ok else x.contiguous()
+
+
+def flash_attention(q, k, v, scale: float | None = None) -> torch.Tensor:
+    """Softmax attention over q [B, H, Sq, D], k/v [B, H, Skv, D] -> [B, H, Sq, D].
+
+    CUDA tensors: the hand-written kernel (bf16, D = 64), or an error.
+    CPU tensors: `attention_reference`. The output of the kernel is laid out
+    [B, Sq, H, D] in memory, so merging the heads after it is a view.
+    """
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v, scale)
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError(f"flash_attention: q/k/v on {q.device}/{k.device}/{v.device}")
+    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
+        raise TypeError(
+            f"flash_attention: the CUDA kernel takes bf16 q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}"
+        )
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    if d != _HEAD_DIM or k.shape != (b, h, skv, d) or v.shape != k.shape:
+        raise ValueError(
+            f"flash_attention: shapes q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}; "
+            f"the kernel takes [B, H, S, {_HEAD_DIM}] with matching B, H and Skv"
+        )
+    if skv == 0 or b * h > 65535:
+        raise ValueError(f"flash_attention: unsupported Skv={skv} or B*H={b * h}")
+    if scale is None:
+        scale = d**-0.5
+    q, k, v = _kernel_layout(q), _kernel_layout(k), _kernel_layout(v)
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    if sq == 0 or b * h == 0:
+        return out
+    err = _kernel()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, h, sq, skv,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,0 +1,101 @@
+"""Device policy and import hygiene of the port.
+
+The port's entry points run on the card unless the caller passes
+device="cpu"; without CUDA (as here) they raise instead of falling back to
+the CPU. The package imports neither jax nor the JAX package.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+from mast3r_slam_torch.config import Config
+from mast3r_slam_torch.device import resolve_device
+from mast3r_slam_torch.models import MASt3RModel
+from mast3r_slam_torch.tracker import FrameTracker
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_without_cuda_raises(no_cuda):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_model_create_without_device_raises(no_cuda):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MASt3RModel.create(model_type="tiny", resolution=64)
+
+
+def test_frame_tracker_without_device_raises(no_cuda):
+    model = MASt3RModel.create(model_type="tiny", resolution=64, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FrameTracker(model, Config())
+
+
+def test_frame_tracker_rejects_calib_and_untracked_use():
+    model = MASt3RModel.create(model_type="tiny", resolution=64, device="cpu")
+    with pytest.raises(NotImplementedError, match="use_calib"):
+        FrameTracker(model, Config.from_dict({"use_calib": True}), device="cpu")
+    tracker = FrameTracker(model, Config(), device="cpu")
+    with pytest.raises(RuntimeError, match="init_keyframe"):
+        tracker.track_window(torch.zeros(1, 48, 64, 3))
+
+
+def test_port_imports_no_jax():
+    """Run the CPU slice once in a fresh interpreter; then neither jax nor
+    mast3r_slam_tpu may be in sys.modules."""
+    code = textwrap.dedent("""
+        import sys
+        import numpy as np
+        import torch
+        import mast3r_slam_torch
+        from mast3r_slam_torch.config import Config, set_config
+        from mast3r_slam_torch.models import MASt3RModel
+        from mast3r_slam_torch.models import io, heads, vit  # noqa: F401
+        from mast3r_slam_torch.ops import attention, build, dense_match, gauss_newton  # noqa
+        from mast3r_slam_torch.tracker import FrameTracker
+
+        cfg = set_config(Config.from_dict({"matching": {"method": "dense", "dense_radius": 2}}))
+        model = MASt3RModel.create(model_type="tiny", resolution=64, device="cpu")
+        tracker = FrameTracker(model, cfg, device="cpu")
+        rng = np.random.default_rng(0)
+        tracker.init_keyframe(rng.uniform(0, 1, (48, 64, 3)).astype(np.float32))
+        out = tracker.track_window(rng.uniform(0, 1, (2, 48, 64, 3)).astype(np.float32))
+        assert out["stats"].shape == (2, 6) and bool(torch.isfinite(out["T_WCf"]).all())
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "mast3r_slam_tpu"))
+        print("FOREIGN", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "FOREIGN []" in proc.stdout
+
+
+def test_port_sources_do_not_name_jax():
+    """No module of the port, nor chip_smoke.py, imports jax or the JAX package."""
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "mast3r_slam_torch")):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    for path in paths:
+        with open(path) as f:
+            for line in f:
+                stripped = line.strip()
+                if stripped.startswith(("import ", "from ")):
+                    mod = stripped.split()[1]
+                    assert mod.split(".")[0] not in ("jax", "flax", "mast3r_slam_tpu"), (
+                        f"{path}: {stripped}")

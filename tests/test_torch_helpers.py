@@ -1,0 +1,45 @@
+"""Shared helpers of the tests/test_torch_*.py parity tests: the same seeded
+weights and configs in the JAX package and in its PyTorch port."""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+
+import jax
+import numpy as np
+
+from mast3r_slam_tpu import config as jax_config
+from mast3r_slam_tpu.models import MASt3RConfig as JaxMASt3RConfig
+from mast3r_slam_tpu.models import MASt3RModel as JaxMASt3RModel
+from mast3r_slam_torch import config as torch_config
+from mast3r_slam_torch.models import MASt3RConfig, MASt3RModel
+from mast3r_slam_torch.models.io import params_from_flax
+from mast3r_slam_torch.workload import BENCH_SETTINGS  # noqa: F401  (bench.py's settings)
+
+
+@contextlib.contextmanager
+def both_configs(d: dict):
+    """Install the same config dict in both packages (the port's is reset on
+    exit; tests/conftest.py resets the JAX one after every test)."""
+    jax_config.set_config(jax_config.Config.from_dict(d))
+    cfg = torch_config.set_config(torch_config.Config.from_dict(d))
+    try:
+        yield cfg
+    finally:
+        torch_config.reset_config()
+
+
+def flax_tree(params) -> dict:
+    return jax.tree_util.tree_map(np.asarray, params)
+
+
+def tiny_pair(head_type: str = "linear", resolution: int = 64):
+    """The JAX tiny model (flax init, seed 0) and the port's tiny model on the
+    CPU carrying the same weights through `params_from_flax`."""
+    jcfg = dataclasses.replace(JaxMASt3RConfig.tiny(), head_type=head_type)
+    jm = JaxMASt3RModel.create(resolution=resolution, _test_cfg=jcfg)
+    tm = MASt3RModel.create(cfg=MASt3RConfig.tiny(), head_type=head_type,
+                            resolution=resolution, device="cpu")
+    tm.load_state_dict(params_from_flax(flax_tree(jm.params)))
+    return jm, tm
