@@ -5,21 +5,41 @@
 
 Phases, in order; any failure exits non-zero before the result line:
   1. card    - needs CUDA; prints the card's name and power limit (nvidia-smi).
-  2. build   - builds every kernel in mast3r_slam_torch/csrc with nvcc, one
-               process per source, all at once.
-  3. kernels - holds each kernel against its plain PyTorch version at the
-               main path's shapes and times kernel, plain version and the
+  2. build   - builds every kernel in mast3r_slam_torch/csrc with nvcc and the
+               host preprocessing library with g++, one process per source,
+               all at once.
+  3. kernels - holds the attention kernel against its plain PyTorch version at
+               the main path's shapes and times kernel, plain version and the
                PyTorch library call (a yardstick only; the port never calls
                it) with CUDA events over a dependent chain of launches.
-  4. reference - a small model (head dim 64, depth 2, 48x64) runs the same
+  4. probe   - the probe entry point (mast3r_slam_torch.probe_shift): each of
+               its six cases once on the card with the script's inputs
+               (launch counts from 0), then on numpy-seeded random inputs at
+               shifts {0, 1, 3, C-1}; every result torch.equal to the plain
+               version on the same inputs. Times each lane-shift kernel
+               beside its bound, its plain version and torch.roll, and one
+               roll at a matcher plane's size (16, 384, 512) bf16.
+  5. reference - a small model (head dim 64, depth 2, 48x64) runs the same
                tracking step on the card and on the CPU (plain versions);
                the decode outputs and the tracker's results must agree.
-  5. main path - mast3r_full (ViT-L/16 encoder, ViT-B decoders, DPT + catmlp
+  6. main path - mast3r_full (ViT-L/16 encoder, ViT-B decoders, DPT + catmlp
                heads) at 512x384 in bf16 with random seeded weights, under
                bench.py's tracking settings: init_keyframe, two windows of
                K=8, then 4 frames with match_frac_thresh=1.0 (promotion on
                every frame). Checks finiteness, events, and that every
                kernel of the path was launched as often as predicted.
+  7. slam    - SLAM.run, the system's entry point, at the same width over an
+               in-memory sequence of 640x480 uint8 frames (the TUM size; the
+               native host pipeline crops them to 512x384), twice:
+               (i) match_frac_thresh 1.0 and a keyframe arena of 8 over 16
+               frames, so every tracked frame is promoted, the backend
+               solves each new keyframe against up to three before it and
+               the arena evicts; (ii) min_match_frac 1.01 over 6 frames, so
+               every tracked frame goes through relocalisation (retrieval,
+               add_factors(is_reloc=...), a graph solve). Checks finite
+               poses and points, the event and keyframe counts the settings
+               force, the attention launch count predicted from the run's
+               event log, and that two identical graph solves are bit-equal.
 Then it prints the kernels JSON line, the card line, and last
 {"ok": true, "device": {...}}.
 """
@@ -34,11 +54,25 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 sys.path.insert(0, REPO)
 
 WINDOW = 8
 PROMOTION_FRAMES = 4
 ATTN_ATOL = 3e-2  # bf16 in/out, P rounded to bf16: ~2^-8 relative on |o| <~ 3
+SLAM_FRAMES = (16, 6)  # runs (i) and (ii) of the slam phase
+SLAM_CAPACITY = 8  # the keyframe arena of run (i)
+PROBE_SCRIPT = "scripts/probe_mosaic_rotate.py"
+# probe case -> (input shape, dtype, dynamic shift?, line of the Pallas case)
+PROBE_CASES = {
+    "dyn_rot_2d_f32": ((8, 256), "float32", True, 38),
+    "dyn_rot_2d_bf16": ((16, 256), "bfloat16", True, 54),
+    "dyn_rot_3d_f32": ((3, 8, 256), "float32", True, 70),
+    "dyn_rot_3d_bf16_aligned": ((3, 16, 256), "bfloat16", True, 86),
+    "static_unaligned_slice_bf16": ((40, 256), "bfloat16", None, 102),
+    "static_rot_bf16": ((16, 256), "bfloat16", False, 117),
+}
+MATCHER_PLANE = (16, 384, 512)  # a bf16 roll where the bytes, not the launch, set the bound
 
 
 class SmokeFailure(Exception):
@@ -173,6 +207,120 @@ def kernel_phase(model_cfg) -> dict:
 # -- phase 4 ---------------------------------------------------------------
 
 
+def probe_phase() -> dict:
+    import numpy as np
+    import torch
+
+    from mast3r_slam_torch import probe_shift
+    from mast3r_slam_torch.ops import lane_shift as ls
+
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    slice_args = (probe_shift.SLICE_ROW0, probe_shift.SLICE_ROWS, probe_shift.SLICE_WIDTH,
+                  probe_shift.SLICE_OFFSETS)
+
+    # On the card a wrapper launches its kernel or raises; it never falls back.
+    for bad, what in ((lambda: ls.roll_last_axis(torch.zeros(4, 8, dtype=torch.float16,
+                                                             device="cuda"), 1), "fp16 roll"),
+                      (lambda: ls.roll_last_axis(torch.zeros(4, 8, device="cuda"), 8), "shift C")):
+        try:
+            bad()
+            check(False, f"lane_shift took a {what} instead of raising")
+        except (TypeError, ValueError):
+            pass
+
+    # The probe entry point's main path: each case once, the script's inputs.
+    for fn in probe_shift.CASES.values():
+        fn.launches = 0
+    ls._launch.launches = ls.roll_last_axis.launches = ls.offset_slice_sum.launches = 0
+    outs = {name: fn() for name, fn in probe_shift.CASES.items()}
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in probe_shift.CASES.items()}
+    launches["_launch"] = ls._launch.launches
+    check(all(n == 1 for name, n in launches.items() if name != "_launch"),
+          f"probe cases launched {launches}")
+    check(launches["_launch"] == len(probe_shift.CASES), f"_launch count {launches['_launch']}")
+
+    def plain(name, x, shift):
+        if name == "static_unaligned_slice_bf16":
+            return ls.offset_slice_sum_reference(x, *slice_args)
+        dynamic = PROBE_CASES[name][2]
+        s = torch.tensor([shift], dtype=torch.int32, device=x.device) if dynamic else shift
+        return ls.roll_reference(x, s)
+
+    rng = np.random.default_rng(4)
+    rows = {}
+    for name, (shape, dtype, dynamic, line) in PROBE_CASES.items():
+        fn, dt = probe_shift.CASES[name], dtypes[dtype]
+        default_shift = 3 if dynamic else 5
+        ref = plain(name, torch.ones(shape, dtype=dt, device="cuda"), default_shift)
+        check(torch.equal(outs[name], ref), f"{name}: kernel != plain on the script's inputs")
+        c = shape[-1]
+        max_err = 0.0
+        for shift in (0, 1, 3, c - 1):
+            x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to("cuda", dt)
+            out = fn(x=x, shift=shift)
+            torch.cuda.synchronize()
+            ref = plain(name, x, shift)
+            check(out.dtype == ref.dtype and out.shape == ref.shape, f"{name}: shape/dtype")
+            max_err = max(max_err, (out.float() - ref.float()).abs().max().item())
+            check(torch.equal(out, ref), f"{name} shift {shift}: kernel != plain version")
+
+        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to("cuda", dt)
+        if dynamic is None:
+            t_kernel = time_graph(lambda y: [ls.offset_slice_sum(y, *slice_args), y][1], x)
+            t_plain = time_graph(lambda y: [ls.offset_slice_sum_reference(y, *slice_args), y][1],
+                                 x)
+            t_lib = None
+            bound, bound_by = ls.slice_sum_bound(x.numel(), probe_shift.SLICE_ROWS,
+                                                 probe_shift.SLICE_WIDTH,
+                                                 len(probe_shift.SLICE_OFFSETS))
+        else:
+            s = torch.tensor([3], dtype=torch.int32, device="cuda") if dynamic else 3
+            t_kernel = time_graph(lambda y: ls.roll_last_axis(y, s), x)
+            # the plain version of a dynamic roll reads the shift to the host
+            # first; timed here without that read, so plain = torch.roll
+            t_plain = time_graph(lambda y: torch.roll(y, 3, dims=-1), x)
+            t_lib = time_graph(lambda y: torch.roll(y, 3, dims=-1), x)
+            bound, bound_by = ls.roll_bound(x.numel(), x.element_size())
+        rows[name] = dict(launches=launches[name], max_abs_err=max_err, ms=t_kernel,
+                          plain_ms=t_plain, library_ms=t_lib, bound_ms=bound, bound_by=bound_by,
+                          shape=list(shape), replaces=f"{PROBE_SCRIPT}:{line}")
+        lib_txt = "none" if t_lib is None else f"{t_lib:.5f}"
+        print(f"[probe] {name} {list(shape)} {dtype}: launches {launches[name]}, max_abs_err "
+              f"{max_err}, device ms: kernel {t_kernel:.5f} plain {t_plain:.5f} torch.roll "
+              f"{lib_txt} bound {bound:.7f} ({bound_by})", flush=True)
+
+    # The shared launch helper (the script's _mk) at a matcher plane's size.
+    x = torch.from_numpy(rng.normal(size=MATCHER_PLANE).astype(np.float32)).to("cuda",
+                                                                                torch.bfloat16)
+    c = MATCHER_PLANE[-1]
+    n_rows = x.numel() // c
+
+    def helper_roll(y):
+        return ls._launch("roll_last_axis_bf16", y.shape, y.dtype, y, n_rows, c, None, 3)
+
+    out = helper_roll(x)
+    torch.cuda.synchronize()
+    max_err = (out.float() - torch.roll(x, 3, dims=-1).float()).abs().max().item()
+    check(torch.equal(out, torch.roll(x, 3, dims=-1)), "matcher-plane roll != torch.roll")
+    t_kernel = time_graph(helper_roll, x)
+    t_plain = time_graph(lambda y: torch.roll(y, 3, dims=-1), x)
+    t_lib = time_graph(lambda y: torch.roll(y, 3, dims=-1), x)
+    bound, bound_by = ls.roll_bound(x.numel(), x.element_size())
+    rows["_launch"] = dict(launches=launches["_launch"], max_abs_err=max_err, ms=t_kernel,
+                           plain_ms=t_plain, library_ms=t_lib, bound_ms=bound, bound_by=bound_by,
+                           shape=list(MATCHER_PLANE), replaces=f"{PROBE_SCRIPT}:34")
+    print(f"[probe] _launch roll_last_axis_bf16 {list(MATCHER_PLANE)}: launches "
+          f"{launches['_launch']} (main path), max_abs_err {max_err}, device ms: kernel "
+          f"{t_kernel:.5f} plain {t_plain:.5f} torch.roll {t_lib:.5f} bound {bound:.5f} "
+          f"({bound_by}), {2 * x.numel() * x.element_size() / t_kernel / 1e6:.1f} GB/s",
+          flush=True)
+    return rows
+
+
+# -- phase 5 ---------------------------------------------------------------
+
+
 def reference_phase(cfg, device: str = "cuda") -> None:
     """The tracking step of a small bf16 model on `device` vs on the CPU."""
     import numpy as np
@@ -223,7 +371,7 @@ def reference_phase(cfg, device: str = "cuda") -> None:
     check(bool(torch.isfinite(rg["T_WCf"]).all()), "non-finite poses on the card")
 
 
-# -- phase 5 ---------------------------------------------------------------
+# -- phase 6 ---------------------------------------------------------------
 
 
 def main_path_phase(cfg) -> dict:
@@ -290,6 +438,182 @@ def main_path_phase(cfg) -> dict:
     return dict(launches=launches, ms_frame=ms_frame, promotions=promotions)
 
 
+# -- phase 7 ---------------------------------------------------------------
+
+
+def predicted_attention(events, n_decodes: int, model_cfg) -> tuple[int, str]:
+    """Attention launches that a SLAM.run must make, from its event log: an
+    encode is one launch per encoder block; a two-view or mono decode, and a
+    backend decode of any number of keyframe pairs (one batch, both ways), is
+    one per decoder block, direction and attention (self, cross)."""
+    enc, dec = model_cfg.enc_depth, 4 * model_cfg.dec_depth
+    steps = events["init"] + events["chained_step"] + events["sync_step"]
+    monos = events["chained_promotion"] + events["sync_promotion"] + events["reloc"]
+    total = ((enc + dec) * steps + dec * monos + enc * events["reloc_encode"] + dec * n_decodes)
+    how = (f"{enc + dec}*{steps} steps + {dec}*{monos} mono decodes + {enc}*"
+           f"{events['reloc_encode']} reloc encodes + {dec}*{n_decodes} backend decodes")
+    return total, how
+
+
+def slam_phase() -> dict:
+    import copy
+
+    import numpy as np
+    import torch
+
+    from mast3r_slam_torch.config import Config, set_config
+    from mast3r_slam_torch.dataloader import Dataset
+    from mast3r_slam_torch.global_opt import FactorGraph
+    from mast3r_slam_torch.ops.attention import flash_attention
+    from mast3r_slam_torch.profile_step import count_syncs
+    from mast3r_slam_torch.slam import SLAM
+    from mast3r_slam_torch.workload import BENCH_SETTINGS, drift_frames
+
+    class Frames(Dataset):
+        """In-memory uint8 frames: no image files, no PIL."""
+
+        def __init__(self, imgs):
+            self.imgs = imgs
+
+        def __len__(self):
+            return len(self.imgs)
+
+        def __getitem__(self, i):
+            return float(i) / 30.0, self.imgs[i]
+
+    rng = np.random.default_rng(2)
+    base = rng.uniform(0, 1, (480, 640, 3)).astype(np.float32)
+    imgs = [(f * 255).astype(np.uint8) for f in drift_frames(base, max(SLAM_FRAMES), rng)]
+
+    solves: list = []
+    solve_gn_rays = FactorGraph.solve_GN_rays
+
+    def timed_solve(self):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        solve_gn_rays(self)
+        end.record()
+        solves.append((start, end))
+
+    def run(name, extra, n, model=None):
+        settings = copy.deepcopy(BENCH_SETTINGS)
+        for key, value in extra.items():
+            settings.setdefault(key, {}).update(value)
+        set_config(Config.from_dict(settings))
+        if model is None:
+            slam = SLAM(model_type="mast3r_full", resolution=512, precision="bf16", seed=0)
+        else:
+            slam = SLAM(model=model)
+        solves.clear()
+        torch.cuda.synchronize()
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        results = []
+        syncs = count_syncs(lambda: results.append(slam.run(Frames(imgs[:n]))))
+        res = results[0]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = flash_attention.launches
+        n_syncs = sum(syncs.values())
+        ev, fg = slam.events, slam.factor_graph
+        predicted, how = predicted_attention(ev, fg.n_decodes, slam.model.cfg)
+        solve_ms = [a.elapsed_time(b) for a, b in solves]
+        print(f"[slam {name}] {n} frames in {wall:.2f} s = {wall / n * 1e3:.1f} ms/frame; "
+              f"events {dict(sorted(ev.items()))}; keyframes {res['keyframe_indices']}; "
+              f"edges {fg.n_edges}; backend decodes {fg.n_decodes}; host syncs {n_syncs}: "
+              f"{dict(sorted(syncs.items(), key=lambda kv: -kv[1]))}", flush=True)
+        print(f"[slam {name}] backend solves {len(solve_ms)}: ms per solve between CUDA events "
+              f"median {np.median(solve_ms) if solve_ms else float('nan'):.2f} max "
+              f"{max(solve_ms, default=float('nan')):.2f}; attention launches {launches}, "
+              f"predicted {how} = {predicted}; backend's {4 * slam.model.cfg.dec_depth} per "
+              f"decode = {4 * slam.model.cfg.dec_depth * fg.n_decodes}", flush=True)
+        check(launches == predicted, f"{name}: attention launched {launches}, predicted {predicted}")
+        check(res["poses"].shape == (n, 4, 4), f"{name}: poses {res['poses'].shape}")
+        check(bool(np.isfinite(res["poses"]).all()), f"{name}: non-finite poses")
+        check(len(res["points"]) > 0 and bool(np.isfinite(res["points"]).all()),
+              f"{name}: non-finite or no points")
+        check(ev["init"] == 1, f"{name}: {ev['init']} inits")
+        check(ev["chained_step"] >= 1, f"{name}: the chained path never ran")
+        return slam, res, dict(frames=n, wall_s=wall, ms_frame=wall / n * 1e3, launches=launches,
+                               predicted=predicted, solves=len(solve_ms), solve_ms=solve_ms,
+                               host_syncs=n_syncs, host_sync_sites=syncs, events=dict(ev),
+                               decodes=fg.n_decodes)
+
+    FactorGraph.solve_GN_rays = timed_solve
+    try:
+        n1, n2 = SLAM_FRAMES
+        slam1, res1, out1 = run("i", {"tracking": {"match_frac_thresh": 1.0},
+                                      "runtime": {"keyframe_capacity": SLAM_CAPACITY}}, n1)
+        ev = slam1.events
+        tracked = ev["chained_step"] + ev["sync_step"]
+        promoted = ev["chained_promotion"] + ev["sync_promotion"]
+        check(ev["reloc"] == 0 and promoted >= n1 - 1,
+              f"(i): every tracked frame must promote: {dict(ev)}")
+        check(len(slam1.keyframes) == SLAM_CAPACITY == len(res1["keyframe_indices"]),
+              f"(i): {len(slam1.keyframes)} keyframes, capacity {SLAM_CAPACITY}")
+        check(ev["eviction"] == n1 - SLAM_CAPACITY, f"(i): {ev['eviction']} evictions")
+        check(ev["backend_solve"] == n1, f"(i): {ev['backend_solve']} backend solves")
+        check(res1["keyframe_indices"][0] == 0, "(i): the anchor keyframe was evicted")
+        print(f"[slam i] tracked {tracked}, promoted {promoted}", flush=True)
+
+        # Two identical graph solves from the same arena state are bit-equal.
+        fg, kf = slam1.factor_graph, slam1.keyframes
+        T0 = kf.T_WC.clone()
+        solves.clear()
+        fg.solve_GN_rays()
+        T1 = kf.T_WC.clone()
+        kf.T_WC.copy_(T0)
+        fg.solve_GN_rays()
+        T2 = kf.T_WC.clone()
+        torch.cuda.synchronize()
+        repeat_ms = [a.elapsed_time(b) for a, b in solves]
+        check(torch.equal(T1, T2), "two identical solve_GN_rays calls differ")
+        moved = (T1 - T0).abs().max().item()
+        print(f"[slam i] repeated solve over {len(fg.get_unique_kf_idx())} keyframes and "
+              f"{fg.n_edges} edges: bit-equal (max pose change {moved:.3e}, max |T_WC| "
+              f"{T0.abs().max().item():.3e}), ms between CUDA events {repeat_ms}", flush=True)
+        solve_profile = profile_solve(fg, kf, T0)
+
+        slam2, res2, out2 = run("ii", {"tracking": {"min_match_frac": 1.01},
+                                       "reloc": {"min_match_frac": 0.0}}, n2, model=slam1.model)
+        ev = slam2.events
+        check(ev["reloc"] == n2 - 1, f"(ii): {ev['reloc']} relocalisations for {n2 - 1} frames")
+        check(ev["reloc_solve"] >= 1, "(ii): no relocalisation solved the graph")
+        check(len(slam2.keyframes) == n2, f"(ii): {len(slam2.keyframes)} keyframes")
+    finally:
+        FactorGraph.solve_GN_rays = solve_gn_rays
+    return dict(i=out1, ii=out2, repeat_solve_ms=repeat_ms, solve_profile=solve_profile,
+                launches=out1["launches"] + out2["launches"])
+
+
+def profile_solve(fg, kf, T0) -> dict:
+    """One more graph solve from the same arena state under torch.profiler:
+    its kernel launches, device busy time and host time (the trace is
+    summarised by profile_step's reader and written under build/profile/)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mast3r_slam_torch.profile_step import summarize_trace
+
+    kf.T_WC.copy_(T0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fg.solve_GN_rays()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    path = os.path.join(REPO, "build", "profile", "graph_solve_trace.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    trace = summarize_trace(path, frames=1)
+    out = dict(wall_ms_profiled=wall, kernels=trace["kernels_per_frame"],
+               device_busy_ms=trace["device_busy_ms_per_frame"],
+               top_kernels=trace.get("top_kernels", [])[:5])
+    print(f"[slam i] profiled graph solve: {out['kernels']:.0f} kernels, device busy "
+          f"{out['device_busy_ms']:.2f} ms of {wall:.2f} ms wall (profiled)", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -317,20 +641,26 @@ def main() -> int:
         for name, log in build.build_logs.items():
             print(f"[build] {name}: {log}", flush=True)
         kern = kernel_phase(MASt3RConfig.mast3r_full())
+        probe = probe_phase()
         cfg = set_config(Config.from_dict(BENCH_SETTINGS))
         reference_phase(cfg)
         main = main_path_phase(cfg)
+        slam = slam_phase()
     except SmokeFailure as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
         return 1
 
+    t_total = time.perf_counter() - T_START
+    print(f"[chip_smoke] slam: {json.dumps(slam)}", flush=True)
     enc = kern["rows"][0]
     kernels = [dict(
         name="flash_attention",
         route="cuda",
         source="mast3r_slam_torch/csrc/flash_attention.cu",
         replaces="mast3r_slam_tpu/ops/attention.py:37",
-        launches=main["launches"],
+        launches=slam["launches"],
+        launches_by_path=dict(tracking=main["launches"], slam_i=slam["i"]["launches"],
+                              slam_ii=slam["ii"]["launches"]),
         max_abs_err=kern["max_err"],
         ms=enc["ms"],
         plain_ms=enc["plain_ms"],
@@ -339,6 +669,14 @@ def main() -> int:
         library_ms=enc["library_ms"],
         shape=enc["shape"],
     )]
+    for name, row in probe.items():
+        kernels.append(dict(
+            name=name if name == "_launch" else f"case_{name}",
+            route="cuda",
+            source="mast3r_slam_torch/csrc/lane_shift.cu",
+            **row,
+        ))
+    print(f"[chip_smoke] all phases passed in {t_total:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

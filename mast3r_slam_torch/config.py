@@ -2,9 +2,10 @@
 
 Same schema, same defaults, same YAML ``inherit`` / ``_base_`` loader, so the
 files under ``configs/`` load unchanged into either package. Unknown keys
-raise. Many fields configure parts of the system that the port does not have
-yet (backend, retrieval, serving); they are kept so that every config file
-still parses, and they are read by nothing here until those parts are ported.
+raise. Some fields configure parts of the system that the port does not have
+yet (serving, ASMK, snapshots, the viewer); they are kept so that every
+config file still parses, and the SLAM loop raises where one of them is
+switched on.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 """Ray-distance geometry (the port of the parts of
-``mast3r_slam_tpu/geometry.py`` that the tracking step uses)."""
+``mast3r_slam_tpu/geometry.py`` that the tracking step and the backend use)."""
 
 from __future__ import annotations
 
@@ -37,3 +37,29 @@ def spherical_to_cartesian(S: torch.Tensor) -> torch.Tensor:
     return torch.cat(
         [r * st * torch.cos(phi), r * st * torch.sin(phi), r * torch.cos(theta)], dim=-1
     )
+
+
+def get_pixel_coords(batch_size: int, img_size: tuple[int, int], dtype=torch.float32,
+                     device=None) -> torch.Tensor:
+    """[B, H, W, 2] grid of (u, v) pixel coordinates."""
+    h, w = img_size
+    vg, ug = torch.meshgrid(torch.arange(h, dtype=dtype, device=device),
+                            torch.arange(w, dtype=dtype, device=device), indexing="ij")
+    return torch.stack([ug, vg], dim=-1).expand(batch_size, h, w, 2)
+
+
+def backproject(p: torch.Tensor, z: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """Pixels p [..., 2] at depths z [..., 1] -> camera points [..., 3]."""
+    fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    x = (p[..., 0:1] - cx) / fx * z
+    y = (p[..., 1:2] - cy) / fy * z
+    return torch.cat([x, y, z], dim=-1)
+
+
+def constrain_points_to_ray(img_size: tuple[int, int], Xs: torch.Tensor,
+                            K: torch.Tensor) -> torch.Tensor:
+    """Snap [B, H*W, 3] points onto their pixel rays, keeping depth
+    (calibrated mode)."""
+    b = Xs.shape[0]
+    uv = get_pixel_coords(b, img_size, dtype=Xs.dtype, device=Xs.device).reshape(b, -1, 2)
+    return backproject(uv, Xs[..., 2:3], K)

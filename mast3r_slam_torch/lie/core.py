@@ -86,8 +86,11 @@ def skew(v: torch.Tensor) -> torch.Tensor:
 
 
 def sim3_identity(batch_shape: tuple[int, ...] = (), dtype=torch.float32, device=None):
-    e = torch.tensor([0, 0, 0, 0, 0, 0, 1, 1], dtype=dtype, device=device)
-    return e.expand(*batch_shape, 8).clone()
+    # filled on the device: a tensor built from a host list would be a
+    # host-to-device copy, which waits for the device (one per Frame)
+    e = torch.zeros(*batch_shape, 8, dtype=dtype, device=device)
+    e[..., 6:] = 1.0
+    return e
 
 
 _W_DOUBLINGS = 6  # handles ||sigma*I + [w]x|| up to ~16 (theta <= pi always)
@@ -150,3 +153,28 @@ def sim3_act(T: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
 def sim3_retract(T: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
     """Left retraction exp(xi) * T."""
     return sim3_mul(sim3_exp(xi), T)
+
+
+def sim3_matrix(T: torch.Tensor) -> torch.Tensor:
+    """Homogeneous 4x4 [..., 4, 4] with s*R upper-left block."""
+    t, q, s = T[..., :3], T[..., 3:7], T[..., 7:8]
+    top = torch.cat([s[..., None] * quat_to_matrix(q), t[..., None]], dim=-1)
+    bottom = torch.zeros_like(top[..., :1, :])
+    bottom[..., 0, 3] = 1.0
+    return torch.cat([top, bottom], dim=-2)
+
+
+def sim3_adjoint(T: torch.Tensor) -> torch.Tensor:
+    """Adjoint matrix Ad_T [..., 7, 7]: T exp(xi) T^-1 = exp(Ad_T xi). With the
+    tangent order (v, w, sigma):
+        Ad_T = [[ s R,  [t]x R,  -t ],
+                [  0,      R,     0 ],
+                [  0,      0,     1 ]]"""
+    t, q, s = T[..., :3], T[..., 3:7], T[..., 7:8]
+    R = quat_to_matrix(q)
+    top = torch.cat([s[..., None] * R, skew(t) @ R, -t[..., None]], dim=-1)
+    zeros = torch.zeros_like(top[..., :3])
+    mid = torch.cat([zeros, R, zeros[..., :1]], dim=-1)
+    bottom = torch.zeros_like(top[..., :1, :])
+    bottom[..., 0, 6] = 1.0
+    return torch.cat([top, mid, bottom], dim=-2)

@@ -183,6 +183,23 @@ class MASt3RModel:
         apply_dtype_policy(net, cfg.dtype)
         return cls(cfg, net.eval(), _canonical_hw(resolution, cfg.patch_size), dev)
 
+    @property
+    def embed_dim(self) -> int:
+        return self.cfg.enc_embed_dim
+
+    @property
+    def patch_size(self) -> int:
+        return self.cfg.patch_size
+
+    def set_out_hw(self, h: int, w: int) -> None:
+        """Pin the decode output resolution to the processed frame shape
+        (preprocessing crops to the input's own aspect ratio, which need not
+        be the canonical 4:3 of `create`)."""
+        p = self.cfg.patch_size
+        if h % p or w % p:
+            raise ValueError(f"out_hw {(h, w)} is not a multiple of the patch {p}")
+        self.out_hw = (h, w)
+
     def load_state_dict(self, state: dict, strict: bool = True) -> None:
         """Load an upstream-named state dict (see `models.io`); the dtype
         policy is re-applied by copying into the existing parameters."""
@@ -211,3 +228,18 @@ class MASt3RModel:
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.net.parameters())
+
+
+def load_mast3r(model_type: str = "mast3r_full", variant: str = "base", resolution: int = 512,
+                precision: str = "bf16", checkpoint: str | None = None,
+                head_type: str | None = None, seed: int = 0, device=None) -> MASt3RModel:
+    """The SLAM loop's model factory: a randomly initialised model from
+    `seed` on `device` (default: the card). Loading a checkpoint file waits
+    until one exists in the repository (ROADMAP queue 1 item 3)."""
+    if checkpoint is not None:
+        raise NotImplementedError(
+            "loading a checkpoint file is not ported yet (ROADMAP queue 1 item 3)")
+    if variant != "base":
+        raise NotImplementedError(f"model variant {variant!r} is not ported yet")
+    return MASt3RModel.create(model_type=model_type, resolution=resolution, precision=precision,
+                              seed=seed, head_type=head_type, device=device)

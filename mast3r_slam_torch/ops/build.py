@@ -1,4 +1,4 @@
-"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+"""Build the port's compiled code and load it with ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
 into ``build/kernels/`` at the root of the checkout (listed in .gitignore):
@@ -6,7 +6,14 @@ into ``build/kernels/`` at the root of the checkout (listed in .gitignore):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/lib<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source and the flags, so an edited
+The host preprocessing library ``native/<name>.cpp`` (C++/OpenMP) is built
+the same way with g++ into ``build/native/``:
+
+    g++ -O3 -fopenmp -shared -fPIC -o build/native/lib<name>-<hash>.so native/<name>.cpp
+
+(no -march=native: a build tree copied to another host must still load).
+
+Each library name carries a hash of the source and the flags, so an edited
 source is rebuilt and a stale build is never loaded. Nothing here runs at
 import time; the CPU tests import this module on hosts without nvcc.
 """
@@ -21,13 +28,18 @@ import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+PACKAGE = Path(__file__).resolve().parents[1]
+CSRC = PACKAGE / "csrc"
+NATIVE_SRC = PACKAGE / "native"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build"
+BUILD_DIR = BUILD_ROOT / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-KERNEL_SOURCES = ("flash_attention",)
+GXX_FLAGS = ["-O3", "-fopenmp", "-shared", "-fPIC"]
+KERNEL_SOURCES = ("flash_attention", "lane_shift")
+NATIVE_SOURCES = ("preprocess",)
 
 _loaded: dict[str, ctypes.CDLL] = {}
 build_logs: dict[str, str] = {}  # ptxas register/shared-memory report per source
@@ -44,37 +56,48 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built on a host with the CUDA toolkit")
 
 
-def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+def _target(name: str) -> tuple[Path, list[str], Path]:
+    """(source, compiler command without -o, output library) of `name`."""
+    if name in NATIVE_SOURCES:
+        src, flags, out_dir = NATIVE_SRC / f"{name}.cpp", GXX_FLAGS, BUILD_ROOT / "native"
+        cmd = ["g++", *flags]
+    else:
+        src, flags, out_dir = CSRC / f"{name}.cu", NVCC_FLAGS, BUILD_DIR
+        cmd = ["nvcc", *flags]
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:12]
+    return src, cmd, out_dir / f"lib{name}-{digest}.so"
 
 
 def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless an up-to-date library exists."""
-    out = library_path(name)
+    """Compile csrc/<name>.cu or native/<name>.cpp unless an up-to-date
+    library exists."""
+    src, cmd, out = _target(name)
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    if cmd[0] == "nvcc":
+        cmd[0] = _nvcc()
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = subprocess.run([*cmd, "-o", str(tmp), str(src)], capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}\n{proc.stderr}")
+        raise RuntimeError(f"{cmd[0]} failed for {src.name}:\n{proc.stdout}\n{proc.stderr}")
     build_logs[name] = proc.stderr.strip()
     os.replace(tmp, out)
     return out
 
 
 def build_all() -> dict[str, Path]:
-    """Build every kernel source at once, one nvcc process each."""
-    with ThreadPoolExecutor(max_workers=len(KERNEL_SOURCES)) as pool:
-        paths = list(pool.map(build, KERNEL_SOURCES))
-    return dict(zip(KERNEL_SOURCES, paths))
+    """Build every kernel source and the host library at once, one compiler
+    process each."""
+    names = KERNEL_SOURCES + NATIVE_SOURCES
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        paths = list(pool.map(build, names))
+    return dict(zip(names, paths))
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The ctypes handle of csrc/<name>.cu, built on first use."""
+    """The ctypes handle of csrc/<name>.cu or native/<name>.cpp, built on
+    first use."""
     lib = _loaded.get(name)
     if lib is None:
         lib = _loaded[name] = ctypes.CDLL(str(build(name)))

@@ -1,6 +1,11 @@
-"""Frontend pose Gauss-Newton, ray-distance objective (the port of
-``gauss_newton_pose_rays`` / ``_pose_gn_loop_rays_soa`` in
-``mast3r_slam_tpu/ops/gauss_newton.py``).
+"""Gauss-Newton solvers: the frontend pose solve (ray-distance objective) and
+the backend factor-graph solve over the keyframe arena (rays mode). The port
+of ``gauss_newton_pose_rays`` / ``_pose_gn_loop_rays_soa`` and
+``gauss_newton_graph`` (with ``_stride_indices``, ``_edge_system``,
+``_resolve_edge_chunk``, ``_edge_blocks``, ``_assemble_Hg``) in
+``mast3r_slam_tpu/ops/gauss_newton.py``.
+
+Frontend.
 
 Residual r_n = rd_k[n] - rd(T . Xf[n]) in R^4 (unit ray + distance),
 whitened per point, IRLS-reweighted (Huber or Tukey), with the chain rule
@@ -21,6 +26,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from mast3r_slam_torch.lie import core as lie
@@ -78,10 +84,10 @@ def gauss_newton_pose_rays(
 
 
 def _cross_soa(a, b):
-    """Cross product of [3, N] component stacks."""
-    a0, a1, a2 = a[0], a[1], a[2]
-    b0, b1, b2 = b[0], b[1], b[2]
-    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0])
+    """Cross product of [..., 3, N] component stacks."""
+    a0, a1, a2 = a[..., 0, :], a[..., 1, :], a[..., 2, :]
+    b0, b1, b2 = b[..., 0, :], b[..., 1, :], b[..., 2, :]
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0], dim=-2)
 
 
 def _pose_gn_loop_rays_soa(T_init, Xt, rdk_t, w_t, p: GNParams, rel_error: float = 1e-3):
@@ -133,3 +139,185 @@ def _pose_gn_loop_rays_soa(T_init, Xt, rdk_t, w_t, p: GNParams, rel_error: float
         new_cost = torch.where(done, new_cost, cost)
         delta_norm = torch.where(done, delta_norm, torch.linalg.vector_norm(tau))
     return T, new_cost
+
+
+# ---------------------------------------------------------------------------
+# Backend: factor-graph GN over the keyframe arena (rays mode)
+# ---------------------------------------------------------------------------
+#
+# Loop design: as in the pose solve, ``max_iter`` iterations with a device-side
+# `done` flag in place of JAX's ``lax.while_loop`` (stop once the step norm is
+# under ``delta_thresh``); poses freeze once done, and the host reads nothing.
+#
+# Assembly: JAX scatter-adds each edge's 7x7 block into the block Hessian.
+# Scatter-add with repeated indices is an atomic, run-to-run nondeterministic
+# sum on the card, so the port assembles with a product instead:
+# D = onehot(jj) - onehot(ii) [E, K] gives H[a, b] = sum_e D[e,a] D[e,b] S_e and
+# g = D^T b, one matmul each, the same sums in a fixed order. Two identical
+# solves are bit-equal.
+
+
+def _stride_indices(N: int, stride: int, img_size) -> np.ndarray:
+    """Flattened-pixel indices for `point_stride` subsampling: every stride-th
+    pixel, with the column phase shifted by (row mod stride) when the image
+    shape is known, so the kept pixels form a diagonal lattice."""
+    base = np.arange(0, N, stride, dtype=np.int64)
+    if img_size is not None:
+        h, w = img_size
+        if h * w == N:
+            base = np.minimum(base + (base // w) % stride, N - 1)
+    return base
+
+
+def _edge_system(Twc, Xi_t, Xj_t, ii, jj, weight_mask, Q, mode: str, p: GNParams,
+                 variant: str = "base"):
+    """Per-edge 7x7 blocks S [E,7,7], gradients b [E,7] (of pose j; pose i gets
+    -b) and the cost, from the pre-gathered points Xi_t / Xj_t [E, 3, N].
+
+    With P = Tij . Xj and left perturbations, the point Jacobian chained with
+    Ad(Ti^-1) is expanded analytically:
+        (Jp Ad)[r, c] = Ad[r, c] + (-[P]x)[r, :] . Ad[3:6, c] + P_r Ad[6, c].
+    "noconcat" sums the three residual rows' blocks; "base" forms the
+    [E, 7, 3N] weighted Jacobian once; the two are the same sums."""
+    if mode != "rays":
+        raise NotImplementedError(
+            f"graph GN mode {mode!r} is not ported yet (ROADMAP queue 1 item 8)")
+    vset = set(variant.split("+"))
+    if not vset <= {"base", "noconcat"}:
+        raise NotImplementedError(f"solve_variant {variant!r} is not ported yet")
+    Ti, Tj = Twc[ii], Twc[jj]
+    Tij = lie.sim3_mul(lie.sim3_inv(Ti), Tj)
+    t, q, s = Tij[:, :3], Tij[:, 3:7], Tij[:, 7:8]
+    qv, qw = q[:, :3, None].expand_as(Xj_t), q[:, 3:4, None]
+    uv = 2.0 * _cross_soa(qv, Xj_t)
+    P = s[:, :, None] * (Xj_t + qw * uv + _cross_soa(qv, uv)) + t[:, :, None]  # [E, 3, N]
+    x, y, z = P[:, 0:1], P[:, 1:2], P[:, 2:3]  # [E, 1, N]
+
+    A = lie.sim3_adjoint(lie.sim3_inv(Ti))[..., None]  # [E, 7, 7, 1]
+    JpAd = (
+        A[:, 0] + z * A[:, 4] - y * A[:, 5] + x * A[:, 6],
+        A[:, 1] - z * A[:, 3] + x * A[:, 5] + y * A[:, 6],
+        A[:, 2] + y * A[:, 3] - x * A[:, 4] + z * A[:, 6],
+    )  # each [E, 7, N]
+    sigma_inv = 1.0 / p.sigma_ray
+    r = sigma_inv * (P - Xi_t)  # [E, 3, N]
+    sqrt_conf = torch.sqrt(torch.clamp(Q, min=0.0))[:, None, :]
+    w = robust_weight(sqrt_conf * r, p) * (Q * weight_mask)[:, None, :]
+    sw = torch.sqrt(w)
+    Ak = [sw[:, k:k + 1] * (sigma_inv * JpAd[k]) for k in range(3)]  # [E, 7, N]
+    rk = [sw[:, k] * r[:, k] for k in range(3)]  # [E, N]
+    if "noconcat" in vset:
+        S = sum(a @ a.transpose(1, 2) for a in Ak)
+        b = sum((a @ v[..., None])[..., 0] for a, v in zip(Ak, rk))
+    else:
+        Acat, rcat = torch.cat(Ak, dim=2), torch.cat(rk, dim=1)
+        S = Acat @ Acat.transpose(1, 2)
+        b = (Acat @ rcat[..., None])[..., 0]
+    cost = 0.5 * (w * r * r).sum()
+    return S.to(Twc.dtype), b.to(Twc.dtype), cost
+
+
+def _resolve_edge_chunk(E: int, n_pts: int, edge_chunk: int | None) -> int:
+    """Edge-chunk size of the graph solve: the largest chunk whose Jacobian
+    transients (~260 B per edge-point in f32) fit a 2 GB budget, shrunk to a
+    divisor of E."""
+    if edge_chunk is None:
+        budget = 2 * 1024**3
+        edge_chunk = max(1, min(E, budget // max(n_pts * 260, 1)))
+    chunk = min(edge_chunk, E)
+    while E % chunk:
+        chunk -= 1
+    return chunk
+
+
+def _edge_blocks(Twc_cur, Xi_t, Xj_t, ii, jj, weight_mask, Q, chunk: int, mode: str,
+                 p: GNParams, variant: str = "base"):
+    """S [E,7,7] and b [E,7], one `_edge_system` per chunk of edges."""
+    S, b = [], []
+    for c0 in range(0, ii.shape[0], chunk):
+        sl = slice(c0, c0 + chunk)
+        S_c, b_c, _ = _edge_system(Twc_cur, Xi_t[sl], Xj_t[sl], ii[sl], jj[sl],
+                                   weight_mask[sl], Q[sl], mode, p, variant)
+        S.append(S_c)
+        b.append(b_c)
+    return (S[0], b[0]) if len(S) == 1 else (torch.cat(S), torch.cat(b))
+
+
+def _assemble_Hg(K: int, ii, jj, S, b, dtype):
+    """Block Hessian [K, K, 7, 7] and gradient [K, 7] from the edge blocks, by
+    the incidence product (deterministic; see the note above)."""
+    E = ii.shape[0]
+    D = (torch.nn.functional.one_hot(jj, K) - torch.nn.functional.one_hot(ii, K)).to(dtype)
+    T = (D[:, :, None] * S.reshape(E, 1, 49)).reshape(E, K * 49)
+    H = (D.T @ T).reshape(K, K, 7, 7)
+    return H, D.T @ b
+
+
+def gauss_newton_graph(
+    Twc: torch.Tensor,  # [K, 8]
+    Xs: torch.Tensor,  # [K, N, 3]
+    Cs: torch.Tensor,  # [K, N]
+    ii: torch.Tensor,  # [E] int64
+    jj: torch.Tensor,  # [E]
+    idx_ii2jj: torch.Tensor,  # [E, N]
+    valid_match: torch.Tensor,  # [E, N] bool
+    Q: torch.Tensor,  # [E, N]
+    edge_mask: torch.Tensor,  # [E] bool: inactive edges
+    free_mask: torch.Tensor,  # [K] bool: poses the solver may move
+    mode: str = "rays",
+    img_size: tuple[int, int] | None = None,
+    params: GNParams = GNParams(),
+    edge_chunk: int | None = None,
+    variant: str = "base",
+    point_stride: int = 1,
+):
+    """Global Sim(3) pose-graph GN over dense correspondences -> (Twc_new
+    [K, 8], final step norm []). Pinned poses get an identity diagonal; the
+    Levenberg floor is `reg` times max(max|diag H|, 1); a non-finite step is
+    replaced by zero."""
+    p = params
+    K, dtype = Twc.shape[0], Twc.dtype
+    if point_stride < 1:
+        raise ValueError(f"point_stride must be >= 1, got {point_stride}")
+    ii, jj, idx_ii2jj = ii.long(), jj.long(), idx_ii2jj.long()
+    sub = None
+    if point_stride > 1:
+        sub = torch.as_tensor(_stride_indices(idx_ii2jj.shape[1], point_stride, img_size),
+                              device=Twc.device)
+        idx_ii2jj, valid_match, Q = idx_ii2jj[:, sub], valid_match[:, sub], Q[:, sub]
+
+    # Pose-independent gathers, once, outside the iterations.
+    src = torch.cat([Xs, Cs[..., None]], dim=-1)[ii]  # [E, N, 4]
+    gath = torch.gather(src, 1, idx_ii2jj[..., None].expand(-1, -1, 4))
+    Xi_t = gath[..., :3].transpose(1, 2)  # [E, 3, Ns]
+    Ci = gath[..., 3]
+    Xj, Cj = (Xs[jj], Cs[jj]) if sub is None else (Xs[jj][:, sub], Cs[jj][:, sub])
+    Xj_t = Xj.transpose(1, 2)
+    weight_mask = (valid_match & (Q > p.Q_thresh) & (Ci > p.C_thresh) & (Cj > p.C_thresh)
+                   & edge_mask[:, None]).to(dtype)
+    freeF = free_mask.to(dtype)
+    chunk = _resolve_edge_chunk(ii.shape[0], Xi_t.shape[2], edge_chunk)
+    pin_diag = (torch.eye(K, dtype=dtype, device=Twc.device)[:, :, None, None]
+                * ((1.0 - freeF)[:, None, None, None] * torch.eye(7, dtype=dtype, device=Twc.device)))
+
+    def step(Twc_cur):
+        S, b = _edge_blocks(Twc_cur, Xi_t, Xj_t, ii, jj, weight_mask, Q, chunk, mode, p, variant)
+        H, g = _assemble_Hg(K, ii, jj, S, b, dtype)
+        H = H * freeF[:, None, None, None] * freeF[None, :, None, None] + pin_diag
+        g = g * freeF[:, None]
+        H_flat = H.permute(0, 2, 1, 3).reshape(7 * K, 7 * K)
+        reg = p.reg * torch.clamp(H_flat.diagonal().abs().max(), min=1.0)
+        dx = cholesky_solve(H_flat, -g.reshape(-1), reg=reg).reshape(K, 7) * freeF[:, None]
+        dx = torch.where(torch.isfinite(dx).all(), dx, torch.zeros_like(dx))
+        Twc_new = torch.where(free_mask[:, None], lie.sim3_retract(Twc_cur, dx), Twc_cur)
+        return Twc_new, torch.linalg.vector_norm(dx)
+
+    T = Twc
+    delta = torch.full((), torch.inf, dtype=dtype, device=Twc.device)
+    done = torch.zeros((), dtype=torch.bool, device=Twc.device)
+    for _ in range(p.max_iter):
+        T_new, d_new = step(T)
+        T = torch.where(done, T, T_new)
+        delta = torch.where(done, delta, d_new)
+        done = done | (delta < p.delta_thresh)
+    return T, delta

@@ -1,0 +1,527 @@
+"""SLAM orchestration: the INIT / TRACKING / RELOC loop and its command line
+(the port of ``mast3r_slam_tpu/slam.py``).
+
+    python -m mast3r_slam_torch.slam <dataset dir or video> --max-frames N
+
+`SLAM.run` consumes frames from the prefetching host loader in windows of
+`runtime.sync_every`. A TRACKING window goes through the tracker's chained
+steps (`FrameTracker.dispatch_window`), whose keyframe/skip decisions and
+promotions happen inside the steps; INIT, RELOC and windows that do not fit
+take the synchronous per-frame path (`_step_sync`). After each frame the
+backend drains its queue (`_run_backend`: symmetric matching of the new
+keyframe against up to three before it, then a rays-mode graph solve); a full
+arena evicts its lowest-covisibility keyframe (`_evict_if_full`).
+
+Host and card (the counterpart of the JAX package's two side threads, which
+hide a TPU link's round trip):
+
+* Upload. Each window's uint8 frames are stacked once in pinned host memory
+  and copied to the card with ``non_blocking=True``; window n+1's copy is
+  queued before window n is processed, as the JAX uploader does.
+* Drain. Window n's stats are read only after window n+1 has been run
+  (`drain_inflight`, the JAX order), so their bookkeeping follows in strict
+  window order. If that drain sends a frame into RELOC, the chain is aborted
+  and the window run against the old state is replayed synchronously.
+
+Host reads per chained window: one per frame inside the step (the
+`new_kf` flag that selects the promotion branch, tracker.py), one for the
+window's [K, 6] stats, and the backend's (one for the match fractions of
+each `add_factors`, none inside a solve). Processing order, bookkeeping,
+replay after a skip and the `refresh_chain` / `queue_arena_correction`
+handshake are those of the JAX loop.
+
+Not ported yet, and raising when configured: `save_state` / `load_state`
+and `runtime.snapshot_every`, `runtime.metrics_path`, `runtime.viewer_port`,
+`runtime.weight_quant` (ROADMAP queue 1 item 13) and `use_calib` (item 10).
+"""
+
+from __future__ import annotations
+
+import collections
+import time
+from pathlib import Path
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from mast3r_slam_torch.config import get_config, load_config, set_config
+from mast3r_slam_torch.dataloader import Dataset, PrefetchLoader, load_dataset
+from mast3r_slam_torch.device import resolve_device
+from mast3r_slam_torch.frame import Frame, Keyframes, Mode, SLAMState, create_frame
+from mast3r_slam_torch.global_opt import FactorGraph
+from mast3r_slam_torch.inference import mast3r_inference_mono, mast3r_match_asymmetric
+from mast3r_slam_torch.lie import core as lie
+from mast3r_slam_torch.models.mast3r import load_mast3r
+from mast3r_slam_torch.retrieval_db import RetrievalDatabase, load_retriever
+from mast3r_slam_torch.tracker import EVENT_NEW_KF, EVENT_SKIP, FrameTracker
+from mast3r_slam_torch.utils.export import save_ply, save_trajectory_kitti, save_trajectory_tum
+
+
+def _not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1 item {item})")
+
+
+class SLAM:
+    """MASt3R-SLAM on one card (`device`, default the card, raising without
+    CUDA; the model's device when a model is given)."""
+
+    def __init__(self, config_path: Optional[str | Path] = None, model_type: str = "mast3r_full",
+                 model_variant: str = "base", resolution: int = 512, precision: str = "bf16",
+                 model=None, device=None, seed: int = 0):
+        if config_path:
+            load_config(config_path)
+        self.config = get_config()
+        rt = self.config.runtime
+        for on, what in ((rt.weight_quant != "none", "runtime.weight_quant"),
+                         (bool(rt.metrics_path), "runtime.metrics_path"),
+                         (bool(rt.viewer_port), "runtime.viewer_port"),
+                         (bool(rt.snapshot_every), "runtime.snapshot_every")):
+            if on:
+                raise _not_ported(what, 13)
+        if self.config.use_calib:
+            raise _not_ported("use_calib", 10)
+        if model is not None:
+            self.model = model
+            self.device = resolve_device(model.device if device is None else device)
+        else:
+            self.device = resolve_device(device)
+            print(f"Loading {model_type} ({model_variant}, {resolution}px)...")
+            self.model = load_mast3r(
+                model_type=model_type, variant=model_variant, resolution=resolution,
+                precision=precision, checkpoint=self.config.model.checkpoint,
+                head_type=self.config.model.head_type, seed=seed, device=self.device,
+            )
+        self.resolution = resolution
+        self.keyframes: Optional[Keyframes] = None
+        self.tracker: Optional[FrameTracker] = None
+        self.factor_graph: Optional[FactorGraph] = None
+        self.state: Optional[SLAMState] = None
+        self.retrieval_db: Optional[RetrievalDatabase] = None
+        self.timestamps: list[float] = []
+        self.poses: list[torch.Tensor] = []
+        # What the network ran, by event (an init, a chained or synchronous
+        # tracking step, a promotion, a reloc's mono decode, a symmetric
+        # backend decode), and the backend's solves and evictions.
+        self.events: collections.Counter = collections.Counter()
+        self._frame_events: dict = {}
+        self._callback = None
+        self._last_T_WC = None
+        self._n_done = 0
+        self._n_frames_total = 0
+        self._t_start = time.perf_counter()
+
+    # ------------------------------------------------------------------ run
+
+    def _upload(self, entries: list) -> torch.Tensor:
+        """One window's uint8 frames -> [K, H, W, 3] on the device, staged in
+        pinned memory and copied without blocking the host."""
+        imgs = torch.from_numpy(np.stack([e[2] for e in entries]))
+        if self.device.type == "cuda":
+            return imgs.pin_memory().to(self.device, non_blocking=True)
+        return imgs
+
+    def run(self, dataset: Dataset | str | Path,
+            callback: Optional[Callable[[Frame, Keyframes], None]] = None,
+            max_frames: Optional[int] = None) -> dict:
+        if isinstance(dataset, (str, Path)):
+            dataset = load_dataset(dataset)
+        n_frames = len(dataset) if max_frames is None else min(len(dataset), max_frames)
+        loader = PrefetchLoader(dataset, img_size=self.resolution, patch=self.model.patch_size)
+        self.timestamps, self.poses = [], []
+        self._callback = callback
+        self._n_frames_total = n_frames
+        self._n_done = 0
+        self._t_start = time.perf_counter()
+        self._last_T_WC = None
+
+        window: list[tuple] = []  # per-frame handles (the tail path)
+        inflight: list = [None]  # one chained window awaiting its drain
+        sync_every = max(1, self.config.runtime.sync_every)
+
+        def flush_window() -> None:
+            if window:
+                entries, window[:] = list(window), []
+                stats = self.tracker.sync_chain([h for (_f, _t, h) in entries])
+                self._drain_window([(f, t, h["out"]) for (f, t, h) in entries], stats,
+                                   corr=entries[-1][2]["corr"])
+
+        def drain_inflight() -> None:
+            if inflight[0] is None:
+                return
+            frames_ts, handle = inflight[0]
+            inflight[0] = None
+            stats = handle["out"]["stats"].cpu().numpy()  # the window's stats read
+            rows = handle["out"]["rows"]
+            self._drain_window([(fr, ts, rows[j]) for j, (fr, ts) in enumerate(frames_ts)],
+                               stats, corr=handle["corr"])
+
+        def process_batch(entries, batch_dev) -> None:
+            if entries[0][0] == 0:
+                h, w = entries[0][2].shape[:2]
+                self._initialize_state(h, w)
+            use_pipeline = self.config.runtime.pipeline and self.tracker.can_pipeline
+            if (use_pipeline and self.state.mode == Mode.TRACKING
+                    and len(entries) == sync_every
+                    and self.keyframes.last_index() is not None and not window):
+                frames = [create_frame(i, batch_dev[j]) for j, (i, _t, _u) in enumerate(entries)]
+                handle = self.tracker.dispatch_window(frames, batch_dev, T_init=self._last_T_WC)
+                if handle is not None:
+                    self._count_chained(handle["out"]["rows"])
+                    drain_inflight()
+                    if self.tracker._chain is None:
+                        # the drain went into RELOC and aborted the chain: this
+                        # window ran against the old state; replay it
+                        for j, (_i, ts, _u) in enumerate(entries):
+                            self._step_sync(frames[j], ts)
+                    else:
+                        inflight[0] = ([(frames[j], entries[j][1]) for j in range(len(frames))],
+                                       handle)
+                    return
+            drain_inflight()
+            for j, (i, timestamp, _u8) in enumerate(entries):
+                frame = create_frame(i, batch_dev[j])
+                if use_pipeline and self.state.mode == Mode.TRACKING:
+                    handle = self.tracker.dispatch(frame, T_init=self._last_T_WC)
+                    if handle is not None:
+                        self._count_chained([handle["out"]])
+                        window.append((frame, timestamp, handle))
+                        continue
+                flush_window()
+                self._step_sync(frame, timestamp)
+            flush_window()
+
+        raw: list[tuple] = []  # [(frame index, timestamp, uint8 image)]
+        upload_q: list[tuple] = []  # [(entries, device batch)], one ahead
+
+        def enqueue_batch() -> None:
+            if not raw:
+                return
+            entries, raw[:] = list(raw), []
+            upload_q.append((entries, self._upload(entries)))
+            while len(upload_q) > 1:
+                process_batch(*upload_q.pop(0))
+
+        with torch.no_grad():
+            for i, (timestamp, processed) in enumerate(loader(max_frames=n_frames)):
+                raw.append((i, timestamp, processed["unnormalized_img"]))
+                if len(raw) >= sync_every:
+                    enqueue_batch()
+            enqueue_batch()
+            while upload_q:
+                process_batch(*upload_q.pop(0))
+            drain_inflight()
+            self._run_backend(budget=0)  # drain any deferred backend tasks
+        print(f"Done! {len(self.keyframes)} keyframes, {len(self.poses)} poses")
+        return self._get_results()
+
+    def _count_chained(self, rows: list) -> None:
+        self.events["chained_step"] += len(rows)
+        self.events["chained_promotion"] += sum(r["promoted"] for r in rows)
+
+    def _step_sync(self, frame: Frame, timestamp: float) -> None:
+        """Synchronous per-frame step (INIT, RELOC, no pipeline)."""
+        if self.state.mode == Mode.INIT:
+            self._process_init(frame)
+        elif self.state.mode == Mode.TRACKING:
+            self._process_tracking(frame)
+        elif self.state.mode == Mode.RELOC:
+            self._process_reloc(frame)
+        self._bookkeep(frame, timestamp)
+
+    def _drain_window(self, entries: list[tuple], stats: np.ndarray, corr) -> None:
+        """Resolve a window of chained results, frame by frame, from the
+        event codes (0 tracked / 1 promoted / 2 skipped). `entries` is
+        [(frame, timestamp, row)], `row` one frame's step outputs; `stats`
+        [K, 6] came from one read. On a skip the chain is aborted, the frame
+        goes through relocalisation and the window's later frames replay
+        synchronously."""
+        cur = self.keyframes.last_index()
+        pose_dirty = False
+        deferred: list[tuple] = []
+        completed = True
+        for j, (frame, timestamp, row) in enumerate(entries):
+            event = int(round(float(stats[j, 3])))
+            if event == EVENT_SKIP:
+                # the chain's keyframe state as of the failure, then rewind
+                self.keyframes.write_pointmap(cur, row["ret_X"], row["ret_C"], float(stats[j, 5]))
+                self.tracker.commit_chain_frame(frame, row, stats[j], tracked=False)
+                self.tracker.abort_chain()
+                print(f"Skipped frame {frame.frame_id}")
+                self._frame_events["skipped"] = True
+                self.state.mode = Mode.RELOC
+                self._process_reloc(frame)
+                self._bookkeep(frame, timestamp)
+                deferred = entries[j + 1:]
+                completed = False
+                break
+            self.tracker.commit_chain_frame(frame, row, stats[j])
+            if event == EVENT_NEW_KF:
+                # retire the old keyframe's fused state into its slot; the new
+                # keyframe's mono pointmap came from the step's promotion
+                self.keyframes.write_pointmap(cur, row["ret_X"], row["ret_C"], float(stats[j, 5]))
+                frame.X_canon, frame.C = row["kf_X"], row["kf_C"]
+                victim = self._evict_if_full()
+                if victim is not None and victim < cur:
+                    cur -= 1
+                kf_idx = self.keyframes.append(frame)
+                self.retrieval_db.update(frame, add_after_query=True)
+                self.state.queue_global_optimization(kf_idx)
+                self._frame_events["new_kf"] = True
+                cur = kf_idx
+            if self._bookkeep(frame, timestamp):
+                pose_dirty = True
+        if completed:
+            # flush the chain's latest keyframe state into the arena and
+            # queue the backend's pose corrections for the next dispatch
+            last_row = entries[-1][2]
+            self.keyframes.write_pointmap(cur, last_row["kf_X"], last_row["kf_C"],
+                                          float(stats[-1, 4]))
+            if pose_dirty:
+                self.tracker.queue_arena_correction(self.keyframes.T_WC[cur], last_row["kf_T"],
+                                                    corr)
+            self.tracker.refresh_chain(cur)
+        for frame, timestamp, _row in deferred:
+            self._step_sync(frame, timestamp)
+
+    def _promote_keyframe(self, frame: Frame) -> None:
+        """New keyframe on the synchronous path: one mono decode from the
+        frame's cached encoder tokens."""
+        X, C, feat, pos = mast3r_inference_mono(self.model, frame)
+        frame.X_canon, frame.C, frame.feat, frame.pos = X, C, feat, pos
+        frame.N = frame.N_updates = 1
+        self.tracker.abort_chain()
+        self._evict_if_full()
+        kf_idx = self.keyframes.append(frame)
+        self.retrieval_db.update(frame, add_after_query=True)
+        self.state.queue_global_optimization(kf_idx)
+        self._frame_events["new_kf"] = True
+
+    def _evict_if_full(self) -> Optional[int]:
+        """When the arena is full, evict the lowest-covisibility keyframe
+        outside the gauge anchors and the `runtime.eviction_protect` most
+        recent ones, keeping the graph, the retrieval database and the
+        backend queue consistent. Returns the evicted index or None."""
+        n = len(self.keyframes)
+        if n < self.keyframes.capacity or self.config.runtime.eviction == "off":
+            return None
+        pin = self.config.local_opt.pin
+        protect = max(1, self.config.runtime.eviction_protect)
+        lo, hi = pin, n - protect
+        if lo >= hi:  # tiny arenas: keep the anchor and the current keyframe
+            lo, hi = min(pin, n - 1), n - 1
+        if lo >= hi:
+            return None
+        deg = self.factor_graph.edge_degree(n)
+        victim = min(range(lo, hi), key=lambda i: (deg[i], i))
+        self.factor_graph.remove_keyframe(victim)
+        self.keyframes.remove(victim)
+        self.retrieval_db.remove(victim)
+        self.state.global_optimizer_tasks = [
+            t - 1 if t > victim else t for t in self.state.global_optimizer_tasks if t != victim
+        ]
+        # the slots shifted under the tracker's cache; a live chain holds
+        # copies and its slot index is remapped by the caller
+        self.tracker._kf_cache = None
+        self.events["eviction"] += 1
+        print(f"Evicted keyframe {victim} (degree {int(deg[victim])})")
+        return victim
+
+    def _bookkeep(self, frame: Frame, timestamp: float) -> int:
+        """Per-frame records and the backend drain; returns solves run."""
+        self.timestamps.append(timestamp)
+        self.poses.append(frame.T_WC)
+        self._last_T_WC = frame.T_WC
+        if self._callback:
+            self._callback(frame, self.keyframes)
+        solves = self._run_backend()
+        self._frame_events = {}
+        self._n_done += 1
+        if self._n_done % 10 == 0:
+            dt = time.perf_counter() - self._t_start
+            print(f"Processed {self._n_done}/{self._n_frames_total} frames, "
+                  f"{len(self.keyframes)} keyframes, {self._n_done / dt:.2f} FPS")
+        return solves
+
+    def _initialize_state(self, h: int, w: int) -> None:
+        if hasattr(self.model, "set_out_hw"):
+            self.model.set_out_hw(h, w)
+        f = max(1, self.config.dataset.img_downsample)
+        self.keyframes = Keyframes(h // f, w // f, device=self.device)
+        self.state = SLAMState(mode=Mode.INIT)
+        self.tracker = FrameTracker(self.model, device=self.device, keyframes=self.keyframes)
+        self.factor_graph = FactorGraph(self.model, self.keyframes)
+        self.retrieval_db = load_retriever(self.model)
+        self.retrieval_db.keyframes = self.keyframes
+
+    # ------------------------------------------------------- checkpointing
+
+    def save_state(self, path) -> None:
+        raise _not_ported("saving SLAM state (utils/snapshot.py)", 13)
+
+    def load_state(self, path) -> None:
+        raise _not_ported("resuming SLAM state (utils/snapshot.py)", 13)
+
+    # ----------------------------------------------------------- mode steps
+
+    def _process_init(self, frame: Frame) -> None:
+        self.events["init"] += 1
+        X, C, feat, pos = mast3r_inference_mono(self.model, frame)
+        frame.X_canon, frame.C, frame.feat, frame.pos = X, C, feat, pos
+        frame.N = frame.N_updates = 1
+        self.keyframes.append(frame)
+        self.retrieval_db.update(frame, add_after_query=True)
+        self.state.queue_global_optimization(0)
+        self.state.mode = Mode.TRACKING
+        print("Initialized with first keyframe")
+
+    def _process_tracking(self, frame: Frame) -> None:
+        self.events["sync_step"] += 1
+        new_kf, _info, try_reloc = self.tracker.track(frame, mast3r_match_asymmetric)
+        if try_reloc:
+            self._frame_events["skipped"] = True
+            self.state.mode = Mode.RELOC
+            self._process_reloc(frame)
+            return
+        if new_kf:
+            self.events["sync_promotion"] += 1
+            self._promote_keyframe(frame)
+
+    def _process_reloc(self, frame: Frame) -> None:
+        """Retrieval, a tentative keyframe, and rollback on failure."""
+        self._frame_events["reloc"] = True
+        self.events["reloc"] += 1
+        self.events["reloc_encode"] += frame.feat is None
+        self.tracker.abort_chain()
+        X, C, feat, pos = mast3r_inference_mono(self.model, frame)
+        frame.X_canon, frame.C, frame.feat, frame.pos = X, C, feat, pos
+        frame.N = frame.N_updates = 1
+        rcfg = self.config.retrieval
+        similar = self.retrieval_db.update(frame, add_after_query=False, k=rcfg.k,
+                                           min_thresh=rcfg.min_thresh)
+        victim = self._evict_if_full()
+        if victim is not None:
+            similar = [s - 1 if s > victim else s for s in similar if s != victim]
+        if similar:
+            kf_idx = self.keyframes.append(frame)
+            success = False
+            for ref_idx in similar:
+                # edge order (new keyframe, candidate): the consecutive-edge
+                # exemption of add_factors never applies to candidates
+                if self.factor_graph.add_factors([kf_idx], [ref_idx],
+                                                 min_match_frac=self.config.reloc.min_match_frac,
+                                                 is_reloc=self.config.reloc.strict):
+                    success = True
+                    print(f"Relocalized! frame {frame.frame_id} -> KF {ref_idx}")
+                    frame.T_WC = self.keyframes.T_WC[ref_idx].clone()
+                    self.keyframes.write_pose(kf_idx, frame.T_WC)
+                    self.retrieval_db.update(frame, add_after_query=True)
+                    self.factor_graph.solve_GN_rays()
+                    self.events["reloc_solve"] += 1
+                    break
+            if not success:
+                self.keyframes.pop_last()
+                print(f"Relocalization failed for frame {frame.frame_id}")
+        else:
+            kf_idx = self.keyframes.append(frame)
+            self.retrieval_db.update(frame, add_after_query=True)
+            self.state.queue_global_optimization(kf_idx)
+            print(f"No similar keyframes, added frame {frame.frame_id} as new KF")
+        self.state.mode = Mode.TRACKING
+        self.tracker.reset_idx_f2k()
+
+    def _run_backend(self, budget: Optional[int] = None) -> int:
+        """Drain queued backend tasks, at most `budget` of them (default
+        `local_opt.backend_tasks_per_frame`; 0 or None drains all)."""
+        if budget is None:
+            budget = self.config.local_opt.backend_tasks_per_frame or 0
+        solves = 0
+        while budget <= 0 or solves < budget:
+            idx = self.state.dequeue_global_optimization()
+            if idx is None:
+                break
+            ii = list(range(max(0, idx - 3), idx))
+            if ii:
+                self.factor_graph.add_factors(ii, [idx] * len(ii),
+                                              min_match_frac=self.config.local_opt.min_match_frac)
+            self.factor_graph.solve_GN_rays()
+            solves += 1
+        self.events["backend_solve"] += solves
+        return solves
+
+    # --------------------------------------------------------------- output
+
+    def _get_results(self) -> dict:
+        pose_mats = (lie.sim3_matrix(torch.stack(self.poses)).cpu().numpy() if self.poses
+                     else np.zeros((0, 4, 4)))
+        points, colors = [], []
+        for k in range(len(self.keyframes)):
+            kf = self.keyframes[k]
+            points.append(lie.sim3_act(kf.T_WC[None], kf.X_canon).cpu().numpy())
+            img = kf.img.cpu().numpy()
+            colors.append((np.clip(img, 0, 1).reshape(-1, 3) * 255).astype(np.uint8))
+        return {
+            "timestamps": np.asarray(self.timestamps),
+            "poses": pose_mats,
+            "points": np.concatenate(points) if points else np.zeros((0, 3)),
+            "colors": np.concatenate(colors) if colors else np.zeros((0, 3), np.uint8),
+            "keyframe_indices": list(self.keyframes.frame_ids),
+        }
+
+    def save_trajectory(self, path: str | Path, format: str = "tum") -> None:
+        poses = torch.stack(self.poses).cpu().numpy()
+        if format == "tum":
+            save_trajectory_tum(path, self.timestamps, poses)
+        elif format == "kitti":
+            save_trajectory_kitti(path, poses)
+        else:
+            raise ValueError(f"unknown trajectory format {format!r}")
+        print(f"Saved trajectory to {path}")
+
+    def save_pointcloud(self, path: str | Path) -> None:
+        results = self._get_results()
+        if len(results["points"]) == 0:
+            print("No points to save")
+            return
+        save_ply(path, results["points"], results["colors"])
+        print(f"Saved {len(results['points'])} points to {path}")
+
+
+def main(argv: list[str] | None = None) -> int:
+    """Command line: run the SLAM loop over a dataset on the card."""
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="python -m mast3r_slam_torch.slam",
+                                 description=SLAM.__doc__)
+    ap.add_argument("dataset", help="dataset path (TUM/EuRoC dir, image folder, video)")
+    ap.add_argument("--config", default=None)
+    ap.add_argument("--model-type", default="mast3r_full", choices=["mast3r_full"])
+    ap.add_argument("--resolution", type=int, default=512)
+    ap.add_argument("--precision", default="bf16", choices=["bf16", "fp32"])
+    ap.add_argument("--checkpoint", default=None, metavar="PATH",
+                    help="local upstream-layout weights (not ported yet: raises)")
+    ap.add_argument("--seed", type=int, default=0, help="seed of the random weights")
+    ap.add_argument("--device", default=None, help="default: the card")
+    ap.add_argument("--max-frames", type=int, default=None)
+    ap.add_argument("--save-traj", default=None, metavar="PATH")
+    ap.add_argument("--traj-format", default="tum", choices=["tum", "kitti"])
+    ap.add_argument("--save-ply", default=None, metavar="PATH")
+    args = ap.parse_args(argv)
+    if args.config:
+        load_config(args.config)
+    if args.checkpoint:
+        cfg = get_config()
+        cfg.model.checkpoint = args.checkpoint
+        set_config(cfg)
+    slam = SLAM(model_type=args.model_type, resolution=args.resolution,
+                precision=args.precision, device=args.device, seed=args.seed)
+    slam.run(args.dataset, max_frames=args.max_frames)
+    if args.save_traj:
+        slam.save_trajectory(args.save_traj, format=args.traj_format)
+    if args.save_ply:
+        slam.save_pointcloud(args.save_ply)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,6 +1,7 @@
-"""Frontend tracker: the per-frame chained tracking step (the port of
-``_track_core_rays`` and the ``_make_fused_track_chain`` body with its encode
-in ``mast3r_slam_tpu/tracker.py``).
+"""Frontend tracker: the per-frame chained tracking step and the
+`FrameTracker` API that the SLAM loop drives (the port of
+``mast3r_slam_tpu/tracker.py``: ``_track_core_rays``, the
+``_make_fused_track_chain`` body with its encode, and ``FrameTracker``).
 
 One step takes a frame image and the chain state (current keyframe's
 features, fused pointmap, fusion count and pose; previous frame's pose) and
@@ -21,19 +22,27 @@ span (track.encode / decode / match / pose / fuse / promote), so a profile
 attributes device time to stages; outside a profile a span costs a few
 microseconds.
 
+Every tracking path runs on `make_track_step`: the window program
+(`track_window`, `dispatch_window`, `dispatch`), and the synchronous
+`track(frame, match_fn)` of a MASt3R model, which runs the step with
+promotion left to the caller (the SLAM loop's ``_promote_keyframe``), as the
+JAX ``_track_fused`` program does. A model without a network (the oracle of
+the tests) takes the legacy path through `match_fn`.
+
 Calibrated tracking (``use_calib: true``) is not ported yet and raises.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
 from mast3r_slam_torch.config import Config, get_config
 from mast3r_slam_torch.device import resolve_device
-from mast3r_slam_torch.frame import fuse_pointmap_masked
+from mast3r_slam_torch.frame import Frame, Keyframes, fuse_pointmap_masked
 from mast3r_slam_torch.geometry import point_to_ray_dist
 from mast3r_slam_torch.lie import core as lie
 from mast3r_slam_torch.matching import match
@@ -49,6 +58,7 @@ _PER_FRAME = (
     "ret_X", "ret_C", "kf_X", "kf_C", "kf_T",
 )
 _STATE = ("kf_feat", "kf_pos", "idx", "kf_X", "kf_C", "kN", "T_prev", "kf_T")
+_ELEMENTWISE_FUSION = ("recent", "indep_conf", "weighted_pointmap", "weighted_spherical")
 
 
 def _rays_cfg_key(cfg) -> tuple:
@@ -132,11 +142,16 @@ def _mono_pointmap(model, feat, pos, f: int):
 
 
 def make_track_step(model, cfg, filtering_mode: str, img_downsample: int = 1) -> Callable:
-    """The per-frame chained step: ``step(img [H,W,3], state) -> (out, state)``.
+    """The per-frame chained step:
+    ``step(img [H,W,3], state, promote=True, enc=None) -> (out, state)``.
 
     `state` holds the keys of ``_STATE``; `out` holds the per-frame results
     of ``_PER_FRAME`` (stats = [match_frac, match_frac_k, unique_frac_f,
-    event, kN after, retired kN]).
+    event, kN after, retired kN]), the raw match indices under "idx" and,
+    under "promoted", whether the step ran the promotion (a Python bool).
+    With ``promote=False`` the step neither reads `new_kf` nor promotes (the
+    chain keeps its keyframe); `enc` = (feat [S, D], pos [S, 2]) skips the
+    encode of a frame already encoded.
     """
     cfg_key = _rays_cfg_key(cfg)
     min_match_frac, match_frac_thresh = cfg_key[2], cfg_key[9]
@@ -147,10 +162,13 @@ def make_track_step(model, cfg, filtering_mode: str, img_downsample: int = 1) ->
         return a[:, ::f, ::f] if f > 1 else a
 
     @torch.no_grad()
-    def step(img_f, st):
+    def step(img_f, st, promote: bool = True, enc=None):
         with record_function("track.encode"):
-            img = _to_unit_image(img_f, dev)
-            feat_f, pos_f = model.encode(img[None] * 2.0 - 1.0)
+            if enc is None:
+                img = _to_unit_image(img_f, dev)
+                feat_f, pos_f = model.encode(img[None] * 2.0 - 1.0)
+            else:
+                feat_f, pos_f = enc[0][None], enc[1][None]
         with record_function("track.decode"):
             out_f, out_k = model.decode(feat_f, pos_f, st["kf_feat"][None], st["kf_pos"][None])
         Xs_f, Cs_f, Ds_f, Qs_f = (sub(out_f[k]) for k in ("pts3d", "conf", "desc", "desc_conf"))
@@ -182,7 +200,8 @@ def make_track_step(model, cfg, filtering_mode: str, img_downsample: int = 1) ->
         ret_C = torch.where(skip, kC, kC2)
         ret_N = torch.where(skip, kN, kN2)
 
-        if bool(new_kf):  # the one host read per frame
+        promoted = promote and bool(new_kf)  # the one host read per frame
+        if promoted:
             with record_function("track.promote"):
                 Xm, Cm = _mono_pointmap(model, feat_f[0], pos_f[0], f)
             nfeat, npos, nX, nC, nN, nT = (
@@ -200,7 +219,7 @@ def make_track_step(model, cfg, filtering_mode: str, img_downsample: int = 1) ->
         stats6 = torch.stack([match_frac, match_frac_k, unique_frac_f, event, nN, ret_N])
         out = dict(
             stats=stats6, T_WCf=T_out, frame_X=Xff, frame_C=Cff, feat=feat_f[0], pos=pos_f[0],
-            ret_X=ret_X, ret_C=ret_C, kf_X=nX, kf_C=nC, kf_T=nT,
+            ret_X=ret_X, ret_C=ret_C, kf_X=nX, kf_C=nC, kf_T=nT, idx=idx, promoted=promoted,
         )
         state = dict(
             kf_feat=nfeat, kf_pos=npos, idx=idx_next, kf_X=nX, kf_C=nC, kN=nN,
@@ -212,17 +231,31 @@ def make_track_step(model, cfg, filtering_mode: str, img_downsample: int = 1) ->
 
 
 class FrameTracker:
-    """Tracks frames against the current keyframe, window by window.
+    """Tracks frames against the current keyframe.
 
-    ``init_keyframe(img)`` makes `img` the first keyframe (encode + mono
-    decode); ``track_window(imgs [K, H, W, 3])`` runs K chained steps and
-    returns the per-frame results stacked [K, ...] and the final chain state
-    under "final", as the JAX window program does. Images are uint8 or float
-    in [0, 1]. Runs on the model's device; `device` (default: the card,
-    raising without CUDA) must match it.
+    Two ways to drive it, both on `make_track_step`:
+
+    * The chain API of the SLAM loop, over the keyframe arena `keyframes`:
+      `dispatch(frame)` / `dispatch_window(frames, imgs)` run chained steps
+      against the chain's keyframe state (built from the arena on first use),
+      `sync_chain` reads a window's stats, `commit_chain_frame`,
+      `abort_chain`, `refresh_chain`, `push_pose_delta` and
+      `queue_arena_correction` keep the chain and the arena in step, and
+      `track(frame, match_fn)` is the synchronous path.
+    * Without an arena: `init_keyframe(img)` makes `img` the first keyframe
+      and `track_window(imgs [K, H, W, 3])` runs K chained steps and returns
+      the per-frame results stacked [K, ...] with the final chain state under
+      "final", as the JAX window program does.
+
+    Images are uint8 or float in [0, 1]. Runs on the model's device;
+    `device` (default: the arena's, else the card, raising without CUDA)
+    must match it.
     """
 
-    def __init__(self, model, cfg: Config | None = None, device=None):
+    def __init__(self, model, cfg: Config | None = None, device=None,
+                 keyframes: Optional[Keyframes] = None):
+        if device is None and keyframes is not None:
+            device = keyframes.device
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, tracker on {self.device}")
@@ -232,12 +265,33 @@ class FrameTracker:
                 "calibrated tracking (use_calib) is not ported yet (ROADMAP queue 1 item 10)"
             )
         self.model = model
+        self.keyframes = keyframes
         self.cfg = cfg.tracking
         self._img_downsample = max(1, cfg.dataset.img_downsample)
         self._step = make_track_step(
             model, cfg.tracking, cfg.tracking.filtering_mode, self._img_downsample
         )
-        self.state: dict | None = None
+        self.state: dict | None = None  # chain state of init_keyframe / track_window
+        self.idx_f2k: Optional[torch.Tensor] = None
+        self.last_stats: Optional[dict] = None
+        self._kf_cache: Optional[dict] = None
+        self._chain: Optional[dict] = None
+        # World-frame pose correction awaiting the next dispatch, the
+        # correction applied to this chain since it was built, and the
+        # chain's generation (see queue_arena_correction).
+        self._pending_delta: Optional[torch.Tensor] = None
+        self._corr_cum = lie.sim3_identity(device=self.device)
+        self._chain_gen = 0
+        self._use_fused = hasattr(model, "net") and self.cfg.filtering_mode in _ELEMENTWISE_FUSION
+
+    @property
+    def can_pipeline(self) -> bool:
+        return self._use_fused
+
+    def reset_idx_f2k(self) -> None:
+        self.idx_f2k = None
+
+    # ------------------------------------------------ standalone window API
 
     @torch.no_grad()
     def init_keyframe(self, img, T_WC: torch.Tensor | None = None) -> None:
@@ -246,9 +300,8 @@ class FrameTracker:
         feat, pos = self.model.encode(x[None] * 2.0 - 1.0)
         X, C = _mono_pointmap(self.model, feat[0], pos[0], self._img_downsample)
         T = lie.sim3_identity(device=self.device) if T_WC is None else T_WC.to(self.device)
-        n = X.shape[0]
         self.state = dict(
-            kf_feat=feat[0], kf_pos=pos[0], idx=torch.arange(n, device=self.device)[None],
+            kf_feat=feat[0], kf_pos=pos[0], idx=torch.arange(X.shape[0], device=self.device)[None],
             kf_X=X, kf_C=C, kN=torch.ones((), device=self.device), T_prev=T, kf_T=T,
         )
 
@@ -262,3 +315,233 @@ class FrameTracker:
         result = {k: torch.stack([o[k] for o in outs]) for k in _PER_FRAME}
         result["final"] = {k: self.state[k] for k in _STATE}
         return result
+
+    # --------------------------------------------------- chained dispatch
+
+    def _kf_state(self, kf_idx: int) -> dict:
+        """The tracked keyframe's state, cached against the arena version.
+        Copies, not views: the arena's slots are rewritten in place and
+        shifted by evictions, and the chain must keep what it read."""
+        kfs = self.keyframes
+        cache = self._kf_cache
+        if cache is not None and cache["key"] == (kf_idx, kfs.version):
+            return cache
+        cache = dict(
+            key=(kf_idx, kfs.version),
+            feat=kfs._feat[kf_idx].clone(),
+            pos=kfs._pos,
+            X=kfs.X[kf_idx].clone(),
+            C=kfs.C[kf_idx].clone(),
+            N=float(kfs._n_host[kf_idx]),
+            T=kfs.T_WC[kf_idx].clone(),
+        )
+        self._kf_cache = cache
+        return cache
+
+    def _ensure_chain(self, kf_idx: int) -> dict:
+        """The chain's keyframe state, rebuilt from the arena when absent or
+        re-anchored to another keyframe; applies a pending world-frame pose
+        correction (a left delta, which commutes through promotions)."""
+        chain = self._chain
+        if chain is None or chain["kf_idx"] != kf_idx:
+            kf = self._kf_state(kf_idx)
+            chain = dict(kf_idx=kf_idx, feat=kf["feat"], pos=kf["pos"], X=kf["X"], C=kf["C"],
+                         N=torch.full((), kf["N"], device=self.device), T=kf["T"], T_prev=None)
+            self._pending_delta = None  # the arena's poses are already corrected
+            self._corr_cum = lie.sim3_identity(device=self.device)
+            self._chain_gen += 1
+        elif self._pending_delta is not None:
+            delta = self._pending_delta
+            chain["T"] = lie.sim3_mul(delta, chain["T"])
+            if chain["T_prev"] is not None:
+                chain["T_prev"] = lie.sim3_mul(delta, chain["T_prev"])
+            self._pending_delta = None
+            self._corr_cum = lie.sim3_mul(delta, self._corr_cum)
+        return chain
+
+    def _warm_idx(self) -> torch.Tensor:
+        if self.idx_f2k is not None:
+            return self.idx_f2k
+        n = self.keyframes.h * self.keyframes.w
+        return torch.arange(n, device=self.device)[None]
+
+    def _chain_steps(self, frames: list, imgs, T_init) -> Optional[tuple[list, dict]]:
+        """Run the chained step over `imgs` from the chain of the arena's last
+        keyframe; None when there is no keyframe yet."""
+        kf_idx = self.keyframes.last_index()
+        if kf_idx is None:
+            return None
+        chain = self._ensure_chain(kf_idx)
+        T_WCf = chain["T_prev"]
+        if T_WCf is None:
+            T_WCf = T_init if T_init is not None else frames[0].T_WC
+        st = dict(kf_feat=chain["feat"], kf_pos=chain["pos"], idx=self._warm_idx(),
+                  kf_X=chain["X"], kf_C=chain["C"], kN=chain["N"], T_prev=T_WCf,
+                  kf_T=chain["T"])
+        rows = []
+        for img in imgs:
+            out, st = self._step(img, st)
+            rows.append(out)
+        self.idx_f2k = st["idx"]
+        self._chain = dict(kf_idx=chain["kf_idx"], feat=st["kf_feat"], pos=st["kf_pos"],
+                           X=st["kf_X"], C=st["kf_C"], N=st["kN"], T=st["kf_T"],
+                           T_prev=st["T_prev"])
+        return rows, st
+
+    def dispatch(self, frame: Frame, T_init: Optional[torch.Tensor] = None):
+        """One chained step for `frame`; the keyframe/skip decision and any
+        promotion happen inside it. Returns a handle (None without a
+        keyframe); `sync_chain` reads its stats."""
+        res = self._chain_steps([frame], [frame.img], T_init)
+        if res is None:
+            return None
+        return dict(frame=frame, out=res[0][0], corr=(self._chain_gen, self._corr_cum))
+
+    def dispatch_window(self, frames: list, imgs: torch.Tensor,
+                        T_init: Optional[torch.Tensor] = None):
+        """Chained steps for a window of frames, `imgs` [K, H, W, 3] uint8 or
+        float on the device. Returns a window handle whose "out" holds the
+        per-frame results under "rows", their stats stacked [K, 6] under
+        "stats" and the final chain state under "final"; None without a
+        keyframe."""
+        res = self._chain_steps(frames, imgs, T_init)
+        if res is None:
+            return None
+        rows, st = res
+        out = dict(rows=rows, stats=torch.stack([r["stats"] for r in rows]),
+                   final={k: st[k] for k in _STATE})
+        return dict(frames=frames, out=out, window=True, corr=(self._chain_gen, self._corr_cum))
+
+    def sync_chain(self, handles: list) -> np.ndarray:
+        """The handles' stats bundles, [K, 6] (match_frac, match_frac_k,
+        unique_frac_f, event, kf_N_next, retired_N), in one host read."""
+        return torch.stack([h["out"]["stats"] for h in handles]).cpu().numpy()
+
+    def commit_chain_frame(self, frame: Frame, row: dict, stats_row, tracked: bool = True):
+        """Record one chained frame's results on its Frame (no device read:
+        `stats_row` came from the window's one stats read)."""
+        self.last_stats = dict(match_frac=float(stats_row[0]), match_frac_k=float(stats_row[1]),
+                               unique_frac_f=float(stats_row[2]))
+        frame.feat, frame.pos = row["feat"], row["pos"]
+        frame.X_canon, frame.C = row["frame_X"], row["frame_C"]
+        frame.N = frame.N_updates = 1
+        if tracked:
+            frame.T_WC = row["T_WCf"]
+
+    def abort_chain(self) -> None:
+        """Drop the chain (reloc, mode change); the next dispatch rebuilds it
+        from the arena."""
+        self._chain = None
+        self._kf_cache = None
+        self._pending_delta = None
+        self._corr_cum = lie.sim3_identity(device=self.device)
+        self._chain_gen += 1
+        self.reset_idx_f2k()
+
+    def push_pose_delta(self, delta: torch.Tensor) -> None:
+        """Queue a world-frame left pose correction for the next dispatch."""
+        self._pending_delta = (delta if self._pending_delta is None
+                               else lie.sim3_mul(delta, self._pending_delta))
+
+    def queue_arena_correction(self, arena_T: torch.Tensor, window_kf_T: torch.Tensor,
+                               corr_at_dispatch: tuple) -> None:
+        """Re-align the chain's keyframe pose with the arena's after backend
+        solves: queue ``arena_T . inv(belief)``, where the belief is the
+        drained window's keyframe pose brought up to date with the
+        corrections applied or queued since that window's dispatch (so none
+        is applied twice). A snapshot of an older chain generation is
+        ignored: a rebuilt chain read the corrected arena."""
+        gen, corr0 = corr_at_dispatch
+        if gen != self._chain_gen:
+            return
+        corr_now = self._corr_cum
+        if self._pending_delta is not None:
+            corr_now = lie.sim3_mul(self._pending_delta, corr_now)
+        belief = lie.sim3_mul(lie.sim3_mul(corr_now, lie.sim3_inv(corr0)), window_kf_T)
+        self.push_pose_delta(lie.sim3_mul(arena_T, lie.sim3_inv(belief)))
+
+    def refresh_chain(self, kf_idx: int) -> None:
+        """Re-anchor the live chain to arena slot `kf_idx` after a drain."""
+        if self._chain is not None:
+            self._chain["kf_idx"] = kf_idx
+
+    # -------------------------------------------------- synchronous path
+
+    @torch.no_grad()
+    def track(self, frame: Frame, mast3r_match_fn: Callable):
+        """Track `frame` against the arena's last keyframe -> (new_kf,
+        match_info, try_reloc). Promotion is the caller's."""
+        kf_idx = self.keyframes.last_index()
+        if kf_idx is None:
+            return False, [], True
+        if self._use_fused:
+            return self._track_fused(frame, kf_idx)
+        keyframe = self.keyframes[kf_idx]
+        idx_f2k, valid_match_k, Xff, Cff, Qff, Xkf, Ckf, Qkf = mast3r_match_fn(
+            self.model, frame, keyframe, idx_i2j_init=self.idx_f2k)
+        self.idx_f2k = idx_f2k
+        frame.update_pointmap(Xff[0], Cff[0])
+        out = _track_core_rays(
+            idx_f2k[0], valid_match_k[0], Qff[0], Qkf[0], frame.X_canon, frame.get_average_conf(),
+            keyframe.X_canon, keyframe.get_average_conf(), Xkf[0], frame.T_WC, keyframe.T_WC,
+            _rays_cfg_key(self.cfg),
+        )
+        return self._finish(frame, kf_idx, out, Ckf[0], Qkf, Qff)
+
+    def _track_fused(self, frame: Frame, kf_idx: int):
+        """The step with promotion left to the caller, from the arena's
+        keyframe state and the frame's own pose as the initial guess (the
+        JAX ``_make_fused_track`` program). The frame is a fresh one, as
+        the SLAM loop gives it: its pointmap is the step's output."""
+        from mast3r_slam_torch.inference import _ensure_encoded
+
+        if frame.N > 0:
+            raise NotImplementedError("re-tracking a frame that already holds a fused pointmap")
+        _ensure_encoded(self.model, frame)
+        kf = self._kf_state(kf_idx)
+        st = dict(kf_feat=kf["feat"], kf_pos=kf["pos"], idx=self._warm_idx(), kf_X=kf["X"],
+                  kf_C=kf["C"], kN=torch.full((), kf["N"], device=self.device),
+                  T_prev=frame.T_WC, kf_T=kf["T"])
+        out, _ = self._step(frame.img, st, promote=False, enc=(frame.feat, frame.pos))
+        self.idx_f2k = out["idx"]
+        stats = out["stats"].cpu().numpy()  # the one host read of the frame
+        match_frac, match_frac_k, unique_frac_f = (float(x) for x in stats[:3])
+        kf_N = float(stats[4])
+        self.last_stats = dict(match_frac=match_frac, match_frac_k=match_frac_k,
+                               unique_frac_f=unique_frac_f)
+        frame.X_canon, frame.C = out["frame_X"], out["frame_C"]
+        frame.N = 1
+        frame.N_updates += 1
+        c = self.cfg
+        if match_frac < c.min_match_frac:
+            print(f"Skipped frame {frame.frame_id}")
+            return False, [], True
+        frame.T_WC = out["T_WCf"]
+        self.keyframes.write_pointmap(kf_idx, out["kf_X"], out["kf_C"], kf_N)
+        self._kf_cache = dict(key=(kf_idx, self.keyframes.version), feat=kf["feat"],
+                              pos=kf["pos"], X=out["kf_X"], C=out["kf_C"], N=kf_N, T=kf["T"])
+        new_kf = min(match_frac_k, unique_frac_f) < c.match_frac_thresh
+        if new_kf:
+            self.reset_idx_f2k()
+        match_info = [out["kf_X"], out["kf_C"] / max(kf_N, 1.0), frame.X_canon,
+                      frame.get_average_conf()]
+        return new_kf, match_info, False
+
+    def _finish(self, frame, kf_idx, out, Ckf, Qkf, Qff):
+        c = self.cfg
+        match_frac, match_frac_k, unique_frac_f = (float(x) for x in out["stats"].cpu().numpy())
+        self.last_stats = dict(match_frac=match_frac, match_frac_k=match_frac_k,
+                               unique_frac_f=unique_frac_f)
+        if match_frac < c.min_match_frac:
+            print(f"Skipped frame {frame.frame_id}")
+            return False, [], True
+        frame.T_WC = out["T_WCf"]
+        kf = self.keyframes[kf_idx]
+        kf.update_pointmap(out["Xkk"], Ckf)
+        self.keyframes.write_pointmap(kf_idx, kf.X_canon, kf.C, float(kf.N),
+                                      n_updates=kf.N_updates, score=kf._score)
+        new_kf = min(match_frac_k, unique_frac_f) < c.match_frac_thresh
+        if new_kf:
+            self.reset_idx_f2k()
+        return new_kf, [kf.X_canon, kf.get_average_conf(), frame.X_canon,
+                        frame.get_average_conf(), Qkf, Qff], False

@@ -45,6 +45,17 @@ def test_frame_tracker_without_device_raises(no_cuda):
         FrameTracker(model, Config())
 
 
+def test_slam_and_probe_cases_without_device_raise(no_cuda):
+    from mast3r_slam_torch import probe_shift
+    from mast3r_slam_torch.slam import SLAM
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SLAM()
+    for case in probe_shift.CASES.values():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            case()
+
+
 def test_frame_tracker_rejects_calib_and_untracked_use():
     model = MASt3RModel.create(model_type="tiny", resolution=64, device="cpu")
     with pytest.raises(NotImplementedError, match="use_calib"):
@@ -75,6 +86,48 @@ def test_port_imports_no_jax():
         tracker.init_keyframe(rng.uniform(0, 1, (48, 64, 3)).astype(np.float32))
         out = tracker.track_window(rng.uniform(0, 1, (2, 48, 64, 3)).astype(np.float32))
         assert out["stats"].shape == (2, 6) and bool(torch.isfinite(out["T_WCf"]).all())
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "mast3r_slam_tpu"))
+        print("FOREIGN", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "FOREIGN []" in proc.stdout
+
+
+def test_slam_loop_and_probe_import_no_jax():
+    """Run the port's SLAM loop (tiny model, CPU, chained windows, the
+    native host pipeline) and the probe entry point in a fresh interpreter;
+    then neither jax nor mast3r_slam_tpu may be in sys.modules."""
+    code = textwrap.dedent("""
+        import sys
+        import numpy as np
+        from mast3r_slam_torch import probe_shift
+        from mast3r_slam_torch.config import Config, set_config
+        from mast3r_slam_torch.dataloader import Dataset
+        from mast3r_slam_torch.models import MASt3RModel
+        from mast3r_slam_torch.slam import SLAM
+        from mast3r_slam_torch.workload import BENCH_SETTINGS, drift_frames
+
+        class Frames(Dataset):
+            def __init__(self, imgs):
+                self.imgs = imgs
+            def __len__(self):
+                return len(self.imgs)
+            def __getitem__(self, i):
+                return float(i), self.imgs[i]
+
+        settings = dict(BENCH_SETTINGS, runtime={"sync_every": 2, "keyframe_capacity": 4})
+        set_config(Config.from_dict(settings))
+        model = MASt3RModel.create(model_type="tiny", resolution=64, device="cpu")
+        rng = np.random.default_rng(0)
+        base = rng.uniform(0, 1, (48, 64, 3)).astype(np.float32)
+        imgs = list((drift_frames(base, 5, rng) * 255).astype(np.uint8))
+        res = SLAM(model=model, resolution=64).run(Frames(imgs))
+        assert res["poses"].shape == (5, 4, 4) and np.isfinite(res["poses"]).all()
+        assert probe_shift.main(["cpu"]) == 0
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "mast3r_slam_tpu"))
         print("FOREIGN", bad)

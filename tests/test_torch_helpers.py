@@ -43,3 +43,47 @@ def tiny_pair(head_type: str = "linear", resolution: int = 64):
                             resolution=resolution, device="cpu")
     tm.load_state_dict(params_from_flax(flax_tree(jm.params)))
     return jm, tm
+
+
+def run_tiny_slam_pair(extra: dict, n_frames: int, sync_every: int = 2, seed: int = 0):
+    """`SLAM.run` of the JAX package and of the port over the same in-memory
+    frames (a seeded image drifting 2 px per frame, at the tiny model's 48x64
+    so the loaders pass it through unchanged), with the same tiny weights,
+    under bench.py's settings updated by `extra`, the windowed chained path
+    on. -> (jax SLAM, jax results, port SLAM, port results)."""
+    import copy
+
+    from mast3r_slam_tpu.dataloader import Dataset as JaxDataset
+    from mast3r_slam_tpu.slam import SLAM as JaxSLAM
+    from mast3r_slam_torch.dataloader import Dataset
+    from mast3r_slam_torch.slam import SLAM
+    from mast3r_slam_torch.workload import drift_frames
+
+    class JaxFrames(JaxDataset):
+        def __init__(self, imgs):
+            self.imgs = imgs
+
+        def __len__(self):
+            return len(self.imgs)
+
+        def __getitem__(self, i):
+            return float(i), self.imgs[i]
+
+    class Frames(JaxFrames, Dataset):
+        pass
+
+    settings = copy.deepcopy(BENCH_SETTINGS)
+    for key, value in extra.items():
+        settings.setdefault(key, {}).update(value)
+    settings["runtime"].update(sync_every=sync_every, pipeline=True)
+    with both_configs(settings):
+        jm, tm = tiny_pair("linear")
+        h, w = jm._out_hw
+        rng = np.random.default_rng(seed)
+        base = rng.uniform(0, 1, (h, w, 3)).astype(np.float32)
+        imgs = list((drift_frames(base, n_frames, rng) * 255).astype(np.uint8))
+        jslam = JaxSLAM(model=jm, resolution=w)
+        jres = jslam.run(JaxFrames(imgs))
+        tslam = SLAM(model=tm, resolution=w)
+        tres = tslam.run(Frames(imgs))
+    return jslam, jres, tslam, tres
