@@ -169,22 +169,18 @@ def _stride_indices(N: int, stride: int, img_size) -> np.ndarray:
     return base
 
 
-def _edge_system(Twc, Xi_t, Xj_t, ii, jj, weight_mask, Q, mode: str, p: GNParams,
-                 variant: str = "base"):
+def _edge_system(Twc, Xi_t, Xj_t, ii, jj, weight_mask, Q, mode: str, p: GNParams):
     """Per-edge 7x7 blocks S [E,7,7], gradients b [E,7] (of pose j; pose i gets
     -b) and the cost, from the pre-gathered points Xi_t / Xj_t [E, 3, N].
 
     With P = Tij . Xj and left perturbations, the point Jacobian chained with
     Ad(Ti^-1) is expanded analytically:
         (Jp Ad)[r, c] = Ad[r, c] + (-[P]x)[r, :] . Ad[3:6, c] + P_r Ad[6, c].
-    "noconcat" sums the three residual rows' blocks; "base" forms the
-    [E, 7, 3N] weighted Jacobian once; the two are the same sums."""
+    S and b are summed over the three residual rows' [E, 7, N] blocks (the
+    JAX package's "noconcat" variant)."""
     if mode != "rays":
         raise NotImplementedError(
             f"graph GN mode {mode!r} is not ported yet (ROADMAP queue 1 item 8)")
-    vset = set(variant.split("+"))
-    if not vset <= {"base", "noconcat"}:
-        raise NotImplementedError(f"solve_variant {variant!r} is not ported yet")
     Ti, Tj = Twc[ii], Twc[jj]
     Tij = lie.sim3_mul(lie.sim3_inv(Ti), Tj)
     t, q, s = Tij[:, :3], Tij[:, 3:7], Tij[:, 7:8]
@@ -206,13 +202,8 @@ def _edge_system(Twc, Xi_t, Xj_t, ii, jj, weight_mask, Q, mode: str, p: GNParams
     sw = torch.sqrt(w)
     Ak = [sw[:, k:k + 1] * (sigma_inv * JpAd[k]) for k in range(3)]  # [E, 7, N]
     rk = [sw[:, k] * r[:, k] for k in range(3)]  # [E, N]
-    if "noconcat" in vset:
-        S = sum(a @ a.transpose(1, 2) for a in Ak)
-        b = sum((a @ v[..., None])[..., 0] for a, v in zip(Ak, rk))
-    else:
-        Acat, rcat = torch.cat(Ak, dim=2), torch.cat(rk, dim=1)
-        S = Acat @ Acat.transpose(1, 2)
-        b = (Acat @ rcat[..., None])[..., 0]
+    S = sum(a @ a.transpose(1, 2) for a in Ak)
+    b = sum((a @ v[..., None])[..., 0] for a, v in zip(Ak, rk))
     cost = 0.5 * (w * r * r).sum()
     return S.to(Twc.dtype), b.to(Twc.dtype), cost
 
@@ -231,13 +222,13 @@ def _resolve_edge_chunk(E: int, n_pts: int, edge_chunk: int | None) -> int:
 
 
 def _edge_blocks(Twc_cur, Xi_t, Xj_t, ii, jj, weight_mask, Q, chunk: int, mode: str,
-                 p: GNParams, variant: str = "base"):
+                 p: GNParams):
     """S [E,7,7] and b [E,7], one `_edge_system` per chunk of edges."""
     S, b = [], []
     for c0 in range(0, ii.shape[0], chunk):
         sl = slice(c0, c0 + chunk)
         S_c, b_c, _ = _edge_system(Twc_cur, Xi_t[sl], Xj_t[sl], ii[sl], jj[sl],
-                                   weight_mask[sl], Q[sl], mode, p, variant)
+                                   weight_mask[sl], Q[sl], mode, p)
         S.append(S_c)
         b.append(b_c)
     return (S[0], b[0]) if len(S) == 1 else (torch.cat(S), torch.cat(b))
@@ -268,13 +259,17 @@ def gauss_newton_graph(
     img_size: tuple[int, int] | None = None,
     params: GNParams = GNParams(),
     edge_chunk: int | None = None,
-    variant: str = "base",
+    variant: str = "noconcat",
     point_stride: int = 1,
 ):
     """Global Sim(3) pose-graph GN over dense correspondences -> (Twc_new
     [K, 8], final step norm []). Pinned poses get an identity diagonal; the
     Levenberg floor is `reg` times max(max|diag H|, 1); a non-finite step is
-    replaced by zero."""
+    replaced by zero. `variant` takes the JAX package's `solve_variant`
+    names that sum in f32: "base" (one concatenated [E, 7, 3N] Jacobian)
+    and "noconcat" are the same sums, and both run the one path here."""
+    if not set(variant.split("+")) <= {"base", "noconcat"}:
+        raise NotImplementedError(f"solve_variant {variant!r} is not ported yet")
     p = params
     K, dtype = Twc.shape[0], Twc.dtype
     if point_stride < 1:
@@ -301,7 +296,7 @@ def gauss_newton_graph(
                 * ((1.0 - freeF)[:, None, None, None] * torch.eye(7, dtype=dtype, device=Twc.device)))
 
     def step(Twc_cur):
-        S, b = _edge_blocks(Twc_cur, Xi_t, Xj_t, ii, jj, weight_mask, Q, chunk, mode, p, variant)
+        S, b = _edge_blocks(Twc_cur, Xi_t, Xj_t, ii, jj, weight_mask, Q, chunk, mode, p)
         H, g = _assemble_Hg(K, ii, jj, S, b, dtype)
         H = H * freeF[:, None, None, None] * freeF[None, :, None, None] + pin_diag
         g = g * freeF[:, None]

@@ -6,8 +6,9 @@ plain versions.
 case each replaces and what bounds it). For a CUDA tensor they launch the
 kernel through `_launch` (the counterpart of that script's ``_mk``: allocate
 the output, launch on PyTorch's current stream, check ``cudaGetLastError``)
-or raise; for a CPU tensor they compute the plain version beside them. Each
-keeps a count of its kernel launches, and so does `_launch`.
+or raise; for a CPU tensor they compute the plain version beside them.
+`launches` counts kernel launches by kernel symbol, and only `_launch`
+raises it, just after a launch that succeeded.
 
 Shift rule, as ``pltpu.roll`` needs it: ``0 <= shift < C``. A static shift
 (a Python int) outside that range raises; a dynamic shift (an int32 tensor of
@@ -25,6 +26,8 @@ _HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 _F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 MAX_OFFSETS = 8
 _ROLL_SYMBOLS = {torch.float32: "roll_last_axis_f32", torch.bfloat16: "roll_last_axis_bf16"}
+SLICE_SUM_SYMBOL = "offset_slice_sum_bf16"
+launches = dict.fromkeys([*_ROLL_SYMBOLS.values(), SLICE_SUM_SYMBOL], 0)
 
 
 def roll_reference(x: torch.Tensor, shift) -> torch.Tensor:
@@ -89,7 +92,7 @@ def _launch(name: str, out_shape, dtype: torch.dtype, *args) -> torch.Tensor:
     err = getattr(_lib(), name)(*cargs, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    _launch.launches += 1
+    launches[name] += 1
     return out
 
 
@@ -118,9 +121,7 @@ def roll_last_axis(x: torch.Tensor, shift) -> torch.Tensor:
         shift_ptr, s = shift, 0
     else:
         shift_ptr, s = None, _static_shift(shift, c)
-    out = _launch(_ROLL_SYMBOLS[x.dtype], x.shape, x.dtype, x, rows, c, shift_ptr, s)
-    roll_last_axis.launches += 1
-    return out
+    return _launch(_ROLL_SYMBOLS[x.dtype], x.shape, x.dtype, x, rows, c, shift_ptr, s)
 
 
 def offset_slice_sum(x: torch.Tensor, row0: int, rows: int, width: int,
@@ -134,10 +135,8 @@ def offset_slice_sum(x: torch.Tensor, row0: int, rows: int, width: int,
         raise TypeError(f"offset_slice_sum: the kernel takes bf16, got {x.dtype}")
     _check_slices(x, row0, rows, width, offsets)
     offs = (ctypes.c_int * len(offsets))(*offsets)
-    out = _launch("offset_slice_sum_bf16", (rows, width), torch.float32,
-                  x, x.shape[1], row0, rows, width, offs, len(offsets))
-    offset_slice_sum.launches += 1
-    return out
+    return _launch(SLICE_SUM_SYMBOL, (rows, width), torch.float32,
+                   x, x.shape[1], row0, rows, width, offs, len(offsets))
 
 
 def roll_bound(numel: int, itemsize: int) -> tuple[float, str]:
@@ -152,7 +151,3 @@ def slice_sum_bound(x_numel: int, rows: int, width: int, n_offsets: int) -> tupl
     t_ops = rows * width * n_offsets / _F32_FLOPS_PER_S
     return 1e3 * max(t_bytes, t_ops), "operations" if t_ops > t_bytes else "bytes"
 
-
-_launch.launches = 0
-roll_last_axis.launches = 0
-offset_slice_sum.launches = 0

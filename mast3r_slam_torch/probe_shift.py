@@ -10,7 +10,8 @@ runs, through the hand-written kernels of ``csrc/lane_shift.cu``
 inputs: ones at its shapes and dtypes, shift 3 (dynamic, an int32 on the
 device, as the script holds it in SMEM) or 5 (static). `main` prints the
 backend and one ``name: OK`` or ``name: FAIL ...`` line per case, as the
-script does. Each case counts its kernel launches in ``case.launches``.
+script does. Kernel launches are counted by kernel symbol in
+``ops.lane_shift.launches``; `SYMBOLS` names each case's kernel.
 """
 
 from __future__ import annotations
@@ -34,50 +35,42 @@ def _dynamic_shift(shift, device: torch.device) -> torch.Tensor:
     return torch.tensor([3 if shift is None else int(shift)], dtype=torch.int32, device=device)
 
 
-def _counted(case, out: torch.Tensor) -> torch.Tensor:
-    if out.device.type == "cuda":
-        case.launches += 1
-    return out
-
-
-def _dyn_roll(case, shape, dtype, x, shift, device):
+def _dyn_roll(shape, dtype, x, shift, device):
     x = _input(x, shape, dtype, device)
-    return _counted(case, roll_last_axis(x, _dynamic_shift(shift, x.device)))
+    return roll_last_axis(x, _dynamic_shift(shift, x.device))
 
 
 def case_dyn_rot_2d_f32(x=None, shift=None, device=None):
     """roll(x, s, axis=1) of an (8, 256) f32 tile, s on the device."""
-    return _dyn_roll(case_dyn_rot_2d_f32, (8, 256), torch.float32, x, shift, device)
+    return _dyn_roll((8, 256), torch.float32, x, shift, device)
 
 
 def case_dyn_rot_2d_bf16(x=None, shift=None, device=None):
     """roll(x, s, axis=1) of a (16, 256) bf16 tile, s on the device."""
-    return _dyn_roll(case_dyn_rot_2d_bf16, (16, 256), torch.bfloat16, x, shift, device)
+    return _dyn_roll((16, 256), torch.bfloat16, x, shift, device)
 
 
 def case_dyn_rot_3d_f32(x=None, shift=None, device=None):
     """roll(x, s, axis=2) of a (3, 8, 256) f32 block, s on the device."""
-    return _dyn_roll(case_dyn_rot_3d_f32, (3, 8, 256), torch.float32, x, shift, device)
+    return _dyn_roll((3, 8, 256), torch.float32, x, shift, device)
 
 
 def case_dyn_rot_3d_bf16_aligned(x=None, shift=None, device=None):
     """roll(x, s, axis=2) of a (3, 16, 256) bf16 block, s on the device."""
-    return _dyn_roll(case_dyn_rot_3d_bf16_aligned, (3, 16, 256), torch.bfloat16, x, shift,
-                     device)
+    return _dyn_roll((3, 16, 256), torch.bfloat16, x, shift, device)
 
 
 def case_static_unaligned_slice_bf16(x=None, shift=None, device=None):
     """f32 sum of x[5:21, du:du+128] over du in (0, 3, 7) of a (40, 256)
     bf16 tile (`shift` is unused: the offsets are static)."""
     x = _input(x, (40, 256), torch.bfloat16, device)
-    return _counted(case_static_unaligned_slice_bf16,
-                    offset_slice_sum(x, SLICE_ROW0, SLICE_ROWS, SLICE_WIDTH, SLICE_OFFSETS))
+    return offset_slice_sum(x, SLICE_ROW0, SLICE_ROWS, SLICE_WIDTH, SLICE_OFFSETS)
 
 
 def case_static_rot_bf16(x=None, shift=None, device=None):
     """roll(x, 5, axis=1) of a (16, 256) bf16 tile, the shift a static int."""
     x = _input(x, (16, 256), torch.bfloat16, device)
-    return _counted(case_static_rot_bf16, roll_last_axis(x, 5 if shift is None else int(shift)))
+    return roll_last_axis(x, 5 if shift is None else int(shift))
 
 
 CASES = {
@@ -88,8 +81,15 @@ CASES = {
     "static_unaligned_slice_bf16": case_static_unaligned_slice_bf16,
     "static_rot_bf16": case_static_rot_bf16,
 }
-for _case in CASES.values():
-    _case.launches = 0
+# the kernel symbol (a key of ops.lane_shift.launches) each case launches
+SYMBOLS = {
+    "dyn_rot_2d_f32": "roll_last_axis_f32",
+    "dyn_rot_2d_bf16": "roll_last_axis_bf16",
+    "dyn_rot_3d_f32": "roll_last_axis_f32",
+    "dyn_rot_3d_bf16_aligned": "roll_last_axis_bf16",
+    "static_unaligned_slice_bf16": "offset_slice_sum_bf16",
+    "static_rot_bf16": "roll_last_axis_bf16",
+}
 
 
 def probe(name: str, fn, device=None) -> bool:

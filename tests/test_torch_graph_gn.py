@@ -72,6 +72,25 @@ def test_graph_solve_matches_jax(variant):
     assert np.abs(tT - gt)[1:, :3].max() < np.abs(np.asarray(prob["Twc0"]) - gt)[1:, :3].max()
 
 
+def test_solve_variant_names_take_one_path():
+    """The port's default is Config.local_opt.solve_variant ("noconcat", what
+    SLAM.run passes); "base" names the same sums and gives the same bits; an
+    unported variant raises."""
+    from mast3r_slam_torch.config import Config
+
+    prob = _problem(3)
+    E = prob["ii"].shape[0]
+    args = [_t(a) for a in (prob["Twc0"], prob["Xs"], prob["Cs"], prob["ii"], prob["jj"],
+                            prob["idx"], prob["valid"], prob["Q"], np.ones(E, bool),
+                            np.arange(prob["Xs"].shape[0]) >= 1)]
+    assert Config().local_opt.solve_variant == "noconcat"
+    solve = lambda v: gauss_newton_graph(*args, img_size=prob["img_size"], variant=v)[0]  # noqa: E731
+    default = gauss_newton_graph(*args, img_size=prob["img_size"])[0]
+    assert torch.equal(default, solve("noconcat")) and torch.equal(default, solve("base"))
+    with pytest.raises(NotImplementedError, match="solve_variant"):
+        solve("noconcat+bf16")  # JAX's bf16 transients are not ported
+
+
 def test_free_pose_without_edges_matches_jax():
     """A free pose that no edge touches: its block is the Levenberg floor
     alone, its step zero, in both."""

@@ -130,12 +130,11 @@ def test_shift_rule():
 
 
 def test_cpu_tensors_launch_nothing_and_main_prints_every_case(capsys):
-    before = (lane_shift._launch.launches, lane_shift.roll_last_axis.launches,
-              lane_shift.offset_slice_sum.launches)
+    before = dict(lane_shift.launches)
     assert probe_shift.main(["cpu"]) == 0
     lines = capsys.readouterr().out.splitlines()
     assert lines[0] == "backend=cpu"
     assert lines[1:] == [f"{name}: OK" for name in probe_shift.CASES]
-    assert (lane_shift._launch.launches, lane_shift.roll_last_axis.launches,
-            lane_shift.offset_slice_sum.launches) == before
-    assert all(fn.launches == 0 for fn in probe_shift.CASES.values())
+    assert lane_shift.launches == before
+    assert set(probe_shift.SYMBOLS) == set(probe_shift.CASES)
+    assert set(probe_shift.SYMBOLS.values()) == set(lane_shift.launches)
