@@ -13,7 +13,10 @@ Phases, in order; any failure exits non-zero before the result line:
                and the backend's batch of 6: three keyframe pairs decoded
                both ways) and times kernel, plain version and the PyTorch
                library call (a yardstick only; the port never calls it)
-               with CUDA events over a dependent chain of launches.
+               with CUDA events over a dependent chain of launches; then at
+               the edges of its schedule (Sq {1, 65, 200} x Skv {1, 77, 129,
+               768} at every split count, B*H = 72 on fused-qkv strides),
+               and bit-equal to itself when a call is repeated.
   4. probe   - the probe entry point (mast3r_slam_torch.probe_shift): each of
                its six cases once on the card with the script's inputs, the
                launch counts by kernel symbol set to 0 just before the case
@@ -21,7 +24,13 @@ Phases, in order; any failure exits non-zero before the result line:
                shifts {0, 1, 3, C-1}; every result torch.equal to the plain
                version on the same inputs. Times each lane-shift kernel
                beside its bound, its plain version and torch.roll, and one
-               roll at a matcher plane's size (16, 384, 512) bf16.
+               roll at a matcher plane's size (16, 384, 512) bf16, warm (a
+               chain on one L2-resident buffer) and cold (a rotation over
+               10 input/output pairs, 126 MB, beyond the 50 MB L2). Holds
+               the roll bit-equal to torch.roll at C {8, 77, 256, 1000,
+               16000, 65537}, 1 and an odd number of rows, shifts {0, 1, 7,
+               8, 9, C-1}, f32 and bf16, dynamic and static, from a base
+               that is not 16-byte aligned, and through both its kernels.
   5. reference - a small model (head dim 64, depth 2, 48x64) runs the same
                tracking step on the card and on the CPU (plain versions);
                the decode outputs and the tracker's results must agree.
@@ -84,6 +93,16 @@ PROBE_CASES = {
     "static_rot_bf16": ((16, 256), "bfloat16", False, 117),
 }
 MATCHER_PLANE = (16, 384, 512)  # a bf16 roll where the bytes, not the launch, set the bound
+COLD_PAIRS = 10  # input/output pairs of the cold matcher-plane roll: 126 MB > the 50 MB L2
+# The PR-1 attention kernel (mma.sync m16n8k16) at the kernel phase's main
+# shapes: device ms from the same time_graph, the mean of the two runs of
+# mast3r_slam_torch/kernel_bench.py on a checkout of the commit before the
+# redesign, in the chip call that timed the redesigned kernel between them
+# (H100 80GB HBM3, 700.00 W). Printed beside `ms` as `prev_ms`.
+PREV_ATTENTION_MS = {
+    "encoder self": 0.022733, "decoder self": 0.022879, "decoder cross": 0.022814,
+    "backend decoder self": 0.068212, "backend decoder cross": 0.067702,
+}
 
 
 class SmokeFailure(Exception):
@@ -132,6 +151,35 @@ def time_graph(fn, x, iters: int = 20, reps: int = 10) -> float:
     return start.elapsed_time(end) / (reps * iters)
 
 
+def time_cold(fn, xs, reps: int = 10) -> float:
+    """Device ms per call of fn over a rotation of distinct inputs xs, each
+    call writing its own output, all captured in one CUDA graph: when the
+    inputs and outputs together exceed the L2, every call finds its data in
+    device memory, as a caller streaming new data would."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for x in xs[:2]:
+            fn(x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fn(x) for x in xs]  # kept alive: every call has its own output
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del outs
+    return start.elapsed_time(end) / (reps * len(xs))
+
+
 def time_eager(fn, x, iters: int = 50) -> float:
     """Wall ms per call of an eager dependent chain (host launch cost included)."""
     import torch
@@ -164,11 +212,66 @@ def attention_inputs(b, h, sq, skv, fused: bool, gen):
     return q, k, v
 
 
+def attention_edge_checks(gen) -> dict:
+    """The kernel at the edges of its schedule, each within ATTN_ATOL of the
+    plain version: Sq {1, 65, 200} x Skv {1, 77, 129, 768} (ragged q and key
+    tiles, a single key, one to twelve key tiles) at every split count the
+    key range allows with either K/V ring; B*H = 72 on fused-qkv strides (the
+    backend's batch of 6 x 12 heads) at S 200 and 768 under the schedule's
+    own launch; and the decoder's self-attention call under its own launch
+    and at the most splits of each ring, each repeated three times and
+    torch.equal to its first result (the merge of a split key range must not
+    depend on scheduling)."""
+    import torch
+
+    from mast3r_slam_torch.ops.attention import (BLOCK_K, RINGS, attention_reference,
+                                                 attention_schedule, flash_attention,
+                                                 make_schedule)
+
+    def held(q, k, v, schedule, what) -> float:
+        out = flash_attention(q, k, v, schedule=schedule)
+        torch.cuda.synchronize()
+        ref = attention_reference(q.float(), k.float(), v.float())
+        check(out.shape == ref.shape and bool(torch.isfinite(out).all()),
+              f"{what}: shape {tuple(out.shape)} or non-finite output")
+        err = (out.float() - ref).abs().max().item()
+        check(err <= ATTN_ATOL, f"{what}: max |kernel - plain| = {err:.3e} > {ATTN_ATOL}")
+        return err
+
+    worst, calls = 0.0, 0
+    for sq in (1, 65, 200):
+        for skv in (1, 77, 129, 768):
+            q, k, v = attention_inputs(2, 3, sq, skv, False, gen)
+            for stages, (_, most) in RINGS.items():
+                for splits in range(1, min(most, -(-skv // BLOCK_K)) + 1):
+                    worst = max(worst, held(q, k, v, make_schedule(2, 3, sq, skv, splits, stages),
+                                            f"Sq {sq} Skv {skv} splits {splits} ring {stages}"))
+                    calls += 1
+    for n in (200, 768):
+        q, k, v = attention_inputs(6, 12, n, n, True, gen)
+        worst = max(worst, held(q, k, v, None, f"B*H 72 fused S {n}"))
+        calls += 1
+    q, k, v = attention_inputs(1, 12, 768, 768, True, gen)
+    repeated = [attention_schedule(1, 12, 768, 768)] + [
+        make_schedule(1, 12, 768, 768, most, stages) for stages, (_, most) in RINGS.items()]
+    for schedule in repeated:
+        first = flash_attention(q, k, v, schedule=schedule)
+        for _ in range(3):
+            check(torch.equal(flash_attention(q, k, v, schedule=schedule), first),
+                  f"decoder self {schedule}: a repeated call differs")
+    launches = [(sc.splits, sc.stages) for sc in repeated]
+    print(f"[kernel] flash_attention edges: {calls} calls within {ATTN_ATOL} of the plain "
+          f"version (max_abs_err {worst:.3e}); (splits, stages) {launches} bit-equal when "
+          f"repeated", flush=True)
+    return dict(calls=calls, max_abs_err=worst, repeated=launches)
+
+
 def kernel_phase(model_cfg) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from mast3r_slam_torch.ops.attention import attention_reference, flash_attention, roofline
+    from mast3r_slam_torch.ops.attention import (attention_reference, attention_schedule,
+                                                 flash_attention, roofline)
 
     d = 64
     enc_h = model_cfg.enc_embed_dim // model_cfg.enc_num_heads
@@ -209,16 +312,70 @@ def kernel_phase(model_cfg) -> dict:
         t_lib = time_graph(lambda x: F.scaled_dot_product_attention(x, k, v), q)
         t_eager = time_eager(lambda x: flash_attention(x, k, v), q)
         bound, bound_by = roofline(b, h, sq, skv, d)
-        rows.append(dict(case=name, shape=[b, h, sq, skv, d], max_abs_err=err, ms=t_kernel,
-                         plain_ms=t_plain, library_ms=t_lib, bound_ms=bound, bound_by=bound_by))
-        print(f"[kernel] flash_attention {name} {[b, h, sq, skv, d]}: max_abs_err {err:.3e} "
-              f"device ms: kernel {t_kernel:.5f} plain {t_plain:.5f} sdpa {t_lib:.5f} "
-              f"bound {bound:.5f} ({bound_by}); eager wall ms per launch {t_eager:.5f}",
-              flush=True)
-    return dict(rows=rows, max_err=max_err)
+        schedule = attention_schedule(b, h, sq, skv)
+        splits = schedule.splits
+        rows.append(dict(case=name, shape=[b, h, sq, skv, d], splits=splits,
+                         stages=schedule.stages, max_abs_err=err,
+                         ms=t_kernel, prev_ms=PREV_ATTENTION_MS.get(name), plain_ms=t_plain,
+                         library_ms=t_lib, bound_ms=bound, bound_by=bound_by,
+                         eager_wall_ms=t_eager))
+        print(f"[kernel] flash_attention {name} {[b, h, sq, skv, d]} splits {splits}: max_abs_err "
+              f"{err:.3e} device ms: kernel {t_kernel:.5f} plain {t_plain:.5f} sdpa {t_lib:.5f} "
+              f"bound {bound:.5f} ({bound_by}), {bound / t_kernel:.0%} of bound; eager wall ms "
+              f"per launch {t_eager:.5f}", flush=True)
+    edges = attention_edge_checks(gen)
+    return dict(rows=rows, max_err=max(max_err, edges["max_abs_err"]), edges=edges)
 
 
 # -- phase 4 ---------------------------------------------------------------
+
+
+def roll_edge_checks(rng) -> int:
+    """roll_last_axis torch.equal to torch.roll where its design can go wrong:
+    C {8, 77, 256, 1000, 16000, 65537} (a row of one or two 16-byte vectors,
+    rows that start off a 16-byte boundary, a row of 32 or 64 vectors, rows
+    too long for a warp), 1 and an odd number of rows, shifts {0, 1, 7, 8, 9,
+    C-1} (across the 8- and 4-element vectors), f32 and bf16, dynamic and
+    static, and an input whose base is not 16-byte aligned; each through the
+    wrapper (roll_geometry's choice) and through both kernels wherever they
+    take the shape. Returns the number of launches checked."""
+    import numpy as np
+    import torch
+
+    from mast3r_slam_torch.ops import lane_shift as ls
+
+    def forced(x, s, geometry):
+        rows, c = x.numel() // x.shape[-1], x.shape[-1]
+        shift_ptr, static = (s, 0) if torch.is_tensor(s) else (None, s)
+        return ls._launch(ls._ROLL_SYMBOLS[x.dtype], x.shape, x.dtype, x, rows, c, shift_ptr,
+                          static, *geometry.args())
+
+    calls = 0
+    for c in (8, 77, 256, 1000, 16000, 65537):
+        for rows in (1, 7):
+            for dt in (torch.float32, torch.bfloat16):
+                buf = torch.from_numpy(rng.normal(size=rows * c + 1).astype(np.float32)).to(
+                    "cuda", dt)
+                for x, base in ((buf[:-1].view(rows, c), "aligned"),
+                                (buf[1:].view(rows, c), "offset")):
+                    size = x.element_size()
+                    geometries = {"direct": ls.direct_geometry(rows, c, size)}
+                    if (base == "aligned" and c % (16 // size) == 0
+                            and c // (16 // size) <= ls.WARP_MAX_VECTORS):
+                        geometries["warp"] = ls.warp_geometry(rows, c, size)
+                    for shift in sorted({0, 1, 7, 8, 9, c - 1} & set(range(c))):
+                        ref = torch.roll(x, shift, dims=-1)
+                        dyn = torch.tensor([shift], dtype=torch.int32, device="cuda")
+                        for s, kind in ((dyn, "dynamic"), (shift, "static")):
+                            outs = {"wrapper": ls.roll_last_axis(x, s)}
+                            outs.update({k: forced(x, s, g) for k, g in geometries.items()})
+                            for how, out in outs.items():
+                                check(torch.equal(out, ref), f"roll C {c} rows {rows} {dt} {base} "
+                                      f"shift {shift} {kind} {how}: kernel != torch.roll")
+                            calls += len(outs)
+    torch.cuda.synchronize()
+    print(f"[probe] roll_last_axis edges: {calls} launches torch.equal to torch.roll", flush=True)
+    return calls
 
 
 def probe_phase() -> dict:
@@ -315,8 +472,11 @@ def probe_phase() -> dict:
     c = MATCHER_PLANE[-1]
     n_rows = x.numel() // c
 
+    geometry = ls.roll_geometry(n_rows, c, x.element_size(), x.data_ptr() % 16 == 0).args()
+
     def helper_roll(y):
-        return ls._launch("roll_last_axis_bf16", y.shape, y.dtype, y, n_rows, c, None, 3)
+        return ls._launch("roll_last_axis_bf16", y.shape, y.dtype, y, n_rows, c, None, 3,
+                          *geometry)
 
     out, counts = counted(lambda: helper_roll(x))
     check(counts == {**dict.fromkeys(counts, 0), "roll_last_axis_bf16": 1},
@@ -326,18 +486,31 @@ def probe_phase() -> dict:
     t_kernel = time_graph(helper_roll, x)
     t_plain = time_graph(lambda y: torch.roll(y, 3, dims=-1), x)
     t_lib = time_graph(lambda y: torch.roll(y, 3, dims=-1), x)
+    # Cold: a rotation over COLD_PAIRS distinct inputs, each call its own output.
+    xs = [torch.from_numpy(rng.normal(size=MATCHER_PLANE).astype(np.float32)).to(
+        "cuda", torch.bfloat16) for _ in range(COLD_PAIRS)]
+    t_cold = time_cold(helper_roll, xs)
+    t_lib_cold = time_cold(lambda y: torch.roll(y, 3, dims=-1), xs)
+    del xs
     bound, bound_by = ls.roll_bound(x.numel(), x.element_size())
+    moved = 2 * x.numel() * x.element_size()
     # The row of the matcher-plane roll: the kernel roll_last_axis_bf16,
-    # launched through _launch (the counterpart of the script's _mk).
+    # launched through _launch (the counterpart of the script's _mk). `ms`
+    # is the cold figure, the one its bound describes.
     rows["roll_last_axis_bf16"] = dict(
-        launches=counts["roll_last_axis_bf16"], max_abs_err=max_err, ms=t_kernel,
-        plain_ms=t_plain, library_ms=t_lib, bound_ms=bound, bound_by=bound_by,
-        shape=list(MATCHER_PLANE), launcher="_launch", replaces=f"{PROBE_SCRIPT}:34")
+        launches=counts["roll_last_axis_bf16"], max_abs_err=max_err, ms=t_cold,
+        warm_ms=t_kernel, plain_ms=t_plain, library_ms=t_lib_cold, library_warm_ms=t_lib,
+        bound_ms=bound, bound_by=bound_by, shape=list(MATCHER_PLANE), launcher="_launch",
+        replaces=f"{PROBE_SCRIPT}:34")
     print(f"[probe] roll_last_axis_bf16 via _launch {list(MATCHER_PLANE)}: launches "
-          f"{counts['roll_last_axis_bf16']}, max_abs_err {max_err}, device ms: kernel "
-          f"{t_kernel:.5f} plain {t_plain:.5f} torch.roll {t_lib:.5f} bound {bound:.5f} "
-          f"({bound_by}), {2 * x.numel() * x.element_size() / t_kernel / 1e6:.1f} GB/s",
-          flush=True)
+          f"{counts['roll_last_axis_bf16']}, max_abs_err {max_err}, device ms: warm (L2-resident)"
+          f" kernel {t_kernel:.5f} ({moved / t_kernel / 1e6:.1f} GB/s) plain {t_plain:.5f} "
+          f"torch.roll {t_lib:.5f}; cold ({COLD_PAIRS} pairs, "
+          f"{COLD_PAIRS * moved / 1e6:.0f} MB) kernel {t_cold:.5f} "
+          f"({moved / t_cold / 1e6:.1f} GB/s, {bound / t_cold:.0%} of bound) torch.roll "
+          f"{t_lib_cold:.5f} ({moved / t_lib_cold / 1e6:.1f} GB/s); bound {bound:.5f} "
+          f"({bound_by})", flush=True)
+    rows["roll_last_axis_bf16"]["edge_calls"] = roll_edge_checks(rng)
     return rows
 
 
@@ -803,6 +976,7 @@ def main() -> int:
                               slam_ii=slam["ii"]["launches"]),
         max_abs_err=kern["max_err"],
         ms=enc["ms"],
+        prev_ms=enc["prev_ms"],
         plain_ms=enc["plain_ms"],
         bound_ms=enc["bound_ms"],
         bound_by=enc["bound_by"],

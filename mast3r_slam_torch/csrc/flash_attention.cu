@@ -2,38 +2,75 @@
 //
 // Replaces: mast3r_slam_tpu/ops/attention.py `_flash_kernel` (the Pallas
 // kernel behind `flash_attention`). It computes the same function: scores
-// scaled by D^-0.5, a running max, running sum and f32 accumulator over K/V
-// tiles, key columns >= Skv scored -inf, and the output acc / max(l, 1e-30).
-// It is not a block-by-block copy: the TPU kernel pads D to 128 lanes and
-// walks the q tiles as a sequential grid; here D stays 64 and every
-// (batch*head, 64-row q tile) pair is an independent thread block.
+// scaled by D^-0.5 (exp2 with log2 e folded into the scale), key columns
+// >= Skv scored -inf, and the output acc / max(l, 1e-30). P is rounded to
+// bf16 before the PV product and l is summed from the f32 P, as the JAX
+// package's `attention_xla` does. It is not a block-by-block copy: the TPU
+// kernel pads D to 128 lanes and walks the q tiles as a sequential grid; here
+// D stays 64 and the q tiles (and parts of their key range) run in parallel.
 //
-// What bounds it on the card. At the main-path shapes (B=1, S=768, D=64,
-// H=16 encoder / 12 decoder) one call moves 4*B*H*S*D*2 bytes (~6.3 MB for the
-// encoder) and does 4*B*H*Sq*Skv*D flops (~2.4 GFLOP): ~1.9 us of HBM time
-// against ~2.4 us of tensor-core time, so neither wall is close and the call
-// is bound by latency and occupancy: only 192 (encoder) or 144 (decoder)
-// blocks of 4 warps for 132 SMs.
+// What bounds it on the card. At the main-path shapes (S=768, D=64; B=1 with
+// H=16 encoder / 12 decoder, B=6 H=12 in the backend) one call moves
+// 4*B*H*S*D*2 bytes (6.3 MB for the encoder) and does 4*B*H*Sq*Skv*D flops
+// (2.4 GFLOP): 1.9 us of HBM time against 2.4 us of tensor-core time, so the
+// tensor cores set the bound. Reaching it takes (a) wgmma, the only way to
+// the full tensor-core rate, (b) loads that run ahead of the math, and (c)
+// enough independent tiles on every one of the 132 SMs: at B=1 there are only
+// 144 or 192 tiles of 64 q rows, and the exp2 of the softmax (4096 per
+// 64x64 tile on 16 MUFU lanes per SM) costs as much as the tile's products.
 //
-// What the design does about it. Tensor cores through mma.sync m16n8k16 (bf16
-// in, f32 accumulate); S and P never leave registers (the S accumulator
-// fragments are re-packed in place as the A operand of the PV product); K/V
-// tiles are double-buffered in shared memory with cp.async so the next
-// tile's load overlaps this tile's math; the padded shared-memory row stride
-// (72 bf16) makes every fragment load bank-conflict free. wgmma/TMA and a
-// persistent schedule are later work.
+// What the design does about it.
+//  * Both products on wgmma.mma_async m64n64k16 (bf16 in, f32 accumulate),
+//    issued by one consumer warpgroup per 64 q rows. S = Q K^T reads Q and K
+//    from shared memory through K-major descriptors; P is converted to bf16
+//    in registers (the S accumulator fragments re-packed in place) and is the
+//    register A operand of O += P V; V is read through an MN-major
+//    (transposed) descriptor, so no fragment is gathered by hand.
+//  * Every tile is stored in the 128-byte-swizzled layout: a 64-element bf16
+//    row is exactly 128 bytes, one swizzle atom wide, 16-byte chunk c of row
+//    r stored at chunk c ^ (r % 8). No padding; the same layout serves the
+//    K-major (Q, K) and MN-major (V) descriptors.
+//  * A ring of K/V stages filled asynchronously by a producer warp: one lane
+//    issues TMA copies (cp.async.bulk.tensor, 4-D tensor maps over the
+//    strided [B, H, S, 64] views, 64 x 64 boxes, 128-byte swizzle, rows past
+//    S zero-filled) into each stage as soon as the consumers release it.
+//    Two mbarriers per stage: `full` (the producer's expect-tx arrival; the
+//    copies complete it by bytes) and `empty` (4 consumer-warp arrivals once
+//    the products that read the stage completed). TMA rather than cp.async
+//    from the producer warp: the copies cost the producer one instruction a
+//    tile, run in the async proxy that wgmma reads through (no proxy fence),
+//    and signal completion themselves, so the ring stays full. The host cost
+//    is three cuTensorMapEncodeTiled calls per launch (host arithmetic only,
+//    no device round trip; the encoder is reached through
+//    cudaGetDriverEntryPointByVersion, so the library needs no -lcuda).
+//  * Consumer order per key tile: issue S = Q K^T, wait for the previous
+//    tile's PV (released to the producer at once), wait for S, softmax, issue
+//    PV and leave it in flight over the next tile's S.
+//  * The schedule fills 132 SMs in one launch (ops/attention.py
+//    `attention_schedule`, which the tests cover): while the q tiles leave
+//    SMs idle (B=1: 144 or 192 tiles), a q tile's key range is split over a
+//    thread-block cluster of `splits` CTAs (2 at B=1), as many as stay
+//    resident at once. Each CTA runs its part of the key tiles to a partial
+//    (m, l, O); the CTAs of ranks >= 1 write theirs into rank 0's shared
+//    memory (distributed shared memory, st.shared::cluster) and rank 0
+//    merges them in rank order and stores the output: a fixed order, so a
+//    repeated call is bit-equal. When the q tiles alone fill the card (B=6:
+//    864), no split and a 2-stage ring: 4 CTAs per SM instead of 3 shorten
+//    the last wave. 160 threads per CTA; 74 KB of shared memory (4-stage
+//    ring, 3 CTAs per SM, 106 registers) or 42 KB (2-stage, 4 per SM, 96).
 //
-// Numerics: P is rounded to bf16 before the PV product (as FlashAttention-2
-// and the JAX package's `attention_xla` do); the running sum l uses the f32
-// P. Softmax uses exp2 with log2(e) folded into the scale.
+// Layout: q/k/v are [B, H, S, 64] with arbitrary B/H/S strides (in elements;
+// multiples of 8) and a contiguous last dim, so the head split of a fused
+// qkv projection needs no copy. The output is written through its own
+// strides (the wrapper lays it out [B, Sq, H, D]). Rows of the ragged last q
+// tile are computed on zero-filled inputs and not stored.
 //
-// Layout: q/k/v/o are [B, H, S, 64] with arbitrary B/H/S strides (in
-// elements; multiples of 8) and a contiguous last dim, so the head split of
-// a fused qkv projection needs no copy. Rows of the ragged last q tile are
-// computed on zero-filled inputs and not stored.
-//
-// C interface (bound with ctypes): returns cudaGetLastError() after the launch.
+// C interface (bound with ctypes): returns cudaGetLastError() after the launch,
+// or cudaErrorInvalidValue for a ring depth other than 2 or 4, a split count
+// the ring or the key tiles do not allow, or a view no tensor map can describe.
 
+#include <cuda.h>  // CUtensorMap and its enums only: the driver is reached through the runtime
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -41,45 +78,156 @@
 
 namespace {
 
-constexpr int kD = 64;              // head dim
-constexpr int kBlockQ = 64;         // q rows per block, 16 per warp
-constexpr int kBlockK = 64;         // kv rows per tile
-constexpr int kLd = kD + 8;         // shared-memory row stride in bf16 (144 B)
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
+constexpr int kD = 64;                      // head dim
+constexpr int kBlockQ = 64;                 // q rows per CTA (one consumer warpgroup)
+constexpr int kBlockK = 64;                 // kv rows per tile
+constexpr int kMaxSplits = 4;               // CTAs of a cluster sharing one q tile
+constexpr int kConsumers = 128;             // one warpgroup
+constexpr int kThreads = kConsumers + 32;   // + one producer warp
+constexpr int kTileBytes = kBlockK * kD * 2;                  // 8 KB, 64 rows of 128 B
+constexpr int kSlotBytes = (32 + 4) * kConsumers * 4;         // a partial: O fragments, m, l
+
+// Shared memory of a CTA with a ring of `stages` K/V stages: Q, the ring, and
+// slack for aligning it to 1024 bytes. The partials of a split key range are
+// merged in the same bytes, so `splits - 1` of them must fit in Q + ring.
+constexpr int ring_bytes(int stages) { return kTileBytes * (1 + 2 * stages); }
+constexpr int smem_bytes(int stages) { return ring_bytes(stages) + 1024; }
+constexpr int max_splits(int stages) {
+  return ring_bytes(stages) / kSlotBytes + 1 < kMaxSplits ? ring_bytes(stages) / kSlotBytes + 1
+                                                          : kMaxSplits;
+}
 
 using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int n = pred ? 16 : 0;  // src-size 0 zero-fills the 16 bytes
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// -- mbarriers ------------------------------------------------------------
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
 
-// Stage rows [row0, row0 + 64) of a [rows, 64] bf16 matrix into shared memory;
-// rows >= nrows are zero-filled. 512 16-byte chunks, 4 per thread.
-__device__ __forceinline__ void load_tile(bf16* sm, const bf16* base, long long row_stride,
-                                          int row0, int nrows) {
-#pragma unroll
-  for (int i = 0; i < (kBlockK * kD / 8) / kThreads; ++i) {
-    const int c = threadIdx.x + i * kThreads;
-    const int r = c >> 3, ch = c & 7;
-    const int row = row0 + r;
-    const bool ok = row < nrows;
-    const bf16* src = base + (ok ? static_cast<long long>(row) * row_stride : 0) + ch * 8;
-    cp_async16(sm + r * kLd + ch * 8, src, ok);
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait for the completion of the barrier's phase of parity `parity`.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
   }
 }
 
-__device__ __forceinline__ uint32_t ld_b32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// -- TMA ------------------------------------------------------------------
+
+// One 64 x 64 bf16 box of a [B, H, S, 64] tensor (coordinates innermost
+// first: d, s, h, b) into a 1024-byte aligned tile, 128-byte swizzled, rows
+// past S zero-filled; completion is counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                              int row, int h, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row), "r"(h), "r"(b)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// -- wgmma ----------------------------------------------------------------
+
+// Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets (16-byte units), layout type 1 (SWIZZLE_128B) in
+// bits 62-63. Tiles are 1024-byte aligned, so the base offset is 0.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving accesses of in-flight accumulators across
+// the wgmma issue/wait points.
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define WGMMA_D32                                                                               \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define WGMMA_D32_OPERANDS(d)                                                                   \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),          \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),   \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),             \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),             \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+// D (64x64 f32) = [D +] A (64x16, K-major smem) * B (16x64, K-major smem).
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WGMMA_D32_OPERANDS(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64x64 f32) += A (64x16 bf16, registers) * B (16x64, MN-major smem).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WGMMA_D32_OPERANDS(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// -- clusters -------------------------------------------------------------
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The address of the same shared-memory offset in CTA `rank` of the cluster.
+__device__ __forceinline__ uint32_t map_to_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void st_cluster_v4(uint32_t addr, float a, float b, float c, float d) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(a), "f"(b),
+               "f"(c), "f"(d)
+               : "memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -87,189 +235,326 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// D += A * B for one m16n8k16 tile (A row-major 16x16, B col-major 16x8).
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, int H, int Sq, int Skv,
-                 long long qsb, long long qsh, long long qss, long long ksb, long long ksh,
-                 long long kss, long long vsb, long long vsh, long long vss, long long osb,
-                 long long osh, long long oss, float scale_log2) {
-  __shared__ __align__(16) bf16 Qs[kBlockQ * kLd];
-  __shared__ __align__(16) bf16 Ks[2][kBlockK * kLd];
-  __shared__ __align__(16) bf16 Vs[2][kBlockK * kLd];
+// Grid: x = q tile * splits + split (a cluster of `splits` CTAs along x, so
+// `split` is the CTA's rank in its cluster), y = b * H + h. Split r takes the
+// key tiles [r * nkv / splits, (r + 1) * nkv / splits). Each thread of the
+// consumer warpgroup owns, as in every m64nN wgmma accumulator, rows 16 w + g
+// and 16 w + g + 8 (w = warp, g = lane / 4) and columns 8 j + 2 (lane % 4) +
+// {0, 1}, j = 0..7.
+template <int kStages, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
+                 const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o, int H, int Sq,
+                 int Skv, long long osb, long long osh, long long oss, float scale_log2,
+                 int splits) {
+  __shared__ __align__(8) uint64_t full_bar[kStages];
+  __shared__ __align__(8) uint64_t empty_bar[kStages];
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = raw + ((1024u - (raw & 1023u)) & 1023u);  // 1024-B aligned
+  uint8_t* ring_ptr = smem_raw + (ring - raw);
+  const uint32_t q_tile = ring;
+  auto k_tile = [&](int stage) { return ring + kTileBytes * (1 + 2 * stage); };
+  auto v_tile = [&](int stage) { return ring + kTileBytes * (2 + 2 * stage); };
 
-  const int q0 = blockIdx.x * kBlockQ;
+  const int split = static_cast<int>(blockIdx.x) % splits;
+  const int q0 = (static_cast<int>(blockIdx.x) / splits) * kBlockQ;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const bf16* qb = q + b * qsb + h * qsh;
-  const bf16* kb = k + b * ksb + h * ksh;
-  const bf16* vb = v + b * vsb + h * vsh;
+  const int nkv = (Skv + kBlockK - 1) / kBlockK;
+  const int t_begin = split * nkv / splits;
+  const int n_local = (split + 1) * nkv / splits - t_begin;  // >= 1: splits <= nkv
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2;  // fragment row group
-  const int t = lane & 3;   // thread in group
-
-  const int nkv = (Skv + kBlockK - 1) / kBlockK;
-  load_tile(Qs, qb, qss, q0, Sq);
-  load_tile(Ks[0], kb, kss, 0, Skv);
-  load_tile(Vs[0], vb, vss, 0, Skv);
-  cp_async_commit();
-
-  uint32_t qf[4][4];  // this warp's 16 q rows as A fragments, 4 k-steps over D
-  float acc[8][4];    // O accumulator: 16 rows x 64 cols as 8 n-tiles
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g+8 (log2 domain)
-  float l_run[2] = {0.f, 0.f};              // this thread's partial row sums
-
-  for (int it = 0; it < nkv; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < nkv) {
-      load_tile(Ks[buf ^ 1], kb, kss, (it + 1) * kBlockK, Skv);
-      load_tile(Vs[buf ^ 1], vb, vss, (it + 1) * kBlockK, Skv);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(smem_u32(&full_bar[s]), 1);
+      mbar_init(smem_u32(&empty_bar[s]), kConsumers / 32);
     }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    if (it == 0) {
-      const bf16* qw = Qs + warp * 16 * kLd;
+  float acc[32];  // O accumulator (consumers)
+  float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g+8, log2 domain
+  float l_run[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+
+  if (warp == kConsumers / 32) {
+    // Producer warp: one lane issues Q with the first K/V tile, then a K/V
+    // tile into each stage as soon as the consumers release it. The copies
+    // run in the async proxy (as wgmma reads) and complete on `full` by bytes.
+    if (lane == 0) {
+      tma_prefetch_map(&k_map);
+      tma_prefetch_map(&v_map);
+      for (int it = 0; it < n_local; ++it) {
+        const int stage = it % kStages;
+        if (it >= kStages) mbar_wait(smem_u32(&empty_bar[stage]), ((it / kStages) - 1) & 1);
+        const uint32_t bar = smem_u32(&full_bar[stage]);
+        mbar_arrive_expect_tx(bar, (it == 0 ? 3 : 2) * kTileBytes);
+        if (it == 0) tma_load_tile(q_tile, &q_map, bar, q0, h, b);
+        const int kv0 = (t_begin + it) * kBlockK;
+        tma_load_tile(k_tile(stage), &k_map, bar, kv0, h, b);
+        tma_load_tile(v_tile(stage), &v_map, bar, kv0, h, b);
+      }
+    }
+  } else {
+    // Consumer warpgroup.
+    const int tq = lane & 3;
+    float s_acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s_acc[i] = 0.f;
+    for (int it = 0; it < n_local; ++it) {
+      const int stage = it % kStages;
+      mbar_wait(smem_u32(&full_bar[stage]), (it / kStages) & 1);
+      const uint32_t kt = k_tile(stage), vt = v_tile(stage);
+
+      // S = Q K^T: four k-steps of 16 along D, 32 bytes apart in the row.
+      wgmma_fence();
+      fence_regs(s_acc);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        qf[kk][0] = ld_b32(qw + g * kLd + kk * 16 + 2 * t);
-        qf[kk][1] = ld_b32(qw + (g + 8) * kLd + kk * 16 + 2 * t);
-        qf[kk][2] = ld_b32(qw + g * kLd + kk * 16 + 2 * t + 8);
-        qf[kk][3] = ld_b32(qw + (g + 8) * kLd + kk * 16 + 2 * t + 8);
+        wgmma_ss(s_acc, sw128_desc(q_tile + 32 * kk, 16, 1024),
+                 sw128_desc(kt + 32 * kk, 16, 1024), kk);
       }
-    }
-
-    // S = Q K^T for 16 q rows x 64 kv columns.
-    const bf16* ks = Ks[buf];
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const bf16* krow = ks + (8 * j + g) * kLd + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        mma_16816(s[j], qf[kk], ld_b32(krow + kk * 16), ld_b32(krow + kk * 16 + 8));
+      wgmma_commit();
+      if (it > 0) {
+        wgmma_wait<1>();  // the previous tile's PV: its stage goes back to the producer
+        if (lane == 0) mbar_arrive(smem_u32(&empty_bar[(it - 1) % kStages]));
       }
-    }
+      wgmma_wait<0>();
+      fence_regs(s_acc);
+      fence_regs(acc);
 
-    // Scale, mask key columns >= Skv, tile row max.
-    const int kv0 = it * kBlockK;
-    float mx[2] = {m_run[0], m_run[1]};
+      // Mask key columns >= Skv (the ragged last tile only); the row max of
+      // the raw scores, scaled once (scale > 0), in the log2 domain.
+      const int kv0 = (t_begin + it) * kBlockK;
+      if (kv0 + kBlockK > Skv) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = kv0 + 8 * j + 2 * t + (e & 1);
-        const float x = col < Skv ? s[j][e] * scale_log2 : -INFINITY;
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        for (int i = 0; i < 32; ++i) {
+          const int col = kv0 + 8 * (i >> 2) + 2 * tq + (i & 1);
+          s_acc[i] = col < Skv ? s_acc[i] : -INFINITY;
+        }
       }
-    }
-    float alpha[2];
+      float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float msub = mx[r] == -INFINITY ? 0.f : mx[r];  // row fully masked so far
-      alpha[r] = exp2f(m_run[r] - msub);
-      m_run[r] = mx[r];
-      mx[r] = msub;
-    }
+      for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s_acc[i]);
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        mx[r] = fmaxf(m_run[r], mx[r] * scale_log2);
+        const float msub = mx[r] == -INFINITY ? 0.f : mx[r];  // row fully masked so far
+        alpha[r] = ex2(m_run[r] - msub);
+        m_run[r] = mx[r];
+        mx[r] = -msub;
+      }
 
-    // P = exp2(S - m); re-pack the accumulator fragments as PV's A operand.
-    uint32_t pf[4][4];
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float p0 = exp2f(s[j][0] - mx[0]);
-      const float p1 = exp2f(s[j][1] - mx[0]);
-      const float p2 = exp2f(s[j][2] - mx[1]);
-      const float p3 = exp2f(s[j][3] - mx[1]);
-      rs[0] += p0 + p1;
-      rs[1] += p2 + p3;
-      pf[j >> 1][(j & 1) * 2 + 0] = pack_bf16(p0, p1);
-      pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rs[r];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      acc[j][0] *= alpha[0];
-      acc[j][1] *= alpha[0];
-      acc[j][2] *= alpha[1];
-      acc[j][3] *= alpha[1];
-    }
-
-    // O += P V: B fragments gathered from row-major V (two rows per register).
-    const uint16_t* vs = reinterpret_cast<const uint16_t*>(Vs[buf]);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const int r0 = kk * 16 + 2 * t;
+      // P = exp2(S * scale - m) in f32 for l; bf16 pairs as PV's A fragments.
+      uint32_t pf[4][4];
+      float rs[2] = {0.f, 0.f};
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const int n = 8 * j + g;
-        const uint32_t b0 = static_cast<uint32_t>(vs[r0 * kLd + n]) |
-                            (static_cast<uint32_t>(vs[(r0 + 1) * kLd + n]) << 16);
-        const uint32_t b1 = static_cast<uint32_t>(vs[(r0 + 8) * kLd + n]) |
-                            (static_cast<uint32_t>(vs[(r0 + 9) * kLd + n]) << 16);
-        mma_16816(acc[j], pf[kk], b0, b1);
+        const float p0 = ex2(fmaf(s_acc[4 * j + 0], scale_log2, mx[0]));
+        const float p1 = ex2(fmaf(s_acc[4 * j + 1], scale_log2, mx[0]));
+        const float p2 = ex2(fmaf(s_acc[4 * j + 2], scale_log2, mx[1]));
+        const float p3 = ex2(fmaf(s_acc[4 * j + 3], scale_log2, mx[1]));
+        rs[0] += p0 + p1;
+        rs[1] += p2 + p3;
+        pf[j >> 1][(j & 1) * 2 + 0] = pack_bf16(p0, p1);
+        pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rs[r];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+      // O += P V: V is [kv][d] (MN-major B); a k-step is 16 kv rows = 2 KB.
+      wgmma_fence();
+      fence_regs(acc);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, pf[kk], sw128_desc(vt + 2048 * kk, 8192, 1024));
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+      l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+    }
+  }
+
+  // Merge the partials of a split key range in rank 0 (all 160 threads of
+  // every CTA of the cluster take part in both cluster barriers).
+  const int tid = threadIdx.x;
+  if (splits > 1) {
+    cluster_sync();  // every CTA's loop done: rank 0's ring is free for the partials
+    if (warp < kConsumers / 32 && split != 0) {
+      const uint32_t slot = map_to_rank(ring + (split - 1) * kSlotBytes, 0);
+#pragma unroll
+      for (int i4 = 0; i4 < 8; ++i4) {
+        st_cluster_v4(slot + (i4 * kConsumers + tid) * 16, acc[4 * i4], acc[4 * i4 + 1],
+                      acc[4 * i4 + 2], acc[4 * i4 + 3]);
+      }
+      st_cluster_v4(slot + 32 * kConsumers * 4 + tid * 16, m_run[0], m_run[1], l_run[0],
+                    l_run[1]);
+    }
+    cluster_sync();  // partials written
+    if (split != 0) return;
+    if (warp < kConsumers / 32) {
+      float mm[2] = {m_run[0], m_run[1]};
+      for (int p = 1; p < splits; ++p) {
+        const float4 ml = *reinterpret_cast<const float4*>(
+            ring_ptr + (p - 1) * kSlotBytes + 32 * kConsumers * 4 + tid * 16);
+        mm[0] = fmaxf(mm[0], ml.x);
+        mm[1] = fmaxf(mm[1], ml.y);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float msub = mm[r] == -INFINITY ? 0.f : mm[r];
+        const float f = ex2(m_run[r] - msub);
+        l_run[r] *= f;
+        m_run[r] = f;  // own factor
+        mm[r] = msub;
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] *= m_run[(i >> 1) & 1];
+      for (int p = 1; p < splits; ++p) {
+        const uint8_t* slot = ring_ptr + (p - 1) * kSlotBytes;
+        const float4 ml = *reinterpret_cast<const float4*>(slot + 32 * kConsumers * 4 + tid * 16);
+        const float f0 = ex2(ml.x - mm[0]), f1 = ex2(ml.y - mm[1]);
+        l_run[0] += f0 * ml.z;
+        l_run[1] += f1 * ml.w;
+#pragma unroll
+        for (int i4 = 0; i4 < 8; ++i4) {
+          const float4 part =
+              *reinterpret_cast<const float4*>(slot + (i4 * kConsumers + tid) * 16);
+          acc[4 * i4 + 0] += f0 * part.x;
+          acc[4 * i4 + 1] += f0 * part.y;
+          acc[4 * i4 + 2] += f1 * part.z;
+          acc[4 * i4 + 3] += f1 * part.w;
+        }
       }
     }
-    __syncthreads();  // this buffer is refilled by the next iteration's loads
   }
-  cp_async_wait<0>();
+  if (warp >= kConsumers / 32) return;
 
+  const int g = lane >> 2, tq = lane & 3;
   float inv[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float l = l_run[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    inv[r] = 1.f / fmaxf(l, 1e-30f);
-  }
+  for (int r = 0; r < 2; ++r) inv[r] = 1.f / fmaxf(l_run[r], 1e-30f);
   const int row0 = q0 + warp * 16 + g;
   bf16* ob = o + b * osb + h * osh;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     if (row >= Sq) continue;
-    bf16* orow = ob + static_cast<long long>(row) * oss + 2 * t;
+    bf16* orow = ob + static_cast<long long>(row) * oss + 2 * tq;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       *reinterpret_cast<uint32_t*>(orow + 8 * j) =
-          pack_bf16(acc[j][2 * r] * inv[r], acc[j][2 * r + 1] * inv[r]);
+          pack_bf16(acc[4 * j + 2 * r] * inv[r], acc[4 * j + 2 * r + 1] * inv[r]);
     }
   }
 }
 
+// The driver's tensor-map encoder, reached through the runtime (no -lcuda).
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+    }
+  }
+  return fn;
+}
+
+// A [B, H, S, 64] bf16 view (strides in elements) as a 4-D tensor map with
+// 64 x 64 boxes, 128-byte swizzle and zero fill past S.
+bool encode_map(CUtensorMap* map, const void* ptr, int B, int H, int S, long long sb,
+                long long sh, long long ss) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kD), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2, static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {kD, kBlockK, 1, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 }  // namespace
 
+// splits: CTAs per q tile (a cluster along x), 1 <= splits <= min(4, key tiles);
+// stages: the K/V ring depth, 4 (3 CTAs per SM) or 2 (4 CTAs per SM, at most 3
+// splits); ops/attention.py `attention_schedule` chooses both. Strides in elements,
+// multiples of 8 and nonzero; q/k/v 16-byte aligned.
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                                         int B, int H, int Sq, int Skv, long long qsb,
                                         long long qsh, long long qss, long long ksb,
                                         long long ksh, long long kss, long long vsb,
                                         long long vsh, long long vss, long long osb,
-                                        long long osh, long long oss, float scale,
-                                        void* stream) {
+                                        long long osh, long long oss, float scale, int splits,
+                                        int stages, void* stream) {
+  const int nkv = (Skv + kBlockK - 1) / kBlockK;
+  if ((stages != 2 && stages != 4) || splits < 1 || splits > max_splits(stages) || splits > nkv) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (B * H == 0 || Sq == 0) return 0;
+  CUtensorMap q_map, k_map, v_map;
+  if (!encode_map(&q_map, q, B, H, Sq, qsb, qsh, qss) ||
+      !encode_map(&k_map, k, B, H, Skv, ksb, ksh, kss) ||
+      !encode_map(&v_map, v, B, H, Skv, vsb, vsh, vss)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = stages == 4 ? flash_fwd_kernel<4, 3> : flash_fwd_kernel<2, 4>;
+  const int smem = smem_bytes(stages);
+  static bool smem_set[2][64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  bool* set = dev >= 0 && dev < 64 ? &smem_set[stages == 4][dev] : nullptr;
+  if (set == nullptr || !*set) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (set != nullptr) *set = true;
+  }
   const float kLog2e = 1.4426950408889634f;
-  dim3 grid((Sq + kBlockQ - 1) / kBlockQ, B * H);
-  flash_fwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), H, Sq, Skv, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh,
-      oss, scale * kLog2e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((Sq + kBlockQ - 1) / kBlockQ) * splits, B * H, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaLaunchKernelEx(&cfg, kernel, q_map, k_map, v_map, static_cast<bf16*>(o), H, Sq, Skv, osb,
+                     osh, oss, scale * kLog2e, splits);
   return static_cast<int>(cudaGetLastError());
 }

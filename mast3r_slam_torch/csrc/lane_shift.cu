@@ -14,8 +14,8 @@
 // roll_last_axis views x as [R, C] (R = product of the leading dims) and computes
 //     out[r, c] = x[r, (c - s) mod C],   0 <= s < C,
 // which is pltpu.roll's (and np.roll's) definition for a non-negative shift. The
-// dynamic variant reads s from device memory once per block (the counterpart of
-// the SMEM scalar: the shift never travels to the host) and reduces it mod C; the
+// dynamic variant reads s from device memory (the counterpart of the SMEM
+// scalar: the shift never travels to the host) and reduces it mod C; the
 // static variant takes s as a kernel argument, and the Python wrapper refuses a
 // static s outside [0, C).
 //
@@ -25,49 +25,181 @@
 // from 0.0f), so the result is bit-equal to the plain version's running sum.
 //
 // What bounds them: both are pure data movement (a permutation copy and a
-// 3-tap gather-add). Their least time is the bytes moved over 3.35 TB/s; at the
-// probe shapes (<= 20 KB) that is ~5 ns, far under one launch, so launch latency
-// sets the measured time. The design therefore stays simple: one thread per
-// output element in a grid-stride loop, neighbouring threads on neighbouring
-// output columns (coalesced stores; the shifted loads stay coalesced except at
-// the one wrap-around point of each row).
+// 3-tap gather-add). Their least time is the bytes moved over 3.35 TB/s. At a
+// matcher plane's size ((16, 384, 512) bf16, 12.6 MB in and out) that is
+// 3.8 us, so the roll has to stream at HBM rate: 16-byte accesses, enough of
+// them in flight on every SM, no per-element integer division. At the probe
+// shapes (<= 12 KB) the bytes take ~5 ns and the chain of dependent memory
+// accesses sets the time, so a dynamic shift must not sit in front of the data
+// loads.
+//
+// roll_last_axis's design: two kernels, one launch, chosen by the wrapper
+// (ops/lane_shift.py `roll_geometry`, which computes the launch geometry and
+// passes it in).
+//  * `roll_warp_kernel`, for rows of at most 64 whole 16-byte vectors of a
+//    16-byte aligned x (every probe shape and the matcher plane): a warp per
+//    row; each lane loads two vectors of the row with aligned 16-byte loads
+//    that do not depend on the shift, which is loaded beside them; an output
+//    vector is cut with a funnel shift from the two source vectors that hold
+//    its 16 bytes, handed over by warp shuffles (wrapping at C). No shared
+//    memory and no barrier: the dependent chain is one load and one store,
+//    as in torch.roll.
+//  * `roll_direct_kernel`, for the rest (rows that do not start on 16-byte
+//    boundaries, longer rows, C up to 2^31 - 1, e.g. 65,537): grid and block
+//    y over rows, x over a row's items (16-byte output vectors, single
+//    elements before the first and after the last 16-byte boundary of a
+//    row), the gathered values read straight from x through L1 after the
+//    shift. A third kernel that staged whole rows in shared memory (loads
+//    independent of the shift, then a barrier) was measured and dropped: it
+//    was slower than the warp kernel at every shape timed (PERF.md).
+// No per-element division in either. offset_slice_sum keeps the simple
+// design: one thread per output element in a grid-stride loop.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 4096;
 constexpr int kMaxOffsets = 8;
+constexpr int kRollThreads = 256;
 
 struct Offsets {
   int n;
   int v[kMaxOffsets];
 };
 
-template <typename T, bool kDynamic>
-__global__ void roll_last_axis_kernel(const T* __restrict__ x, T* __restrict__ out,
-                                      long long total, int C, const int* __restrict__ shift_dev,
-                                      int shift) {
-  int s = shift;
-  if (kDynamic) {
-    __shared__ int s_shared;
-    if (threadIdx.x == 0) {
-      int v = *shift_dev % C;
-      s_shared = v < 0 ? v + C : v;
-    }
-    __syncthreads();
-    s = s_shared;
+// 16 bytes of raw bits: the roll moves bits, so bf16 is handled as uint16_t
+// and f32 as uint32_t.
+template <typename U>
+union Vec16 {
+  uint4 v;
+  U e[16 / sizeof(U)];
+};
+
+// Output item t of a row whose first element has flat index `ob` (the output
+// is 16-byte aligned): the row's first h elements up to a 16-byte boundary,
+// n_vec aligned vectors of kVec elements, and `tail` elements after them.
+// Items 0 .. n_vec-1 are the vectors (column h + t kVec); items n_vec ..
+// n_vec+h+tail-1 are single elements (the h head columns, then the tail).
+template <int kVec>
+struct RowItems {
+  int h, n_vec, tail;
+  __device__ __forceinline__ RowItems(long long ob, int C) {
+    h = static_cast<int>((kVec - (ob & (kVec - 1))) & (kVec - 1));
+    h = h < C ? h : C;
+    n_vec = (C - h) / kVec;
+    tail = C - h - n_vec * kVec;
   }
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < total;
-       i += stride) {
-    const long long row = i / C;
-    const int c = static_cast<int>(i - row * C);
-    int src = c - s;
-    if (src < 0) src += C;
-    out[i] = x[row * C + src];
+  __device__ __forceinline__ int count() const { return n_vec + h + tail; }
+  __device__ __forceinline__ int scalar_col(int t) const {
+    const int u = t - n_vec;
+    return u < h ? u : h + n_vec * kVec + (u - h);
+  }
+};
+
+__device__ __forceinline__ int wrap(int i, int C) { return i >= C ? i - C : i; }
+
+// Any row: threads y (grid y, then block y) walk the rows, threads x (grid
+// x, then block x) a row's items; a vector's elements are read straight from
+// x through L1 (their addresses depend on the shift, which is read first).
+template <typename U, bool kDynamic>
+__global__ void __launch_bounds__(kRollThreads)
+roll_direct_kernel(const U* __restrict__ x, U* __restrict__ out, long long R, int C,
+                   const int* __restrict__ shift_dev, int shift) {
+  constexpr int kVec = 16 / sizeof(U);
+  int s = kDynamic ? __ldg(shift_dev) : shift;
+  if (kDynamic) {
+    s %= C;
+    if (s < 0) s += C;
+  }
+  for (long long r = static_cast<long long>(blockIdx.y) * blockDim.y + threadIdx.y; r < R;
+       r += static_cast<long long>(gridDim.y) * blockDim.y) {
+    const long long ob = r * C;
+    const U* row = x + ob;
+    const RowItems<kVec> it(ob, C);
+    const int n = it.count();
+    for (int t = blockIdx.x * blockDim.x + threadIdx.x; t < n; t += gridDim.x * blockDim.x) {
+      if (t < it.n_vec) {
+        const int c = it.h + t * kVec;
+        const int src = c - s < 0 ? c - s + C : c - s;
+        Vec16<U> val;
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) val.e[k] = __ldg(row + wrap(src + k, C));
+        *reinterpret_cast<uint4*>(out + ob + c) = val.v;
+      } else {
+        const int c = it.scalar_col(t);
+        out[ob + c] = __ldg(row + (c - s < 0 ? c - s + C : c - s));
+      }
+    }
+  }
+}
+
+// The 16 bytes that start `o` elements into vector a, continuing into b.
+template <typename U>
+__device__ __forceinline__ uint4 window16(const uint4& a, const uint4& b, int o) {
+  const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  const int q = sizeof(U) == 2 ? o >> 1 : o;  // whole 32-bit words
+  uint32_t sel[5];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+    sel[i] = q == 0 ? w[i] : q == 1 ? w[i + 1] : q == 2 ? w[i + 2] : w[i + 3];
+  }
+  uint32_t r[4];
+  const bool half = sizeof(U) == 2 && (o & 1);  // bf16: a half-word more
+#pragma unroll
+  for (int j = 0; j < 4; ++j) r[j] = half ? __funnelshift_r(sel[j], sel[j + 1], 16) : sel[j];
+  return make_uint4(r[0], r[1], r[2], r[3]);
+}
+
+__device__ __forceinline__ uint4 shfl16(const uint4& v, int lane) {
+  return make_uint4(__shfl_sync(0xffffffffu, v.x, lane), __shfl_sync(0xffffffffu, v.y, lane),
+                    __shfl_sync(0xffffffffu, v.z, lane), __shfl_sync(0xffffffffu, v.w, lane));
+}
+
+// Rows of at most 64 16-byte vectors (C a multiple of the vector, x 16-byte
+// aligned): one warp per row, threads y over rows. Lane l loads vectors l and
+// l + 32 of the row with aligned 16-byte loads that do not depend on the
+// shift (a dynamic shift is loaded beside them); output vector v starts at
+// element e = (v * kVec - s) mod C, inside vectors e / kVec and the one after
+// it (wrapping to 0), which the warp hands over with shuffles; the 16 bytes
+// are cut out of the pair with a funnel shift. No shared memory, no barrier:
+// the chain of dependent memory accesses is a load and a store, as in
+// torch.roll.
+template <typename U, bool kDynamic>
+__global__ void __launch_bounds__(kRollThreads)
+roll_warp_kernel(const U* __restrict__ x, U* __restrict__ out, long long R, int C,
+                 const int* __restrict__ shift_dev, int shift) {
+  constexpr int kVec = 16 / sizeof(U);
+  const long long r = static_cast<long long>(blockIdx.x) * blockDim.y + threadIdx.y;
+  if (r >= R) return;  // a whole warp: r is the same on its lanes
+  int s = kDynamic ? __ldg(shift_dev) : shift;
+  const int lane = threadIdx.x;
+  const int nv = C / kVec;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + r * C);
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  const uint4 v0 = lane < nv ? __ldg(xr + lane) : zero;
+  const uint4 v1 = lane + 32 < nv ? __ldg(xr + lane + 32) : zero;
+  if (kDynamic) {
+    s %= C;
+    if (s < 0) s += C;
+  }
+  uint4* orow = reinterpret_cast<uint4*>(out + r * C);
+  for (int k = 0; k < (nv > 32 ? 2 : 1); ++k) {
+    const int v = lane + 32 * k;
+    int e = v * kVec - s;
+    if (e < 0) e += C;
+    const int a = e / kVec, o = e & (kVec - 1);
+    const int b = a + 1 >= nv ? a + 1 - nv : a + 1;
+    uint4 wa = shfl16(v0, a & 31), wb = shfl16(v0, b & 31);
+    if (nv > 32) {  // the second half of the row is in each lane's v1
+      const uint4 wa1 = shfl16(v1, a & 31), wb1 = shfl16(v1, b & 31);
+      if (a >= 32) wa = wa1;
+      if (b >= 32) wb = wb1;
+    }
+    if (v < nv) orow[v] = window16<U>(wa, wb, o);
   }
 }
 
@@ -93,20 +225,34 @@ int grid_for(long long total) {
   return static_cast<int>(blocks < kMaxBlocks ? blocks : kMaxBlocks);
 }
 
-template <typename T>
+// Launch geometry from the wrapper (ops/lane_shift.py `roll_geometry`):
+// kind 0 is the direct kernel (grid (gx, gy), block (bx, by)), 1 the warp one
+// (grid gx, block (32, by)).
+template <typename U>
 int launch_roll(const void* x, void* out, long long R, int C, const void* shift_dev, int shift,
-                void* stream) {
-  const long long total = R * C;
-  if (total == 0) return 0;
+                int kind, int gx, int gy, int bx, int by, void* stream) {
+  if (R * C == 0) return 0;
   auto st = static_cast<cudaStream_t>(stream);
-  const T* xp = static_cast<const T*>(x);
-  T* op = static_cast<T*>(out);
-  if (shift_dev != nullptr) {
-    roll_last_axis_kernel<T, true><<<grid_for(total), kThreads, 0, st>>>(
-        xp, op, total, C, static_cast<const int*>(shift_dev), 0);
+  const U* xp = static_cast<const U*>(x);
+  U* op = static_cast<U*>(out);
+  const int* sp = static_cast<const int*>(shift_dev);
+  const bool dyn = sp != nullptr;
+  const dim3 block(bx, by);
+  if (kind == 1) {
+    if (dyn) {
+      roll_warp_kernel<U, true><<<gx, block, 0, st>>>(xp, op, R, C, sp, 0);
+    } else {
+      roll_warp_kernel<U, false><<<gx, block, 0, st>>>(xp, op, R, C, nullptr, shift);
+    }
+  } else if (kind == 0) {
+    const dim3 grid(gx, gy);
+    if (dyn) {
+      roll_direct_kernel<U, true><<<grid, block, 0, st>>>(xp, op, R, C, sp, 0);
+    } else {
+      roll_direct_kernel<U, false><<<grid, block, 0, st>>>(xp, op, R, C, nullptr, shift);
+    }
   } else {
-    roll_last_axis_kernel<T, false><<<grid_for(total), kThreads, 0, st>>>(
-        xp, op, total, C, nullptr, shift);
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -114,15 +260,18 @@ int launch_roll(const void* x, void* out, long long R, int C, const void* shift_
 }  // namespace
 
 // shift_dev: a device pointer to one int32 (dynamic variant), or null to use
-// `shift` (static variant, 0 <= shift < C). Returns cudaGetLastError().
+// `shift` (static variant, 0 <= shift < C); then the launch geometry of
+// `launch_roll`. Returns cudaGetLastError().
 extern "C" int roll_last_axis_f32(const void* x, void* out, long long R, int C,
-                                  const void* shift_dev, int shift, void* stream) {
-  return launch_roll<float>(x, out, R, C, shift_dev, shift, stream);
+                                  const void* shift_dev, int shift, int kind, int gx, int gy,
+                                  int bx, int by, void* stream) {
+  return launch_roll<uint32_t>(x, out, R, C, shift_dev, shift, kind, gx, gy, bx, by, stream);
 }
 
 extern "C" int roll_last_axis_bf16(const void* x, void* out, long long R, int C,
-                                   const void* shift_dev, int shift, void* stream) {
-  return launch_roll<__nv_bfloat16>(x, out, R, C, shift_dev, shift, stream);
+                                   const void* shift_dev, int shift, int kind, int gx, int gy,
+                                   int bx, int by, void* stream) {
+  return launch_roll<uint16_t>(x, out, R, C, shift_dev, shift, kind, gx, gy, bx, by, stream);
 }
 
 // offsets: a host array of n_offsets (<= 8) column offsets, copied into the

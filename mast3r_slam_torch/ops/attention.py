@@ -9,9 +9,12 @@ goes through this wrapper, and the JAX package's ``FLASH_MIN_KV`` dispatch
 rule (a TPU measurement) is not carried over.
 
 What bounds the kernel on the card, and what its design does about it, is
-written at the top of the CUDA source: at the main-path shapes it is bound by
-latency and occupancy, not by bytes or flops. Its least time, the larger of
-bytes over 3.35 TB/s and flops over 989 TFLOP/s, is `roofline`.
+written at the top of the CUDA source (wgmma for both products, a K/V ring
+filled by a producer warp, a q tile's key range split over a thread-block
+cluster). Its least time, the larger of bytes over 3.35 TB/s and flops over
+989 TFLOP/s, is `roofline`. `attention_schedule` is the launch geometry the
+wrapper hands the kernel: how many CTAs share a q tile's key range, and the
+grid and cluster that follow.
 
 `flash_attention.launches` counts kernel launches (and nothing else), so a
 run can show that the model went through the kernel.
@@ -20,12 +23,18 @@ run can show that the model went through the kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 _HEAD_DIM = 64
 _HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 _BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
+BLOCK_Q = BLOCK_K = 64  # q rows per CTA, key rows per ring stage (csrc/flash_attention.cu)
+THREADS = 160  # one consumer warpgroup and one producer warp
+MAX_SPLITS = 4  # CTAs of a cluster sharing one q tile's key range
+_SMS = 132  # H100 SXM
 
 
 def attention_reference(q, k, v, scale: float | None = None) -> torch.Tensor:
@@ -46,6 +55,50 @@ def roofline(b: int, h: int, sq: int, skv: int, d: int = _HEAD_DIM, itemsize: in
     return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+class Schedule(NamedTuple):
+    """One launch of the kernel: `splits` CTAs (a cluster along x) share each
+    q tile's key range, each CTA with a ring of `stages` K/V stages; grid =
+    (q tiles * splits, B * H)."""
+
+    splits: int
+    stages: int
+    grid: tuple[int, int, int]
+    cluster: tuple[int, int, int]
+    block: tuple[int, int, int]
+
+
+# K/V ring depth -> (CTAs per SM, most splits whose partials fit in the ring)
+RINGS = {4: (3, 4), 2: (4, 3)}
+
+
+def make_schedule(b: int, h: int, sq: int, skv: int, splits: int, stages: int) -> Schedule:
+    """The launch for a given split count and ring depth; raises where the
+    kernel would refuse it."""
+    kv_tiles = -(-skv // BLOCK_K)
+    if stages not in RINGS or not 1 <= splits <= min(RINGS[stages][1], kv_tiles):
+        raise ValueError(f"flash_attention: splits={splits} with a {stages}-stage ring for "
+                         f"{kv_tiles} key tiles")
+    q_tiles = -(-sq // BLOCK_Q)
+    return Schedule(splits, stages, (q_tiles * splits, b * h, 1), (splits, 1, 1), (THREADS, 1, 1))
+
+
+@functools.lru_cache(maxsize=1024)
+def attention_schedule(b: int, h: int, sq: int, skv: int) -> Schedule:
+    """While the q tiles leave SMs idle (at most 396 of them, three per SM
+    with the 4-stage ring), split each tile's key range into the most parts
+    (up to MAX_SPLITS and the key tiles) for which every CTA is still
+    resident at once. When the q tiles alone fill the card, do not split,
+    and take the 2-stage ring: four CTAs per SM shorten the last wave.
+    (Measured on the H100 at the main-path shapes, see PERF.md.)"""
+    q_tiles, kv_tiles = -(-sq // BLOCK_Q), -(-skv // BLOCK_K)
+    tiles = b * h * q_tiles
+    resident = _SMS * RINGS[4][0]
+    if tiles > resident:
+        return make_schedule(b, h, sq, skv, 1, 2)
+    splits = max(s for s in range(1, min(MAX_SPLITS, kv_tiles) + 1) if tiles * s <= resident)
+    return make_schedule(b, h, sq, skv, splits, 4)
+
+
 def _kernel():
     from mast3r_slam_torch.ops import build
 
@@ -56,30 +109,34 @@ def _kernel():
             [ctypes.c_void_p] * 4
             + [ctypes.c_int] * 4
             + [ctypes.c_longlong] * 12
-            + [ctypes.c_float, ctypes.c_void_p]
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
     return fn
 
 
 def _kernel_layout(x: torch.Tensor) -> torch.Tensor:
-    """The kernel reads 16-byte rows: contiguous last dim, B/H/S strides that
-    are multiples of 8 elements and a 16-byte aligned base. Other layouts are
-    copied once (never the case for the model's own q/k/v)."""
+    """The kernel's tensor maps read 16-byte rows: contiguous last dim, B/H/S
+    strides that are nonzero multiples of 8 elements and a 16-byte aligned
+    base. Other layouts are copied once (never the case for the model's own
+    q/k/v)."""
     ok = (
         x.stride(-1) == 1
-        and all(s % 8 == 0 for s in x.stride()[:-1])
+        and all(s % 8 == 0 and s > 0 for s in x.stride()[:-1])
         and x.data_ptr() % 16 == 0
     )
     return x if ok else x.contiguous()
 
 
-def flash_attention(q, k, v, scale: float | None = None) -> torch.Tensor:
+def flash_attention(q, k, v, scale: float | None = None, schedule: Schedule | None = None
+                    ) -> torch.Tensor:
     """Softmax attention over q [B, H, Sq, D], k/v [B, H, Skv, D] -> [B, H, Sq, D].
 
     CUDA tensors: the hand-written kernel (bf16, D = 64), or an error.
     CPU tensors: `attention_reference`. The output of the kernel is laid out
     [B, Sq, H, D] in memory, so merging the heads after it is a view.
+    `schedule` (from `make_schedule`) overrides `attention_schedule`, for
+    measuring and checking other launches; the model never passes it.
     """
     if q.device.type == "cpu":
         return attention_reference(q, k, v, scale)
@@ -98,6 +155,8 @@ def flash_attention(q, k, v, scale: float | None = None) -> torch.Tensor:
         )
     if skv == 0 or b * h > 65535:
         raise ValueError(f"flash_attention: unsupported Skv={skv} or B*H={b * h}")
+    if schedule is None:
+        schedule = attention_schedule(b, h, sq, skv)
     if scale is None:
         scale = d**-0.5
     q, k, v = _kernel_layout(q), _kernel_layout(k), _kernel_layout(v)
@@ -108,7 +167,8 @@ def flash_attention(q, k, v, scale: float | None = None) -> torch.Tensor:
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b, h, sq, skv,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+        float(scale), schedule.splits, schedule.stages,
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")

@@ -13,12 +13,17 @@ raises it, just after a launch that succeeded.
 Shift rule, as ``pltpu.roll`` needs it: ``0 <= shift < C``. A static shift
 (a Python int) outside that range raises; a dynamic shift (an int32 tensor of
 one element, read by the kernel on the device) is reduced mod C.
+
+`roll_geometry` is the roll's launch geometry (which of its two kernels, the
+grid and the block), computed here and passed to the kernel, so the CPU
+tests can hold it to covering every output element once.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+import functools
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -28,6 +33,72 @@ MAX_OFFSETS = 8
 _ROLL_SYMBOLS = {torch.float32: "roll_last_axis_f32", torch.bfloat16: "roll_last_axis_bf16"}
 SLICE_SUM_SYMBOL = "offset_slice_sum_bf16"
 launches = dict.fromkeys([*_ROLL_SYMBOLS.values(), SLICE_SUM_SYMBOL], 0)
+ROLL_THREADS = 256  # threads of a roll block (csrc/lane_shift.cu kRollThreads)
+
+
+class RollGeometry(NamedTuple):
+    """One launch of the roll, by kernel `kind`: DIRECT (threads x, grid x
+    then block x, over a row's items; threads y over rows) or WARP (one warp
+    per row, block (32, y rows), grid x over groups of y rows)."""
+
+    kind: int
+    grid: tuple[int, int]
+    block: tuple[int, int]
+    vec: int  # elements per 16-byte item
+
+    def args(self) -> tuple[int, ...]:
+        """kind, gx, gy, bx, by, in the kernel's order."""
+        return (self.kind, *self.grid, *self.block)
+
+
+DIRECT, WARP = 0, 1  # csrc/lane_shift.cu launch_roll's kinds
+WARP_MAX_VECTORS = 64  # a warp's row: two 16-byte vectors a lane
+
+
+def row_items(first: int, c: int, vec: int) -> tuple[int, int, int]:
+    """(h, n_vec, tail) of an output row whose first element has flat index
+    `first` in a 16-byte-aligned output: h single elements up to a 16-byte
+    boundary, n_vec items of `vec` elements, `tail` single elements."""
+    h = min(-first % vec, c)
+    n_vec = (c - h) // vec
+    return h, n_vec, c - h - n_vec * vec
+
+
+def _items_per_row(c: int, vec: int) -> int:
+    if c % vec == 0:
+        return c // vec  # every row starts on a 16-byte boundary
+    return max(sum(row_items(-h, c, vec)) for h in range(min(vec, c)))
+
+
+def direct_geometry(rows: int, c: int, itemsize: int) -> RollGeometry:
+    """The direct kernel: one row per block row (at most 65535, they then
+    loop), a row's items over threads x in whole warps, at most 256 a block."""
+    vec = 16 // itemsize
+    items = _items_per_row(c, vec)
+    bx = min(ROLL_THREADS, 32 * -(-items // 32))
+    return RollGeometry(DIRECT, (-(-items // bx), min(rows, 65535)), (bx, 1), vec)
+
+
+def warp_geometry(rows: int, c: int, itemsize: int) -> RollGeometry:
+    """The warp kernel (C a multiple of the 16-byte vector and at most
+    WARP_MAX_VECTORS of them): a warp per row, 8 rows a block."""
+    vec = 16 // itemsize
+    if c % vec or not 0 < c // vec <= WARP_MAX_VECTORS:
+        raise ValueError(f"the warp roll takes rows of 1..{WARP_MAX_VECTORS} 16-byte vectors")
+    by = ROLL_THREADS // 32
+    return RollGeometry(WARP, (-(-rows // by), 1), (32, by), vec)
+
+
+@functools.lru_cache(maxsize=1024)
+def roll_geometry(rows: int, c: int, itemsize: int, aligned: bool = True) -> RollGeometry:
+    """The warp kernel for rows of at most WARP_MAX_VECTORS whole 16-byte
+    vectors of a 16-byte aligned x, the direct one otherwise."""
+    vec = 16 // itemsize
+    if rows * c == 0:
+        return RollGeometry(DIRECT, (0, 1), (32, 1), vec)
+    if aligned and c % vec == 0 and c // vec <= WARP_MAX_VECTORS:
+        return warp_geometry(rows, c, itemsize)
+    return direct_geometry(rows, c, itemsize)
 
 
 def roll_reference(x: torch.Tensor, shift) -> torch.Tensor:
@@ -74,7 +145,7 @@ def _lib() -> ctypes.CDLL:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         for name in _ROLL_SYMBOLS.values():
             fn = getattr(lib, name)
-            fn.argtypes = [p, p, ll, i, p, i, p]
+            fn.argtypes = [p, p, ll, i, p, i, i, i, i, i, i, p]
             fn.restype = i
         lib.offset_slice_sum_bf16.argtypes = [p, p, i, i, i, i, ctypes.POINTER(i), i, p]
         lib.offset_slice_sum_bf16.restype = ctypes.c_int
@@ -121,7 +192,9 @@ def roll_last_axis(x: torch.Tensor, shift) -> torch.Tensor:
         shift_ptr, s = shift, 0
     else:
         shift_ptr, s = None, _static_shift(shift, c)
-    return _launch(_ROLL_SYMBOLS[x.dtype], x.shape, x.dtype, x, rows, c, shift_ptr, s)
+    geometry = roll_geometry(rows, c, x.element_size(), x.data_ptr() % 16 == 0)
+    return _launch(_ROLL_SYMBOLS[x.dtype], x.shape, x.dtype, x, rows, c, shift_ptr, s,
+                   *geometry.args())
 
 
 def offset_slice_sum(x: torch.Tensor, row0: int, rows: int, width: int,
