@@ -1,7 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (mast3r_slam_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+With --parent, DIR is a checkout of another commit of this repository (for
+example the parent commit, unpacked with `git archive` into a directory that
+.gitignore lists): its attention and roll kernels are built from DIR's
+sources and timed by this script's code, in a process of their own, once
+before phase 3 and once after phase 4; the mean of the two is printed as
+`prev_ms` beside this checkout's `ms` (null without --parent).
 
 Phases, in order; any failure exits non-zero before the result line:
   1. card    - needs CUDA; prints the card's name and power limit (nvidia-smi).
@@ -15,8 +22,8 @@ Phases, in order; any failure exits non-zero before the result line:
                library call (a yardstick only; the port never calls it)
                with CUDA events over a dependent chain of launches; then at
                the edges of its schedule (Sq {1, 65, 200} x Skv {1, 77, 129,
-               768} at every split count, B*H = 72 on fused-qkv strides),
-               and bit-equal to itself when a call is repeated.
+               768} at every launch the kernel takes, B*H = 72 on fused-qkv
+               strides), and bit-equal to itself when a call is repeated.
   4. probe   - the probe entry point (mast3r_slam_torch.probe_shift): each of
                its six cases once on the card with the script's inputs, the
                launch counts by kernel symbol set to 0 just before the case
@@ -25,8 +32,10 @@ Phases, in order; any failure exits non-zero before the result line:
                version on the same inputs. Times each lane-shift kernel
                beside its bound, its plain version and torch.roll, and one
                roll at a matcher plane's size (16, 384, 512) bf16, warm (a
-               chain on one L2-resident buffer) and cold (a rotation over
-               10 input/output pairs, 126 MB, beyond the 50 MB L2). Holds
+               chain on one L2-resident buffer: `ms`, `plain_ms` and
+               `library_ms`, as in earlier runs) and cold (a rotation over
+               10 input/output pairs, 126 MB, beyond the 50 MB L2:
+               `cold_ms` and `library_cold_ms`). Holds
                the roll bit-equal to torch.roll at C {8, 77, 256, 1000,
                16000, 65537}, 1 and an odd number of rows, shifts {0, 1, 7,
                8, 9, C-1}, f32 and bf16, dynamic and static, from a base
@@ -62,6 +71,7 @@ Then it prints the kernels JSON line, the card line, and last
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
@@ -94,15 +104,6 @@ PROBE_CASES = {
 }
 MATCHER_PLANE = (16, 384, 512)  # a bf16 roll where the bytes, not the launch, set the bound
 COLD_PAIRS = 10  # input/output pairs of the cold matcher-plane roll: 126 MB > the 50 MB L2
-# The PR-1 attention kernel (mma.sync m16n8k16) at the kernel phase's main
-# shapes: device ms from the same time_graph, the mean of the two runs of
-# mast3r_slam_torch/kernel_bench.py on a checkout of the commit before the
-# redesign, in the chip call that timed the redesigned kernel between them
-# (H100 80GB HBM3, 700.00 W). Printed beside `ms` as `prev_ms`.
-PREV_ATTENTION_MS = {
-    "encoder self": 0.022733, "decoder self": 0.022879, "decoder cross": 0.022814,
-    "backend decoder self": 0.068212, "backend decoder cross": 0.067702,
-}
 
 
 class SmokeFailure(Exception):
@@ -212,11 +213,27 @@ def attention_inputs(b, h, sq, skv, fused: bool, gen):
     return q, k, v
 
 
+def attention_cases(model_cfg) -> list:
+    """(name, B, H, Sq, Skv, fused qkv) of the attention calls on the paths:
+    the tracking step's batch of 1 (encoder, decoder self and cross) and the
+    backend's batch of 6 (three keyframe pairs decoded both ways)."""
+    s = (384 // 16) * (512 // 16)
+    b_backend = 2 * BACKEND_PAIRS  # add_factors decodes every pair both ways in one batch
+    return [
+        ("encoder self", 1, model_cfg.enc_num_heads, s, s, True),
+        ("decoder self", 1, model_cfg.dec_num_heads, s, s, True),
+        ("decoder cross", 1, model_cfg.dec_num_heads, s, s, False),
+        ("backend decoder self", b_backend, model_cfg.dec_num_heads, s, s, True),
+        ("backend decoder cross", b_backend, model_cfg.dec_num_heads, s, s, False),
+    ]
+
+
 def attention_edge_checks(gen) -> dict:
     """The kernel at the edges of its schedule, each within ATTN_ATOL of the
     plain version: Sq {1, 65, 200} x Skv {1, 77, 129, 768} (ragged q and key
-    tiles, a single key, one to twelve key tiles) at every split count the
-    key range allows with either K/V ring; B*H = 72 on fused-qkv strides (the
+    tiles, a single key, one to twelve key tiles) at every launch the kernel
+    takes (the 4-stage ring with each split count the key range allows, the
+    2-stage ring unsplit), forced through `attention._launch`; B*H = 72 on fused-qkv strides (the
     backend's batch of 6 x 12 heads) at S 200 and 768 under the schedule's
     own launch; and the decoder's self-attention call under its own launch
     and at the most splits of each ring, each repeated three times and
@@ -224,12 +241,11 @@ def attention_edge_checks(gen) -> dict:
     depend on scheduling)."""
     import torch
 
-    from mast3r_slam_torch.ops.attention import (BLOCK_K, RINGS, attention_reference,
-                                                 attention_schedule, flash_attention,
-                                                 make_schedule)
+    from mast3r_slam_torch.ops.attention import (BLOCK_K, RINGS, _launch, attention_reference,
+                                                 attention_schedule, make_schedule)
 
     def held(q, k, v, schedule, what) -> float:
-        out = flash_attention(q, k, v, schedule=schedule)
+        out = _launch(q, k, v, schedule=schedule)
         torch.cuda.synchronize()
         ref = attention_reference(q.float(), k.float(), v.float())
         check(out.shape == ref.shape and bool(torch.isfinite(out).all()),
@@ -255,9 +271,9 @@ def attention_edge_checks(gen) -> dict:
     repeated = [attention_schedule(1, 12, 768, 768)] + [
         make_schedule(1, 12, 768, 768, most, stages) for stages, (_, most) in RINGS.items()]
     for schedule in repeated:
-        first = flash_attention(q, k, v, schedule=schedule)
+        first = _launch(q, k, v, schedule=schedule)
         for _ in range(3):
-            check(torch.equal(flash_attention(q, k, v, schedule=schedule), first),
+            check(torch.equal(_launch(q, k, v, schedule=schedule), first),
                   f"decoder self {schedule}: a repeated call differs")
     launches = [(sc.splits, sc.stages) for sc in repeated]
     print(f"[kernel] flash_attention edges: {calls} calls within {ATTN_ATOL} of the plain "
@@ -277,16 +293,7 @@ def kernel_phase(model_cfg) -> dict:
     enc_h = model_cfg.enc_embed_dim // model_cfg.enc_num_heads
     dec_h = model_cfg.dec_embed_dim // model_cfg.dec_num_heads
     check(enc_h == dec_h == d, f"head dims {enc_h}/{dec_h} != 64")
-    s = (384 // 16) * (512 // 16)
-    b_backend = 2 * BACKEND_PAIRS  # add_factors decodes every pair both ways in one batch
-    cases = [
-        ("encoder self", 1, model_cfg.enc_num_heads, s, s, True),
-        ("decoder self", 1, model_cfg.dec_num_heads, s, s, True),
-        ("decoder cross", 1, model_cfg.dec_num_heads, s, s, False),
-        ("backend decoder self", b_backend, model_cfg.dec_num_heads, s, s, True),
-        ("backend decoder cross", b_backend, model_cfg.dec_num_heads, s, s, False),
-        ("ragged cross", 2, 3, 200, 77, False),
-    ]
+    cases = attention_cases(model_cfg) + [("ragged cross", 2, 3, 200, 77, False)]
     # On the card the wrapper launches the kernel or raises; it never falls
     # back to the plain version.
     x = torch.zeros(1, 1, 64, d, device="cuda")
@@ -316,7 +323,7 @@ def kernel_phase(model_cfg) -> dict:
         splits = schedule.splits
         rows.append(dict(case=name, shape=[b, h, sq, skv, d], splits=splits,
                          stages=schedule.stages, max_abs_err=err,
-                         ms=t_kernel, prev_ms=PREV_ATTENTION_MS.get(name), plain_ms=t_plain,
+                         ms=t_kernel, prev_ms=None, plain_ms=t_plain,
                          library_ms=t_lib, bound_ms=bound, bound_by=bound_by,
                          eager_wall_ms=t_eager))
         print(f"[kernel] flash_attention {name} {[b, h, sq, skv, d]} splits {splits}: max_abs_err "
@@ -459,7 +466,7 @@ def probe_phase() -> dict:
             t_lib = time_graph(lambda y: torch.roll(y, 3, dims=-1), x)
             bound, bound_by = ls.roll_bound(x.numel(), x.element_size())
         rows[f"case_{name}"] = dict(launches=launches[name], max_abs_err=max_err, ms=t_kernel,
-                          plain_ms=t_plain, library_ms=t_lib, bound_ms=bound, bound_by=bound_by,
+                          prev_ms=None, plain_ms=t_plain, library_ms=t_lib, bound_ms=bound, bound_by=bound_by,
                           shape=list(shape), replaces=f"{PROBE_SCRIPT}:{line}")
         lib_txt = "none" if t_lib is None else f"{t_lib:.5f}"
         print(f"[probe] {name} {list(shape)} {dtype}: launches {launches[name]}, max_abs_err "
@@ -495,13 +502,15 @@ def probe_phase() -> dict:
     bound, bound_by = ls.roll_bound(x.numel(), x.element_size())
     moved = 2 * x.numel() * x.element_size()
     # The row of the matcher-plane roll: the kernel roll_last_axis_bf16,
-    # launched through _launch (the counterpart of the script's _mk). `ms`
-    # is the cold figure, the one its bound describes.
+    # launched through _launch (the counterpart of the script's _mk). `ms`,
+    # `plain_ms` and `library_ms` are warm, as every earlier run printed
+    # them; `cold_ms` and `library_cold_ms` are the figures its bound
+    # describes.
     rows["roll_last_axis_bf16"] = dict(
-        launches=counts["roll_last_axis_bf16"], max_abs_err=max_err, ms=t_cold,
-        warm_ms=t_kernel, plain_ms=t_plain, library_ms=t_lib_cold, library_warm_ms=t_lib,
-        bound_ms=bound, bound_by=bound_by, shape=list(MATCHER_PLANE), launcher="_launch",
-        replaces=f"{PROBE_SCRIPT}:34")
+        launches=counts["roll_last_axis_bf16"], max_abs_err=max_err, ms=t_kernel, prev_ms=None,
+        plain_ms=t_plain, library_ms=t_lib, cold_ms=t_cold, prev_cold_ms=None,
+        library_cold_ms=t_lib_cold, bound_ms=bound, bound_by=bound_by,
+        shape=list(MATCHER_PLANE), launcher="_launch", replaces=f"{PROBE_SCRIPT}:34")
     print(f"[probe] roll_last_axis_bf16 via _launch {list(MATCHER_PLANE)}: launches "
           f"{counts['roll_last_axis_bf16']}, max_abs_err {max_err}, device ms: warm (L2-resident)"
           f" kernel {t_kernel:.5f} ({moved / t_kernel / 1e6:.1f} GB/s) plain {t_plain:.5f} "
@@ -927,12 +936,102 @@ def profile_solve(fg, kf, T0) -> dict:
     return out
 
 
-def main() -> int:
+# -- another checkout's kernels (--parent) -----------------------------------
+
+
+def other_kernel_times(root: str) -> dict:
+    """Device ms of the kernels of the checkout at `root`, imported in place
+    of this one's, at the kernel and probe phases' shapes, with this script's
+    inputs and timing code and only the checkout's public entry points:
+    attention at the five path shapes (graph and eager wall), the five roll
+    cases, the matcher-plane roll warm and cold."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, root)
+    import mast3r_slam_torch
+    from mast3r_slam_torch.models import MASt3RConfig
+    from mast3r_slam_torch.ops import build
+    from mast3r_slam_torch.ops.attention import flash_attention
+    from mast3r_slam_torch.ops.lane_shift import roll_last_axis
+
+    check(os.path.dirname(os.path.dirname(mast3r_slam_torch.__file__)) == root,
+          f"imported {mast3r_slam_torch.__file__}, not the checkout at {root}")
+    build.build_all()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    attention = {}
+    for name, b, h, sq, skv, fused in attention_cases(MASt3RConfig.mast3r_full()):
+        q, k, v = attention_inputs(b, h, sq, skv, fused, gen)
+        attention[name] = dict(ms=time_graph(lambda x: flash_attention(x, k, v), q),
+                               eager_wall_ms=time_eager(lambda x: flash_attention(x, k, v), q))
+    rng = np.random.default_rng(4)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    rolls = {}
+    for name, (shape, dtype, dynamic, _) in PROBE_CASES.items():
+        if dynamic is None:
+            continue
+        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to("cuda", dtypes[dtype])
+        s = torch.tensor([3], dtype=torch.int32, device="cuda") if dynamic else 3
+        rolls[f"case_{name}"] = dict(ms=time_graph(lambda y: roll_last_axis(y, s), x))
+    xs = [torch.from_numpy(rng.normal(size=MATCHER_PLANE).astype(np.float32)).to(
+        "cuda", torch.bfloat16) for _ in range(COLD_PAIRS)]
+    rolls["roll_last_axis_bf16"] = dict(ms=time_graph(lambda y: roll_last_axis(y, 3), xs[0]),
+                                        cold_ms=time_cold(lambda y: roll_last_axis(y, 3), xs))
+    return dict(attention=attention, rolls=rolls)
+
+
+def time_other(root: str) -> dict:
+    """other_kernel_times(root) in a process of its own (this script with
+    --time-kernels-of), so that both checkouts' packages never meet."""
+    out = subprocess.run([sys.executable, os.path.abspath(__file__), "--time-kernels-of", root],
+                         capture_output=True, text=True, timeout=600, check=False)
+    check(out.returncode == 0, f"timing the kernels of {root} failed (rc {out.returncode}): "
+          f"{out.stderr[-3000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def add_prev(kern: dict, probe: dict, runs: list) -> None:
+    """Set each row's prev_ms (and the matcher-plane roll's prev_cold_ms) to
+    the mean over `runs` of the other checkout's time for the same case."""
+    def mean(key, group, case):
+        return sum(r[group][case][key] for r in runs) / len(runs)
+
+    for row in kern["rows"]:
+        if row["case"] in runs[0]["attention"]:
+            row["prev_ms"] = mean("ms", "attention", row["case"])
+            row["prev_eager_wall_ms"] = mean("eager_wall_ms", "attention", row["case"])
+            print(f"[parent] flash_attention {row['case']}: device ms "
+                  f"{[r['attention'][row['case']]['ms'] for r in runs]} (this checkout "
+                  f"{row['ms']:.5f}); eager wall ms "
+                  f"{[r['attention'][row['case']]['eager_wall_ms'] for r in runs]}", flush=True)
+    for case, row in probe.items():
+        if case in runs[0]["rolls"]:
+            row["prev_ms"] = mean("ms", "rolls", case)
+            if "cold_ms" in row:
+                row["prev_cold_ms"] = mean("cold_ms", "rolls", case)
+            print(f"[parent] {case}: {[r['rolls'][case] for r in runs]} (this checkout "
+                  f"{row['ms']:.5f}{' cold %.5f' % row['cold_ms'] if 'cold_ms' in row else ''})",
+                  flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", metavar="DIR",
+                    help="another checkout whose kernels are timed beside this one's (prev_ms)")
+    ap.add_argument("--time-kernels-of", metavar="DIR", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
         print("[chip_smoke] CUDA is not available: this smoke run needs a GPU", file=sys.stderr)
         return 2
+    if args.time_kernels_of:
+        try:
+            print(json.dumps(other_kernel_times(os.path.abspath(args.time_kernels_of))))
+        except SmokeFailure as e:
+            print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
+            return 1
+        return 0
     try:
         import mast3r_slam_torch  # noqa: F401
     except ImportError as e:
@@ -953,8 +1052,13 @@ def main() -> int:
         print(f"[build] {sorted(paths)} in {time.perf_counter() - t0:.1f} s", flush=True)
         for name, log in build.build_logs.items():
             print(f"[build] {name}: {log}", flush=True)
+        parent = os.path.abspath(args.parent) if args.parent else None
+        runs = [time_other(parent)] if parent else []
         kern = kernel_phase(MASt3RConfig.mast3r_full())
         probe = probe_phase()
+        if parent:
+            runs.append(time_other(parent))
+            add_prev(kern, probe, runs)
         cfg = set_config(Config.from_dict(BENCH_SETTINGS))
         reference_phase(cfg)
         main = main_path_phase(cfg)

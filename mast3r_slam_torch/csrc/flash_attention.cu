@@ -56,8 +56,11 @@
 //    merges them in rank order and stores the output: a fixed order, so a
 //    repeated call is bit-equal. When the q tiles alone fill the card (B=6:
 //    864), no split and a 2-stage ring: 4 CTAs per SM instead of 3 shorten
-//    the last wave. 160 threads per CTA; 74 KB of shared memory (4-stage
-//    ring, 3 CTAs per SM, 106 registers) or 42 KB (2-stage, 4 per SM, 96).
+//    the last wave (that variant has no merge). 160 threads per CTA; 74 KB
+//    of shared memory (4-stage ring, 3 CTAs per SM, 106 registers) or 42 KB
+//    (2-stage, 4 per SM, 92 registers under a cap of 102; ptxas serialises
+//    its wgmmas for lack of registers, C7512, and it is still the faster
+//    variant at B=6).
 //
 // Layout: q/k/v are [B, H, S, 64] with arbitrary B/H/S strides (in elements;
 // multiples of 8) and a contiguous last dim, so the head split of a fused
@@ -66,8 +69,9 @@
 // tile are computed on zero-filled inputs and not stored.
 //
 // C interface (bound with ctypes): returns cudaGetLastError() after the launch,
-// or cudaErrorInvalidValue for a ring depth other than 2 or 4, a split count
-// the ring or the key tiles do not allow, or a view no tensor map can describe.
+// or cudaErrorInvalidValue for a launch `attention_schedule` never makes (a
+// ring depth other than 4 with 1-4 splits or 2 with one, or more splits than
+// key tiles) or a view no tensor map can describe.
 
 #include <cuda.h>  // CUtensorMap and its enums only: the driver is reached through the runtime
 #include <cudaTypedefs.h>
@@ -88,14 +92,12 @@ constexpr int kTileBytes = kBlockK * kD * 2;                  // 8 KB, 64 rows o
 constexpr int kSlotBytes = (32 + 4) * kConsumers * 4;         // a partial: O fragments, m, l
 
 // Shared memory of a CTA with a ring of `stages` K/V stages: Q, the ring, and
-// slack for aligning it to 1024 bytes. The partials of a split key range are
-// merged in the same bytes, so `splits - 1` of them must fit in Q + ring.
+// slack for aligning it to 1024 bytes. Only the 4-stage ring splits a key
+// range; its partials are merged in the same bytes, so `splits - 1` of them
+// must fit in Q + ring.
 constexpr int ring_bytes(int stages) { return kTileBytes * (1 + 2 * stages); }
 constexpr int smem_bytes(int stages) { return ring_bytes(stages) + 1024; }
-constexpr int max_splits(int stages) {
-  return ring_bytes(stages) / kSlotBytes + 1 < kMaxSplits ? ring_bytes(stages) / kSlotBytes + 1
-                                                          : kMaxSplits;
-}
+static_assert((kMaxSplits - 1) * kSlotBytes <= ring_bytes(4), "partials overflow the ring");
 
 using bf16 = __nv_bfloat16;
 
@@ -397,7 +399,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   // Merge the partials of a split key range in rank 0 (all 160 threads of
   // every CTA of the cluster take part in both cluster barriers).
   const int tid = threadIdx.x;
-  if (splits > 1) {
+  if (kStages == 4 && splits > 1) {
     cluster_sync();  // every CTA's loop done: rank 0's ring is free for the partials
     if (warp < kConsumers / 32 && split != 0) {
       const uint32_t slot = map_to_rank(ring + (split - 1) * kSlotBytes, 0);
@@ -508,8 +510,8 @@ bool encode_map(CUtensorMap* map, const void* ptr, int B, int H, int S, long lon
 }  // namespace
 
 // splits: CTAs per q tile (a cluster along x), 1 <= splits <= min(4, key tiles);
-// stages: the K/V ring depth, 4 (3 CTAs per SM) or 2 (4 CTAs per SM, at most 3
-// splits); ops/attention.py `attention_schedule` chooses both. Strides in elements,
+// stages: the K/V ring depth, 4 (3 CTAs per SM) or 2 (4 CTAs per SM, one
+// split); ops/attention.py `attention_schedule` chooses both. Strides in elements,
 // multiples of 8 and nonzero; q/k/v 16-byte aligned.
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                                         int B, int H, int Sq, int Skv, long long qsb,
@@ -519,7 +521,8 @@ extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void
                                         long long osh, long long oss, float scale, int splits,
                                         int stages, void* stream) {
   const int nkv = (Skv + kBlockK - 1) / kBlockK;
-  if ((stages != 2 && stages != 4) || splits < 1 || splits > max_splits(stages) || splits > nkv) {
+  if ((stages != 2 && stages != 4) || splits < 1 || splits > (stages == 4 ? kMaxSplits : 1) ||
+      splits > nkv) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B * H == 0 || Sq == 0) return 0;

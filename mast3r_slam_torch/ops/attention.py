@@ -17,7 +17,8 @@ wrapper hands the kernel: how many CTAs share a q tile's key range, and the
 grid and cluster that follow.
 
 `flash_attention.launches` counts kernel launches (and nothing else), so a
-run can show that the model went through the kernel.
+run can show that the model went through the kernel; only `_launch` raises
+it, just after a launch that succeeded.
 """
 
 from __future__ import annotations
@@ -67,8 +68,10 @@ class Schedule(NamedTuple):
     block: tuple[int, int, int]
 
 
-# K/V ring depth -> (CTAs per SM, most splits whose partials fit in the ring)
-RINGS = {4: (3, 4), 2: (4, 3)}
+# K/V ring depth -> (CTAs per SM, most splits): the 4-stage ring splits a q
+# tile's key range over up to MAX_SPLITS CTAs; the 2-stage ring is taken only
+# when the q tiles alone fill the card, and never splits.
+RINGS = {4: (3, MAX_SPLITS), 2: (4, 1)}
 
 
 def make_schedule(b: int, h: int, sq: int, skv: int, splits: int, stages: int) -> Schedule:
@@ -128,18 +131,25 @@ def _kernel_layout(x: torch.Tensor) -> torch.Tensor:
     return x if ok else x.contiguous()
 
 
-def flash_attention(q, k, v, scale: float | None = None, schedule: Schedule | None = None
-                    ) -> torch.Tensor:
+def flash_attention(q, k, v, scale: float | None = None) -> torch.Tensor:
     """Softmax attention over q [B, H, Sq, D], k/v [B, H, Skv, D] -> [B, H, Sq, D].
 
-    CUDA tensors: the hand-written kernel (bf16, D = 64), or an error.
-    CPU tensors: `attention_reference`. The output of the kernel is laid out
-    [B, Sq, H, D] in memory, so merging the heads after it is a view.
-    `schedule` (from `make_schedule`) overrides `attention_schedule`, for
-    measuring and checking other launches; the model never passes it.
+    CUDA tensors: the hand-written kernel (bf16, D = 64) with
+    `attention_schedule`'s launch, or an error. CPU tensors:
+    `attention_reference`. The output of the kernel is laid out [B, Sq, H, D]
+    in memory, so merging the heads after it is a view.
     """
     if q.device.type == "cpu":
         return attention_reference(q, k, v, scale)
+    return _launch(q, k, v, scale)
+
+
+def _launch(q, k, v, scale: float | None = None, schedule: Schedule | None = None
+            ) -> torch.Tensor:
+    """Check q/k/v, launch the kernel on the current stream and count the
+    launch. `schedule` (from `make_schedule`) replaces `attention_schedule`'s
+    launch; only chip_smoke.py passes one, to check every launch the kernel
+    takes at the edges of its schedule."""
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention: q/k/v on {q.device}/{k.device}/{v.device}")
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
