@@ -65,6 +65,24 @@ Phases, in order; any failure exits non-zero before the result line:
                full-width problem (7 keyframes of 196,608 points, 15 edges)
                and from the captured inputs of run (i)'s first two solves,
                which repeated on the card are also bit-equal to the run's.
+  8. calib   - calibrated mode at the same width over 752x480 uint8 frames
+               (the EuRoC MAV cam0 size; the host pipeline crops them to
+               512x320, 640 tokens): the attention kernel held to its plain
+               version and timed at the 640-token shapes (the batch-1 ones,
+               and those of 768 tokens, also at every split count, forced);
+               the calibrated graph solve (3 keyframes of 163,840 points,
+               each pointmap on its own pixel rays) and the calibrated pose
+               solve on the card held to float64 on the CPU within 1e-4,
+               repeats bit-equal, each profiled once; then SLAM.run twice:
+               (iii) configs/eurocalib.yaml (known K, the simple matcher)
+               over 8 frames, every tracked frame promoted; (iv)
+               configs/euroc_nocalib.yaml (the focal estimated from the
+               first mono pointmap, the dense matcher at radius 6) over 6
+               frames. Checks calibrated graph solves only
+               (timed between CUDA events), finite poses and points, the
+               attention launches predicted from each run's event log, and
+               in (iv) the card's focal within 1e-4 relative of the port's
+               CPU estimate from the same pointmap.
 Then it prints the kernels JSON line, the card line, and last
 {"ok": true, "device": {...}}.
 """
@@ -104,6 +122,25 @@ PROBE_CASES = {
 }
 MATCHER_PLANE = (16, 384, 512)  # a bf16 roll where the bytes, not the launch, set the bound
 COLD_PAIRS = 10  # input/output pairs of the cold matcher-plane roll: 126 MB > the 50 MB L2
+EUROC_HW = (480, 752)  # EuRoC MAV cam0 frames
+EUROC_CROP = (320, 512)  # what the host pipeline makes of them at resolution 512: 640 tokens
+# run -> (config file, frames, settings over the file's): the gates opened as in
+# bench.py and run (i) of the slam phase, so that random-weight pointmaps track
+# and every tracked frame is promoted (the simple matcher at an open 3D gate
+# matches every pixel, so its threshold must exceed 1)
+CALIB_RUNS = {
+    "iii": ("eurocalib.yaml", 8, {
+        "matching": {"dist_thresh": 1e6},
+        "tracking": {"min_match_frac": 0.0, "Q_conf": 0.0, "match_frac_thresh": 1.01},
+        "runtime": {"keyframe_capacity": SLAM_CAPACITY}}),
+    "iv": ("euroc_nocalib.yaml", 6, {
+        "matching": {"dist_thresh": 1e6},
+        "tracking": {"min_match_frac": 0.0, "Q_conf": 0.0, "match_frac_thresh": 1.0},
+        "runtime": {"keyframe_capacity": SLAM_CAPACITY}}),
+}
+CALIB_KEYFRAMES = 3  # keyframes of the well-posed calibrated graph problem (3 edges)
+CALIB_SOLVE_ATOL = 1e-4  # card f32 vs CPU f64 poses of the calibrated graph and pose solves
+FOCAL_RTOL = 1e-4  # run (iv): the card's estimated focal vs the CPU's from the same pointmap
 
 
 class SmokeFailure(Exception):
@@ -213,19 +250,54 @@ def attention_inputs(b, h, sq, skv, fused: bool, gen):
     return q, k, v
 
 
-def attention_cases(model_cfg) -> list:
-    """(name, B, H, Sq, Skv, fused qkv) of the attention calls on the paths:
-    the tracking step's batch of 1 (encoder, decoder self and cross) and the
-    backend's batch of 6 (three keyframe pairs decoded both ways)."""
-    s = (384 // 16) * (512 // 16)
+def attention_cases(model_cfg, hw: tuple[int, int] = (384, 512), tag: str = "") -> list:
+    """(name, B, H, Sq, Skv, fused qkv) of the attention calls on the paths
+    at an image of `hw` pixels (16-pixel patches): the tracking step's batch
+    of 1 (encoder, decoder self and cross) and the backend's batch of 6 (three
+    keyframe pairs decoded both ways)."""
+    s = (hw[0] // 16) * (hw[1] // 16)
     b_backend = 2 * BACKEND_PAIRS  # add_factors decodes every pair both ways in one batch
     return [
-        ("encoder self", 1, model_cfg.enc_num_heads, s, s, True),
-        ("decoder self", 1, model_cfg.dec_num_heads, s, s, True),
-        ("decoder cross", 1, model_cfg.dec_num_heads, s, s, False),
-        ("backend decoder self", b_backend, model_cfg.dec_num_heads, s, s, True),
-        ("backend decoder cross", b_backend, model_cfg.dec_num_heads, s, s, False),
+        (f"{tag}encoder self", 1, model_cfg.enc_num_heads, s, s, True),
+        (f"{tag}decoder self", 1, model_cfg.dec_num_heads, s, s, True),
+        (f"{tag}decoder cross", 1, model_cfg.dec_num_heads, s, s, False),
+        (f"{tag}backend decoder self", b_backend, model_cfg.dec_num_heads, s, s, True),
+        (f"{tag}backend decoder cross", b_backend, model_cfg.dec_num_heads, s, s, False),
     ]
+
+
+def attention_row(name, b, h, sq, skv, fused, gen) -> dict:
+    """The kernel held to its plain version within ATTN_ATOL at one shape,
+    then timed beside the plain version and the PyTorch library call (CUDA
+    graphs of chained launches) and as an eager chain (wall clock)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mast3r_slam_torch.ops.attention import (attention_reference, attention_schedule,
+                                                 flash_attention, roofline)
+
+    d = 64
+    q, k, v = attention_inputs(b, h, sq, skv, fused, gen)
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    ref = attention_reference(q.float(), k.float(), v.float())
+    err = (out.float() - ref).abs().max().item()
+    check(bool(torch.isfinite(out).all()), f"{name}: non-finite kernel output")
+    check(err <= ATTN_ATOL, f"{name}: max |kernel - plain| = {err:.3e} > {ATTN_ATOL}")
+    t_kernel = time_graph(lambda x: flash_attention(x, k, v), q)
+    t_plain = time_graph(lambda x: attention_reference(x, k, v), q)
+    t_lib = time_graph(lambda x: F.scaled_dot_product_attention(x, k, v), q)
+    t_eager = time_eager(lambda x: flash_attention(x, k, v), q)
+    bound, bound_by = roofline(b, h, sq, skv, d)
+    schedule = attention_schedule(b, h, sq, skv)
+    splits = schedule.splits
+    print(f"[kernel] flash_attention {name} {[b, h, sq, skv, d]} splits {splits}: max_abs_err "
+          f"{err:.3e} device ms: kernel {t_kernel:.5f} plain {t_plain:.5f} sdpa {t_lib:.5f} "
+          f"bound {bound:.5f} ({bound_by}), {bound / t_kernel:.0%} of bound; eager wall ms "
+          f"per launch {t_eager:.5f}", flush=True)
+    return dict(case=name, shape=[b, h, sq, skv, d], splits=splits, stages=schedule.stages,
+                max_abs_err=err, ms=t_kernel, prev_ms=None, plain_ms=t_plain, library_ms=t_lib,
+                bound_ms=bound, bound_by=bound_by, eager_wall_ms=t_eager)
 
 
 def attention_edge_checks(gen) -> dict:
@@ -284,10 +356,8 @@ def attention_edge_checks(gen) -> dict:
 
 def kernel_phase(model_cfg) -> dict:
     import torch
-    import torch.nn.functional as F
 
-    from mast3r_slam_torch.ops.attention import (attention_reference, attention_schedule,
-                                                 flash_attention, roofline)
+    from mast3r_slam_torch.ops.attention import flash_attention
 
     d = 64
     enc_h = model_cfg.enc_embed_dim // model_cfg.enc_num_heads
@@ -304,33 +374,9 @@ def kernel_phase(model_cfg) -> dict:
         pass
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows, max_err = [], 0.0
-    for name, b, h, sq, skv, fused in cases:
-        q, k, v = attention_inputs(b, h, sq, skv, fused, gen)
-        out = flash_attention(q, k, v)
-        torch.cuda.synchronize()
-        ref = attention_reference(q.float(), k.float(), v.float())
-        err = (out.float() - ref).abs().max().item()
-        check(bool(torch.isfinite(out).all()), f"{name}: non-finite kernel output")
-        check(err <= ATTN_ATOL, f"{name}: max |kernel - plain| = {err:.3e} > {ATTN_ATOL}")
-        max_err = max(max_err, err)
-        t_kernel = time_graph(lambda x: flash_attention(x, k, v), q)
-        t_plain = time_graph(lambda x: attention_reference(x, k, v), q)
-        t_lib = time_graph(lambda x: F.scaled_dot_product_attention(x, k, v), q)
-        t_eager = time_eager(lambda x: flash_attention(x, k, v), q)
-        bound, bound_by = roofline(b, h, sq, skv, d)
-        schedule = attention_schedule(b, h, sq, skv)
-        splits = schedule.splits
-        rows.append(dict(case=name, shape=[b, h, sq, skv, d], splits=splits,
-                         stages=schedule.stages, max_abs_err=err,
-                         ms=t_kernel, prev_ms=None, plain_ms=t_plain,
-                         library_ms=t_lib, bound_ms=bound, bound_by=bound_by,
-                         eager_wall_ms=t_eager))
-        print(f"[kernel] flash_attention {name} {[b, h, sq, skv, d]} splits {splits}: max_abs_err "
-              f"{err:.3e} device ms: kernel {t_kernel:.5f} plain {t_plain:.5f} sdpa {t_lib:.5f} "
-              f"bound {bound:.5f} ({bound_by}), {bound / t_kernel:.0%} of bound; eager wall ms "
-              f"per launch {t_eager:.5f}", flush=True)
+    rows = [attention_row(*case, gen) for case in cases]
     edges = attention_edge_checks(gen)
+    max_err = max(r["max_abs_err"] for r in rows)
     return dict(rows=rows, max_err=max(max_err, edges["max_abs_err"]), edges=edges)
 
 
@@ -660,6 +706,21 @@ def predicted_attention(events, n_decodes: int, model_cfg) -> tuple[int, str]:
     return total, how
 
 
+def frames_dataset(imgs: list):
+    """In-memory uint8 frames [H, W, 3] as a dataset of the port: no image
+    files, no PIL."""
+    from mast3r_slam_torch.dataloader import Dataset
+
+    class Frames(Dataset):
+        def __len__(self):
+            return len(imgs)
+
+        def __getitem__(self, i):
+            return float(i) / 30.0, imgs[i]
+
+    return Frames()
+
+
 def slam_phase() -> dict:
     import copy
 
@@ -668,24 +729,11 @@ def slam_phase() -> dict:
 
     from mast3r_slam_torch import global_opt
     from mast3r_slam_torch.config import Config, set_config
-    from mast3r_slam_torch.dataloader import Dataset
     from mast3r_slam_torch.global_opt import FactorGraph
     from mast3r_slam_torch.ops.attention import flash_attention
     from mast3r_slam_torch.profile_step import count_syncs
     from mast3r_slam_torch.slam import SLAM
     from mast3r_slam_torch.workload import BENCH_SETTINGS, drift_frames
-
-    class Frames(Dataset):
-        """In-memory uint8 frames: no image files, no PIL."""
-
-        def __init__(self, imgs):
-            self.imgs = imgs
-
-        def __len__(self):
-            return len(self.imgs)
-
-        def __getitem__(self, i):
-            return float(i) / 30.0, self.imgs[i]
 
     rng = np.random.default_rng(2)
     base = rng.uniform(0, 1, (480, 640, 3)).astype(np.float32)
@@ -727,7 +775,7 @@ def slam_phase() -> dict:
         flash_attention.launches = 0
         t0 = time.perf_counter()
         results = []
-        syncs = count_syncs(lambda: results.append(slam.run(Frames(imgs[:n]))))
+        syncs = count_syncs(lambda: results.append(slam.run(frames_dataset(imgs[:n]))))
         res = results[0]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -785,12 +833,11 @@ def slam_phase() -> dict:
 
         # after both timed runs: the checks below load the host's cores
         solve_checks = check_graph_solves(captured)
-        fg, kf = slam1.factor_graph, slam1.keyframes
-        solve_profile = profile_solve(fg, kf, kf.T_WC.clone())
+        solve_profile = profile_solve("slam i", "graph_solve", slam1.factor_graph.solve_GN_rays)
     finally:
         FactorGraph.solve_GN_rays = solve_gn_rays
         global_opt.gauss_newton_graph = graph_solve
-    return dict(i=out1, ii=out2, solve_checks=solve_checks, solve_profile=solve_profile)
+    return dict(i=out1, ii=out2, solve_checks=solve_checks, solve_profile=solve_profile), slam1.model
 
 
 def world_graph_problem(h: int, w: int, n_kf: int, seed: int, device) -> dict:
@@ -908,32 +955,353 @@ def check_graph_solves(captured) -> dict:
     return dict(world=world, run_i=runs)
 
 
-def profile_solve(fg, kf, T0) -> dict:
-    """One more graph solve from the same arena state under torch.profiler:
-    its kernel launches, device busy time and host time (the trace is
-    summarised by profile_step's reader and written under build/profile/)."""
+def profile_solve(label: str, name: str, solve) -> dict:
+    """One more call of `solve` under torch.profiler: its kernel launches,
+    device busy time and host time (the trace is summarised by
+    profile_step's reader and written to build/profile/<name>_trace.json)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from mast3r_slam_torch.profile_step import summarize_trace
 
-    kf.T_WC.copy_(T0)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fg.solve_GN_rays()
+        solve()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    path = os.path.join(REPO, "build", "profile", "graph_solve_trace.json")
+    path = os.path.join(REPO, "build", "profile", f"{name}_trace.json")
     os.makedirs(os.path.dirname(path), exist_ok=True)
     prof.export_chrome_trace(path)
     trace = summarize_trace(path, frames=1)
     out = dict(wall_ms_profiled=wall, kernels=trace["kernels_per_frame"],
                device_busy_ms=trace["device_busy_ms_per_frame"],
                top_kernels=trace.get("top_kernels", [])[:5])
-    print(f"[slam i] profiled graph solve: {out['kernels']:.0f} kernels, device busy "
+    print(f"[{label}] profiled {name.replace('_', ' ')}: {out['kernels']:.0f} kernels, device busy "
           f"{out['device_busy_ms']:.2f} ms of {wall:.2f} ms wall (profiled)", flush=True)
     return out
+
+
+# -- phase 8 ---------------------------------------------------------------
+
+
+def forced_splits(name, b, h, sq, skv, fused, gen) -> dict:
+    """Device ms of one attention call under every split count of the
+    4-stage ring, forced through `attention._launch`, each within ATTN_ATOL
+    of the plain version."""
+    import torch
+
+    from mast3r_slam_torch.ops.attention import (MAX_SPLITS, _launch, attention_reference,
+                                                 attention_schedule, make_schedule)
+
+    q, k, v = attention_inputs(b, h, sq, skv, fused, gen)
+    ref = attention_reference(q.float(), k.float(), v.float())
+    out = {}
+    for splits in range(1, MAX_SPLITS + 1):
+        sc = make_schedule(b, h, sq, skv, splits, 4)
+        err = (_launch(q, k, v, schedule=sc).float() - ref).abs().max().item()
+        check(err <= ATTN_ATOL, f"{name} splits {splits}: max |kernel - plain| {err:.3e}")
+        out[splits] = time_graph(lambda x, sc=sc: _launch(x, k, v, schedule=sc), q)
+    torch.cuda.synchronize()
+    print(f"[calib] flash_attention {name}: device ms by forced splits "
+          f"{ {s: round(t, 5) for s, t in out.items()} }; the schedule takes "
+          f"{attention_schedule(b, h, sq, skv).splits}, the fastest here "
+          f"{min(out, key=out.get)}", flush=True)
+    return out
+
+
+def calib_attention(model_cfg) -> tuple[list, dict]:
+    """The attention kernel at the token count of EuRoC's 752x480 frames (the
+    host pipeline crops them to 512x320: 640 tokens), each shape held to the
+    plain version and timed as in phase 3; the batch-1 shapes, at 640 and at
+    phase 3's 768 tokens, also under every split count (`forced_splits`)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    for case in attention_cases(model_cfg, EUROC_CROP, "640 tokens "):
+        row = attention_row(*case, gen)
+        if case[1] == 1:
+            row["splits_ms"] = forced_splits(*case, gen)
+        rows.append(row)
+    splits_768 = {case[0]: forced_splits(*case, gen)
+                  for case in attention_cases(model_cfg, (384, 512), "768 tokens ")
+                  if case[1] == 1}
+    return rows, splits_768
+
+
+def calib_settings(config_file: str, extra: dict):
+    """configs/<config_file> as the port loads it, with `extra` over it."""
+    from mast3r_slam_torch.config import Config, load_config, set_config
+
+    d = load_config(os.path.join(REPO, "configs", config_file)).to_dict()
+    for key, value in extra.items():
+        if isinstance(value, dict):
+            d[key].update(value)
+        else:
+            d[key] = value
+    return set_config(Config.from_dict(d))
+
+
+def calib_runs(model) -> dict:
+    """SLAM.run in calibrated mode, runs (iii) and (iv) of CALIB_RUNS over
+    in-memory uint8 frames of EUROC_HW, with the model of phase 7. Each
+    run: attention launches equal to the event log's prediction; finite poses
+    and points; calibrated graph solves only (timed between CUDA events),
+    at least one. (iii): the arena's K is the config's and the matcher the
+    simple one. (iv): K estimated once, from the first keyframe's mono
+    pointmap, its focal within FOCAL_RTOL of the port's estimate from the
+    same pointmap copied to the host."""
+    import numpy as np
+    import torch
+
+    from mast3r_slam_torch import global_opt
+    from mast3r_slam_torch import slam as slam_mod
+    from mast3r_slam_torch.ops.attention import flash_attention
+    from mast3r_slam_torch.profile_step import count_syncs
+    from mast3r_slam_torch.utils.intrinsics import estimate_intrinsics
+    from mast3r_slam_torch.workload import drift_frames
+
+    rng = np.random.default_rng(3)
+    base = rng.uniform(0, 1, (*EUROC_HW, 3)).astype(np.float32)
+    imgs = [(f * 255).astype(np.uint8)
+            for f in drift_frames(base, max(n for _, n, _ in CALIB_RUNS.values()), rng)]
+    solves: list = []
+    first_pointmap: list = []
+    graph_solve, estimate = global_opt.gauss_newton_graph, slam_mod.estimate_intrinsics
+
+    def timed_solve(*args, **kwargs):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        events[0].record()
+        out = graph_solve(*args, **kwargs)
+        events[1].record()
+        solves.append((kwargs["mode"], events))
+        return out
+
+    def recording_estimate(X, img_size, C):
+        first_pointmap.append((X.clone(), C.clone(), img_size))
+        return estimate(X, img_size, C)
+
+    out = {}
+    global_opt.gauss_newton_graph = timed_solve
+    slam_mod.estimate_intrinsics = recording_estimate
+    try:
+        for name, (config_file, n, extra) in CALIB_RUNS.items():
+            cfg = calib_settings(config_file, extra)
+            slam = slam_mod.SLAM(model=model)
+            solves.clear()
+            first_pointmap.clear()
+            torch.cuda.synchronize()
+            flash_attention.launches = 0
+            t0 = time.perf_counter()
+            results = []
+            syncs = count_syncs(lambda: results.append(slam.run(frames_dataset(imgs[:n]))))
+            res = results[0]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = flash_attention.launches
+            ev, fg, kfs = slam.events, slam.factor_graph, slam.keyframes
+            predicted, how = predicted_attention(ev, fg.n_decodes, slam.model.cfg)
+            modes = sorted({m for m, _ in solves})
+            solve_ms = [a.elapsed_time(b) for _, (a, b) in solves]
+            K = kfs.get_intrinsics()
+            matcher = cfg.matching.method
+            if matcher == "auto":
+                matcher = "simple" if cfg.matching.use_simple else "iterative"
+            print(f"[calib {name}] {config_file}, matcher {matcher}: {n} frames of "
+                  f"{EUROC_HW[1]}x{EUROC_HW[0]} (pointmaps {kfs.h}x{kfs.w}) in {wall:.2f} s = "
+                  f"{wall / n * 1e3:.1f} ms/frame; events {dict(sorted(ev.items()))}; keyframes "
+                  f"{res['keyframe_indices']}; edges {fg.n_edges}; backend decodes "
+                  f"{fg.n_decodes}; host syncs {sum(syncs.values())}", flush=True)
+            print(f"[calib {name}] graph solves {len(solves)} in modes {modes}: ms between CUDA "
+                  f"events median {np.median(solve_ms):.2f} max "
+                  f"{max(solve_ms, default=float('nan')):.2f}; K {K.tolist()}; attention "
+                  f"launches {launches}, predicted {how} = {predicted}", flush=True)
+            check(launches == predicted, f"{name}: attention launched {launches}, "
+                  f"predicted {predicted}")
+            check(res["poses"].shape == (n, 4, 4), f"{name}: poses {res['poses'].shape}")
+            check(bool(np.isfinite(res["poses"]).all()), f"{name}: non-finite poses")
+            check(len(res["points"]) > 0 and bool(np.isfinite(res["points"]).all()),
+                  f"{name}: non-finite or no points")
+            check(ev["init"] == 1 and ev["chained_step"] >= 1, f"{name}: events {dict(ev)}")
+            check(modes == ["calib"], f"{name}: graph solves in modes {modes}, not calib only")
+            check(K is not None and fg.K is K, f"{name}: no intrinsics in the arena and graph")
+            row = dict(config=config_file, matcher=matcher, frames=n, wall_s=wall,
+                       ms_frame=wall / n * 1e3, launches=launches, predicted=predicted,
+                       calib_solves=len(solves), solve_ms=solve_ms, events=dict(ev),
+                       keyframes=len(kfs), edges=fg.n_edges, K=K.tolist(),
+                       host_syncs=sum(syncs.values()))
+            if cfg.dataset.calib:
+                check(K[[0, 1, 0, 1], [0, 1, 2, 2]].tolist() == [
+                    float(np.float32(c)) for c in cfg.dataset.calib],
+                    f"{name}: K {K.tolist()} is not dataset.calib {cfg.dataset.calib}")
+                check(not first_pointmap, f"{name}: estimated K despite dataset.calib")
+            else:
+                check(len(first_pointmap) == 1, f"{name}: K estimated {len(first_pointmap)} times")
+                X, C, size = first_pointmap[0]
+                f_dev = float(K[0, 0])
+                f_cpu = float(estimate_intrinsics(X.cpu(), size, C.cpu())[0, 0])
+                f_64 = float(estimate_intrinsics(X.cpu().double(), size, C.cpu().double())[0, 0])
+                rel = abs(f_dev - f_cpu) / abs(f_cpu)
+                print(f"[calib {name}] estimated focal {f_dev!r} px on the card, "
+                      f"{f_cpu!r} on the CPU (f32; {f_64!r} in f64): relative gap {rel:.3e}",
+                      flush=True)
+                check(rel <= FOCAL_RTOL, f"{name}: focal {f_dev} vs the CPU's {f_cpu}")
+                row.update(focal=f_dev, focal_cpu=f_cpu, focal_cpu_f64=f_64, focal_rel_gap=rel)
+            out[name] = row
+    finally:
+        global_opt.gauss_newton_graph = graph_solve
+        slam_mod.estimate_intrinsics = estimate
+    return out
+
+
+def calib_world_problem(h: int, w: int, n_kf: int, K, seed: int) -> dict:
+    """A well-posed calibrated problem at full width, in float64 on the CPU: a
+    tilted plane seen by `n_kf` keyframes (Sim(3) poses near identity, pose 0
+    the identity), each keyframe's pointmap rendered on its own pixel grid
+    through K (pixel n's point lies on ray n, as calibrated mode requires,
+    so no pixel permutation), correspondences found by projecting keyframe
+    j's points into keyframe i and rounding to its grid, each keyframe
+    joined to up to three before it, both directions of every edge, poses
+    1.. perturbed off the truth. numpy-seeded."""
+    import numpy as np
+    import torch
+
+    from mast3r_slam_torch.lie import core as lie
+
+    rng = np.random.default_rng(seed)
+    n = h * w
+    fx, fy, cx, cy = (float(K[0, 0]), float(K[1, 1]), float(K[0, 2]), float(K[1, 2]))
+    normal, dist = torch.tensor([-0.2, 0.1, 1.0], dtype=torch.float64), 2.0  # normal . X = dist
+    vv, uu = np.mgrid[0:h, 0:w]
+    ray = torch.from_numpy(np.stack([(uu.ravel() - cx) / fx, (vv.ravel() - cy) / fy,
+                                     np.ones(n)], -1))  # [N, 3]
+    xi = rng.normal(size=(n_kf, 7)) * np.array([0.05] * 3 + [0.03] * 3 + [0.02])
+    xi[0] = 0.0
+    T_gt = lie.sim3_exp(torch.from_numpy(xi))
+    Xs = []
+    for k in range(n_kf):
+        a = lie.sim3_act(T_gt[k][None], ray) - T_gt[k, :3]  # the rays' directions in the world
+        Xs.append(ray * ((dist - normal @ T_gt[k, :3]) / (a @ normal))[:, None])
+    edges = [(i, j) for j in range(1, n_kf) for i in range(max(0, j - 3), j)]
+    pairs = edges + [(j, i) for i, j in edges]
+    idx, valid = [], []
+    for i, j in pairs:
+        P = lie.sim3_act(lie.sim3_mul(lie.sim3_inv(T_gt[i]), T_gt[j])[None], Xs[j])
+        ui = torch.round(fx * P[:, 0] / P[:, 2] + cx).long()
+        vi = torch.round(fy * P[:, 1] / P[:, 2] + cy).long()
+        ok = (ui >= 0) & (ui < w) & (vi >= 0) & (vi < h) & (P[:, 2] > 0)
+        idx.append(torch.where(ok, vi.clamp(0, h - 1) * w + ui.clamp(0, w - 1), 0))
+        valid.append(ok)
+    noise = rng.normal(size=(n_kf, 7)) * 0.02
+    noise[0] = 0.0
+    T0 = lie.sim3_retract(T_gt, torch.from_numpy(noise))
+    e = len(pairs)
+    args = [T0, torch.stack(Xs), torch.full((n_kf, n), 10.0), torch.tensor([p[0] for p in pairs]),
+            torch.tensor([p[1] for p in pairs]), torch.stack(idx), torch.stack(valid),
+            torch.full((e, n), 4.0), torch.ones(e, dtype=torch.bool), torch.arange(n_kf) >= 1]
+    return dict(args=args, T_gt=T_gt, edges=len(edges), Xs=Xs, idx=idx, valid=valid,
+                pairs=pairs, T0=T0)
+
+
+def check_calib_solves(K, hw) -> dict:
+    """The calibrated graph solve and the calibrated pose solve on the card,
+    in f32, held to the same functions in float64 on the CPU within
+    CALIB_SOLVE_ATOL on the well-posed problem of calib_world_problem;
+    repeated card solves bit-equal; each timed (the repeat, between CUDA
+    events) and profiled once. The pose solve tracks keyframe 1 against
+    keyframe 0 (its points gathered through the edge (1, 0)) from keyframe
+    1's perturbed pose."""
+    import torch
+
+    from mast3r_slam_torch.ops.gauss_newton import (GNParams, gauss_newton_graph,
+                                                    gauss_newton_pose_calib)
+
+    h, w = hw
+    prob = calib_world_problem(h, w, CALIB_KEYFRAMES, K.cpu(), seed=6)
+    f32 = [a.float() if a.is_floating_point() else a for a in prob["args"]]
+    kw = dict(mode="calib", img_size=(h, w), params=GNParams())
+
+    def on(dev, args, dtype):
+        return [a.to(dev, dtype) if a.is_floating_point() else a.to(dev) for a in args]
+
+    def timed(fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    t0 = time.perf_counter()
+    card = on("cuda", f32, torch.float32)
+    Kc = K.to("cuda", torch.float32)
+    T1, _ = gauss_newton_graph(*card, K_intr=Kc, **kw)
+    (T2, _), ms = timed(lambda: gauss_newton_graph(*card, K_intr=Kc, **kw))  # the repeat
+    T64, _ = gauss_newton_graph(*on("cpu", f32, torch.float64), K_intr=K.cpu().double(), **kw)
+    err = (T1.cpu().double() - T64).abs().max().item()
+    start_err = (prob["T0"] - prob["T_gt"]).abs().max().item()
+    end_err = (T64 - prob["T_gt"]).abs().max().item()
+    graph = dict(keyframes=CALIB_KEYFRAMES, edges=prob["edges"], points=h * w, ms=ms,
+                 max_abs_err_f64=err, start_err=start_err, end_err_f64=end_err,
+                 repeat_bit_equal=torch.equal(T1, T2))
+    print(f"[calib] calibrated graph solve, {CALIB_KEYFRAMES} keyframes x {h * w} points, "
+          f"{prob['edges']} edges: {ms:.2f} ms on the card; card f32 vs CPU f64 max |dT| "
+          f"{err:.3e}; max |T - T_true| {start_err:.3e} -> {end_err:.3e} (f64); repeat "
+          f"bit-equal {graph['repeat_bit_equal']}", flush=True)
+    check(graph["repeat_bit_equal"], "calibrated graph solve: two identical card solves differ")
+    check(err <= CALIB_SOLVE_ATOL, f"calibrated graph solve: card vs float64 {err:.3e}")
+    check(end_err < start_err, f"calibrated graph solve: error {start_err:.3e} -> {end_err:.3e}")
+    graph["profile"] = profile_solve("calib", "calib_graph_solve",
+                                     lambda: gauss_newton_graph(*card, K_intr=Kc, **kw))
+
+    # the pose solve: keyframe 0's pixels, keyframe 1's points through edge (1, 0)
+    e = prob["pairs"].index((1, 0))
+    ok = prob["valid"][e]
+    X0, X1 = prob["Xs"][0], prob["Xs"][1]
+    vv, uu = torch.meshgrid(torch.arange(h, dtype=torch.float64),
+                            torch.arange(w, dtype=torch.float64), indexing="ij")
+    meas = torch.stack([uu.reshape(-1), vv.reshape(-1), torch.log(X0[:, 2])], -1)
+    wt = ok.double()[:, None]
+    pose_args = [prob["T0"][1], X1[prob["idx"][e]], meas,
+                 torch.cat([wt, wt, 0.1 * wt], -1), (X0[:, 2] > 0)[:, None]]
+    pose32 = [a.float() if a.is_floating_point() else a for a in pose_args]
+    p = GNParams()
+    card = on("cuda", pose32, torch.float32)
+    P1, _ = gauss_newton_pose_calib(*card, Kc, (h, w), p)
+    (P2, _), pose_ms = timed(lambda: gauss_newton_pose_calib(*card, Kc, (h, w), p))
+    P64, _ = gauss_newton_pose_calib(*on("cpu", pose32, torch.float64), K.cpu().double(),
+                                     (h, w), p)
+    perr = (P1.cpu().double() - P64).abs().max().item()
+    pose = dict(points=h * w, ms=pose_ms, max_abs_err_f64=perr,
+                start_err=(prob["T0"][1] - prob["T_gt"][1]).abs().max().item(),
+                end_err_f64=(P64 - prob["T_gt"][1]).abs().max().item(),
+                repeat_bit_equal=torch.equal(P1, P2))
+    print(f"[calib] calibrated pose solve, {h * w} points: {pose_ms:.2f} ms on the card; card "
+          f"f32 vs CPU f64 max |dT| {perr:.3e}; max |T - T_true| {pose['start_err']:.3e} -> "
+          f"{pose['end_err_f64']:.3e} (f64); repeat bit-equal {pose['repeat_bit_equal']} "
+          f"(both checks {time.perf_counter() - t0:.1f} s)", flush=True)
+    check(pose["repeat_bit_equal"], "calibrated pose solve: two identical card solves differ")
+    check(perr <= CALIB_SOLVE_ATOL, f"calibrated pose solve: card vs float64 {perr:.3e}")
+    check(pose["end_err_f64"] < pose["start_err"], "calibrated pose solve: no progress")
+    pose["profile"] = profile_solve("calib", "calib_pose_solve",
+                                    lambda: gauss_newton_pose_calib(*card, Kc, (h, w), p))
+    return dict(graph=graph, pose=pose)
+
+
+def calib_phase(model) -> dict:
+    import torch
+
+    from mast3r_slam_torch.config import load_config
+
+    t0 = time.perf_counter()
+    attention, splits_768 = calib_attention(model.cfg)
+    fx, fy, cx, cy = load_config(os.path.join(REPO, "configs", CALIB_RUNS["iii"][0])).dataset.calib
+    K = torch.tensor([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]])
+    solves = check_calib_solves(K, EUROC_CROP)
+    runs = calib_runs(model)
+    print(f"[calib] phase done in {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(attention=attention, splits_768=splits_768, runs=runs, solves=solves)
 
 
 # -- another checkout's kernels (--parent) -----------------------------------
@@ -1062,13 +1430,15 @@ def main(argv=None) -> int:
         cfg = set_config(Config.from_dict(BENCH_SETTINGS))
         reference_phase(cfg)
         main = main_path_phase(cfg)
-        slam = slam_phase()
+        slam, model = slam_phase()
+        calib = calib_phase(model)
     except SmokeFailure as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
         return 1
 
     t_total = time.perf_counter() - T_START
     print(f"[chip_smoke] slam: {json.dumps(slam)}", flush=True)
+    print(f"[chip_smoke] calib: {json.dumps(calib)}", flush=True)
     enc = kern["rows"][0]
     kernels = [dict(
         name="flash_attention",
@@ -1077,8 +1447,10 @@ def main(argv=None) -> int:
         replaces="mast3r_slam_tpu/ops/attention.py:37",
         launches=main["launches"],
         launches_by_path=dict(tracking=main["launches"], slam_i=slam["i"]["launches"],
-                              slam_ii=slam["ii"]["launches"]),
-        max_abs_err=kern["max_err"],
+                              slam_ii=slam["ii"]["launches"],
+                              slam_iii=calib["runs"]["iii"]["launches"],
+                              slam_iv=calib["runs"]["iv"]["launches"]),
+        max_abs_err=max([kern["max_err"]] + [r["max_abs_err"] for r in calib["attention"]]),
         ms=enc["ms"],
         prev_ms=enc["prev_ms"],
         plain_ms=enc["plain_ms"],
@@ -1086,7 +1458,7 @@ def main(argv=None) -> int:
         bound_by=enc["bound_by"],
         library_ms=enc["library_ms"],
         shape=enc["shape"],
-        by_shape=kern["rows"],
+        by_shape=kern["rows"] + calib["attention"],
     )]
     for name, row in probe.items():
         kernels.append(dict(

@@ -86,6 +86,7 @@ class Frame:
     N: int = 0
     N_updates: int = 0
     _score: Optional[float] = None
+    K: Optional[torch.Tensor] = None  # [3, 3] intrinsics (calibrated mode)
 
     def __post_init__(self):
         if self.T_WC is None:
@@ -141,7 +142,8 @@ def _arena_remove(buf: torch.Tensor, idx: int) -> None:
 class Keyframes:
     """Fixed-capacity keyframe store on `device` (default: the card, raising
     without CUDA): append / remove / pop_last / last_index / __getitem__ /
-    write_pointmap / write_pose / update_T_WCs. Writes are in-place slot
+    write_pointmap / write_pose / update_T_WCs, and the intrinsics K [3, 3]
+    of calibrated mode (`set_intrinsics` / `get_intrinsics`). Writes are in-place slot
     copies. `__getitem__` returns a Frame whose pose is a copy and whose
     pointmap, confidence and features are views of the arena: a caller that
     keeps them past the next write of that slot, or past an eviction, copies
@@ -167,6 +169,7 @@ class Keyframes:
         self._pos: Optional[torch.Tensor] = None
         self.frame_ids: list[int] = []
         self.imgs: list[torch.Tensor] = []
+        self.K: Optional[torch.Tensor] = None  # [3, 3] intrinsics (calibrated mode)
         self.version: int = 0
 
     def __len__(self) -> int:
@@ -225,7 +228,7 @@ class Keyframes:
             frame_id=self.frame_ids[idx], img=self.imgs[idx], T_WC=self.T_WC[idx].clone(),
             X_canon=self.X[idx], C=self.C[idx],
             feat=None if self._feat is None else self._feat[idx], pos=self._pos,
-            N=int(self._n_host[idx]),
+            N=int(self._n_host[idx]), K=self.K,
         )
         nups = self._nups_host[idx]
         f.N_updates = nups if nups > 0 else f.N
@@ -252,6 +255,12 @@ class Keyframes:
         """Batch pose write-back (backend solve); `indices` are distinct."""
         self.T_WC[torch.as_tensor(np.asarray(indices), device=self.device)] = T_WCs
         self.version += 1
+
+    def set_intrinsics(self, K: torch.Tensor) -> None:
+        self.K = K
+
+    def get_intrinsics(self) -> Optional[torch.Tensor]:
+        return self.K
 
 
 @dataclasses.dataclass

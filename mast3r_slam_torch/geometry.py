@@ -1,5 +1,6 @@
-"""Ray-distance geometry (the port of the parts of
-``mast3r_slam_tpu/geometry.py`` that the tracking step and the backend use)."""
+"""Ray-distance and pinhole geometry (the port of the parts of
+``mast3r_slam_tpu/geometry.py`` that the tracking step, the backend and
+calibrated mode use)."""
 
 from __future__ import annotations
 
@@ -48,9 +49,17 @@ def get_pixel_coords(batch_size: int, img_size: tuple[int, int], dtype=torch.flo
     return torch.stack([ug, vg], dim=-1).expand(batch_size, h, w, 2)
 
 
+def decompose_K(K: torch.Tensor):
+    """(fx, fy, cx, cy) of intrinsics [..., 3, 3]. As in the JAX package, K is
+    the [3, 3] matrix (or a batch of them); a [4] vector is not accepted."""
+    if K.dim() < 2 or K.shape[-2:] != (3, 3):
+        raise ValueError(f"intrinsics must be [..., 3, 3], got {tuple(K.shape)}")
+    return K[..., 0, 0], K[..., 1, 1], K[..., 0, 2], K[..., 1, 2]
+
+
 def backproject(p: torch.Tensor, z: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
     """Pixels p [..., 2] at depths z [..., 1] -> camera points [..., 3]."""
-    fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    fx, fy, cx, cy = decompose_K(K)
     x = (p[..., 0:1] - cx) / fx * z
     y = (p[..., 1:2] - cy) / fy * z
     return torch.cat([x, y, z], dim=-1)

@@ -1,5 +1,5 @@
 """Backend factor graph: dense-correspondence pose-graph optimisation over the
-keyframe arena (the port of ``mast3r_slam_tpu/global_opt.py``, rays mode).
+keyframe arena (the port of ``mast3r_slam_tpu/global_opt.py``).
 
 Edge state lives in a fixed-capacity arena on the device (`local_opt.max_edges`
 bounds it), with the edge lists on the host. `add_factors` matches all the
@@ -16,8 +16,10 @@ nothing, and the Levenberg floor takes max(max|diag H|, 1), which a pinned
 pose's identity diagonal already reaches (tests/test_torch_graph_gn.py holds
 the exact solve to JAX's padded one).
 
-Points and calibrated modes are not ported yet: `solve_GN_points` and
-`solve_GN_calib` raise.
+Three solves: `solve_GN_rays`, `solve_GN_points` (scale-invariant 3D
+points) and `solve_GN_calib`, which puts the keyframes' points on their pixel
+rays through the intrinsics `K` before the pixel + log-depth solve (the
+arena keeps its points as they are) and raises without `K`.
 """
 
 from __future__ import annotations
@@ -27,14 +29,16 @@ import torch
 
 from mast3r_slam_torch.config import get_config
 from mast3r_slam_torch.frame import Keyframes
+from mast3r_slam_torch.geometry import constrain_points_to_ray
 from mast3r_slam_torch.inference import mast3r_match_symmetric
 from mast3r_slam_torch.ops.gauss_newton import GNParams, gauss_newton_graph
 
 
 class FactorGraph:
-    def __init__(self, model, frames: Keyframes):
+    def __init__(self, model, frames: Keyframes, K=None):
         self.model = model
         self.frames = frames
+        self.K = K  # [3, 3] intrinsics of the calibrated solve
         self.cfg = get_config().local_opt
         self.device = frames.device
         n = frames.h * frames.w
@@ -207,11 +211,18 @@ class FactorGraph:
         prep = self._prepare_solve()
         if prep is None:
             return
+        img_size = (self.frames.h, self.frames.w)
+        Xs = prep["Xs"]
+        if mode == "calib":
+            if self.K is None:
+                raise ValueError("Intrinsics K required for calibrated mode")
+            Xs = constrain_points_to_ray(img_size, Xs, self.K)
         Twc_new, _ = gauss_newton_graph(
-            prep["Twc"], prep["Xs"], prep["Cs"], prep["ii"], prep["jj"], prep["idx"],
+            prep["Twc"], Xs, prep["Cs"], prep["ii"], prep["jj"], prep["idx"],
             prep["valid"], prep["Q"], prep["edge_mask"], prep["free_mask"], mode=mode,
-            img_size=(self.frames.h, self.frames.w), params=self._params(),
-            variant=self.cfg.solve_variant, point_stride=self.cfg.point_stride,
+            K_intr=self.K if mode == "calib" else None, img_size=img_size,
+            params=self._params(), variant=self.cfg.solve_variant,
+            point_stride=self.cfg.point_stride,
         )
         unique, pin = prep["unique"], prep["pin"]
         self.frames.update_T_WCs(Twc_new[pin:], unique[pin:])
@@ -220,9 +231,7 @@ class FactorGraph:
         self._solve("rays")
 
     def solve_GN_points(self) -> None:
-        raise NotImplementedError(
-            "the points-mode graph solve is not ported yet (ROADMAP queue 1 item 8)")
+        self._solve("points")
 
     def solve_GN_calib(self) -> None:
-        raise NotImplementedError(
-            "the calibrated graph solve is not ported yet (ROADMAP queue 1 item 8)")
+        self._solve("calib")

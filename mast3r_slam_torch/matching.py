@@ -1,8 +1,11 @@
 """Two-view correspondence (the port of ``mast3r_slam_tpu/matching.py``).
 
-Only ``matching.method: dense`` is ported (the matcher of the tracking
-step). The "simple" and "iterative" methods raise NotImplementedError until
-ROADMAP queue 1 ports them.
+``matching.method``: "dense" (the shifted-tap matcher of the tracking step,
+`ops.dense_match.match_dense_window`) and "simple" (warm-start or identity
+correspondences and a 3D distance gate, the matcher that "auto" picks with
+``use_simple: true``). "iterative" (projective matching with descriptor
+refinement) raises NotImplementedError until ROADMAP queue 1 item 11 ports
+it.
 """
 
 from __future__ import annotations
@@ -24,25 +27,68 @@ def match(
 ):
     """Match pointmaps [B, H, W, 3] of two views per ``get_config().matching``.
 
-    Returns (idx [B, H*W], valid [B, H*W, 1]) plus payload_g and/or hit when
-    requested; see `ops.dense_match.match_dense_window`. The dense method
-    ignores the warm start `idx_1_to_2_init`, as in the JAX package.
+    Returns (idx [B, H*W], valid [B, H*W, 1]) plus payload_g [B, H*W, P]
+    (`payload` [B, H, W, P] selected at the matches) and/or hit [B, H*W]
+    (view-1 pixel claimed by a valid match) when requested. The dense method
+    folds both into its tap streams and ignores the warm start
+    `idx_1_to_2_init`, as in the JAX package; the simple method takes the
+    payload by one row gather and the hit mask by a scatter-max.
     """
     cfg = get_config().matching
     method = cfg.method
     if method == "auto":
         method = "simple" if cfg.use_simple else "iterative"
-    if method != "dense":
-        raise NotImplementedError(
-            f"matching.method={method!r} is not ported yet (ROADMAP queue 1); "
-            "the port runs matching.method='dense'"
+    if method == "dense":
+        return match_dense_window(
+            X11, X21, D11, D21,
+            radius=cfg.dense_radius,
+            dilations=tuple(cfg.dense_dilations),
+            desc_weight=cfg.dense_desc_weight,
+            dist_thresh=cfg.dist_thresh,
+            payload=payload,
+            want_hit=want_hit,
         )
-    return match_dense_window(
-        X11, X21, D11, D21,
-        radius=cfg.dense_radius,
-        dilations=tuple(cfg.dense_dilations),
-        desc_weight=cfg.dense_desc_weight,
-        dist_thresh=cfg.dist_thresh,
-        payload=payload,
-        want_hit=want_hit,
-    )
+    if method != "simple":
+        raise NotImplementedError(
+            f"matching.method={method!r} is not ported yet (ROADMAP queue 1 item 11); "
+            "the port runs matching.method 'dense' and 'simple'"
+        )
+    idx, valid = match_simple(X11, X21, idx_1_to_2_init, cfg.dist_thresh)
+    out = [idx, valid]
+    if payload is not None:
+        b = payload.shape[0]
+        pay_flat = payload.reshape(b, -1, payload.shape[-1])
+        out.append(torch.gather(pay_flat, 1, idx[..., None].expand(-1, -1, pay_flat.shape[-1])))
+    if want_hit:
+        out.append(hit_mask(idx, valid))
+    return tuple(out)
+
+
+def hit_mask(idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """[B, N] bool: the view-1 pixels that a valid match idx [B, N] (valid
+    [B, N, 1]) claims. A scatter-max, which is deterministic (the largest
+    value wins whatever the order), unlike a scatter-add."""
+    hit = torch.zeros(idx.shape, device=idx.device).scatter_reduce(
+        1, idx, valid[..., 0].float(), reduce="amax")
+    return hit > 0.5
+
+
+def match_simple(
+    X11: torch.Tensor,
+    X21: torch.Tensor,
+    idx_1_to_2_init: torch.Tensor | None = None,
+    dist_thresh: float = 0.1,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Warm-start (or identity) correspondences and a 3D distance gate:
+    view-2 pixel n matches view-1 pixel idx[n] when |X11[idx[n]] - X21[n]| <
+    `dist_thresh` -> (idx [B, H*W] int64, valid [B, H*W, 1])."""
+    b, h, w = X21.shape[:3]
+    n = h * w
+    if idx_1_to_2_init is None:
+        idx = torch.arange(n, device=X21.device)[None].expand(b, n)
+    else:
+        idx = idx_1_to_2_init.long().expand(b, n)
+    X11_sampled = torch.gather(X11.reshape(b, n, 3), 1, idx[..., None].expand(b, n, 3))
+    diff = X11_sampled - X21.reshape(b, n, 3)
+    valid = torch.sqrt((diff * diff).sum(-1)) < dist_thresh
+    return idx, valid[..., None]

@@ -1,17 +1,19 @@
-"""Gauss-Newton solvers: the frontend pose solve (ray-distance objective) and
-the backend factor-graph solve over the keyframe arena (rays mode). The port
-of ``gauss_newton_pose_rays`` / ``_pose_gn_loop_rays_soa`` and
-``gauss_newton_graph`` (with ``_stride_indices``, ``_edge_system``,
-``_resolve_edge_chunk``, ``_edge_blocks``, ``_assemble_Hg``) in
-``mast3r_slam_tpu/ops/gauss_newton.py``.
+"""Gauss-Newton solvers: the frontend pose solves (ray-distance and
+calibrated objectives) and the backend factor-graph solve over the keyframe
+arena (rays, points and calib modes). The port of
+``gauss_newton_pose_rays`` / ``_pose_gn_loop_rays_soa``,
+``gauss_newton_pose_calib`` and ``gauss_newton_graph`` (with
+``_stride_indices``, ``_edge_system``, ``_resolve_edge_chunk``,
+``_edge_blocks``, ``_assemble_Hg``) in ``mast3r_slam_tpu/ops/gauss_newton.py``.
 
 Frontend.
 
-Residual r_n = rd_k[n] - rd(T . Xf[n]) in R^4 (unit ray + distance),
-whitened per point, IRLS-reweighted (Huber or Tukey), with the chain rule
-folded analytically in structure-of-arrays layout ([*, N]): the normal
-equations are one [7, 4N] x [4N, 7] product, left to `torch.matmul` as the
-JAX package leaves it to XLA.
+Residual r_n = rd_k[n] - rd(T . Xf[n]) in R^4 (unit ray + distance), or
+[u, v, log z] of the keyframe pixel minus the projection of T . Xf[n] in
+calibrated mode, whitened per point, IRLS-reweighted (Huber or Tukey), with
+the chain rule folded analytically in structure-of-arrays layout ([*, N]):
+the normal equations are one [7, RN] x [RN, 7] product, left to
+`torch.matmul` as the JAX package leaves it to XLA.
 
 Loop design. JAX runs a ``lax.while_loop`` that stops when the relative cost
 change is below ``rel_error`` or the step norm below ``delta_thresh``. Here
@@ -124,6 +126,14 @@ def _pose_gn_loop_rays_soa(T_init, Xt, rdk_t, w_t, p: GNParams, rel_error: float
         tau = torch.where(torch.isfinite(tau).all(), tau, torch.zeros_like(tau))
         return lie.sim3_retract(T, tau), tau, cost
 
+    return _pose_gn_iterate(solve_step, T_init, p, rel_error)
+
+
+def _pose_gn_iterate(solve_step, T_init, p: GNParams, rel_error: float):
+    """`max_iter` calls of solve_step(T) -> (T_new, tau, cost) under a
+    device-side `done` flag that freezes the pose and the convergence state
+    once JAX's while_loop would have stopped (relative cost change under
+    `rel_error` or step norm under `delta_thresh`) -> (T, final cost)."""
     inf = torch.full((), torch.inf, dtype=T_init.dtype, device=T_init.device)
     T, old_cost, new_cost, delta_norm = T_init, inf, inf, inf
     done = torch.zeros((), dtype=torch.bool, device=T_init.device)
@@ -141,8 +151,75 @@ def _pose_gn_loop_rays_soa(T_init, Xt, rdk_t, w_t, p: GNParams, rel_error: float
     return T, new_cost
 
 
+def gauss_newton_pose_calib(
+    T_init: torch.Tensor,  # [8] initial T_CkCf
+    Xf: torch.Tensor,  # [N, 3] frame points (gathered to keyframe order)
+    meas_k: torch.Tensor,  # [N, 3] keyframe measurements [u, v, log z]
+    sqrt_info: torch.Tensor,  # [N, 3] whitening (validity and confidence folded in)
+    valid_meas: torch.Tensor,  # [N, 1] bool
+    K_intr: torch.Tensor,  # [3, 3]
+    img_size: tuple[int, int],
+    params: GNParams = GNParams(),
+):
+    """-> (T [8], final cost []): the calibrated tracker's pose solve, a pixel
+    + log-depth residual r = meas_k - [u, v, log z](T . Xf) in the same
+    structure-of-arrays layout as the rays loop. Pixel rows are
+    scale-invariant (row . P = 0) and the log-depth row's scale entry is 1,
+    so the chain rule folds without per-point products.
+
+    Conventions of the JAX solver, kept: a projection counts when
+    border < u < w-1-border and border < v < h-1-border, strictly (the graph
+    solve's gate is border <= u < w-border); log depth is log(max(z, 1e-10)
+    + 1e-10), zero where z <= z_eps; the loop stops on its own 1e-3
+    relative cost change."""
+    p = params
+    h_img, w_img = img_size
+    fx, fy, cx, cy = K_intr[0, 0], K_intr[1, 1], K_intr[0, 2], K_intr[1, 2]
+    Xt, meas_t, w_t = Xf.T, meas_k.T, sqrt_info.T  # [3, N]
+    vmeas = valid_meas[:, 0]
+    eps = 1e-10  # geometry._EPS
+
+    def solve_step(T):
+        t, q, s = T[:3], T[3:7], T[7]
+        qv, qw = q[:3, None].expand_as(Xt), q[3]
+        uv = 2.0 * _cross_soa(qv, Xt)
+        P = s * (Xt + qw * uv + _cross_soa(qv, uv)) + t[:, None]  # [3, N]
+        x, y, z = P[0], P[1], P[2]
+        zi = 1.0 / (z + eps)
+        u = fx * x * zi + cx
+        v = fy * y * zi + cy
+        gate = ((u > p.pixel_border) & (u < w_img - 1 - p.pixel_border)
+                & (v > p.pixel_border) & (v < h_img - 1 - p.pixel_border)
+                & (z > p.z_eps) & vmeas).to(T.dtype)
+        logz = torch.where(z > p.z_eps, torch.log(torch.clamp(z, min=eps) + eps), 0.0)
+        res = torch.stack([meas_t[0] - u, meas_t[1] - v, meas_t[2] - logz]) * gate
+        robust = w_t * torch.sqrt(robust_weight(w_t * res, p)) * gate
+        zero = torch.zeros_like(z)
+        rows = (
+            (fx * zi, zero, -fx * x * zi * zi),
+            (zero, fy * zi, -fy * y * zi * zi),
+            (zero, zero, zi),
+        )  # d[u, v, log z]/dP
+        # With Jp = [I | -[P]x | P]: a row (p0, p1, p2) gives the rotation
+        # block -(p x P) and the scale entry row . P; J = -(...).
+        jrow = [[p0, p1, p2, -(p1 * z - p2 * y), -(-p0 * z + p2 * x), -(p0 * y - p1 * x),
+                 p0 * x + p1 * y + p2 * z] for p0, p1, p2 in rows]
+        Bm = torch.stack(
+            [torch.cat([-robust[r] * jrow[r][a] for r in range(3)]) for a in range(7)]
+        )  # [7, 3N]
+        b = (robust * res).reshape(-1)
+        H = Bm @ Bm.T
+        g = Bm @ b
+        cost = 0.5 * (b * b).sum()
+        tau = cholesky_solve(H, -g, reg=p.reg)
+        tau = torch.where(torch.isfinite(tau).all(), tau, torch.zeros_like(tau))
+        return lie.sim3_retract(T, tau), tau, cost
+
+    return _pose_gn_iterate(solve_step, T_init, p, 1e-3)
+
+
 # ---------------------------------------------------------------------------
-# Backend: factor-graph GN over the keyframe arena (rays mode)
+# Backend: factor-graph GN over the keyframe arena
 # ---------------------------------------------------------------------------
 #
 # Loop design: as in the pose solve, ``max_iter`` iterations with a device-side
@@ -169,7 +246,8 @@ def _stride_indices(N: int, stride: int, img_size) -> np.ndarray:
     return base
 
 
-def _edge_system(Twc, Xi_t, Xj_t, ii, jj, weight_mask, Q, mode: str, p: GNParams):
+def _edge_system(Twc, Xi_t, Xj_t, ii, jj, weight_mask, Q, mode: str, K_intr, img_size,
+                 p: GNParams):
     """Per-edge 7x7 blocks S [E,7,7], gradients b [E,7] (of pose j; pose i gets
     -b) and the cost, from the pre-gathered points Xi_t / Xj_t [E, 3, N].
 
@@ -177,10 +255,14 @@ def _edge_system(Twc, Xi_t, Xj_t, ii, jj, weight_mask, Q, mode: str, p: GNParams
     Ad(Ti^-1) is expanded analytically:
         (Jp Ad)[r, c] = Ad[r, c] + (-[P]x)[r, :] . Ad[3:6, c] + P_r Ad[6, c].
     S and b are summed over the three residual rows' [E, 7, N] blocks (the
-    JAX package's "noconcat" variant)."""
-    if mode != "rays":
-        raise NotImplementedError(
-            f"graph GN mode {mode!r} is not ported yet (ROADMAP queue 1 item 8)")
+    JAX package's "noconcat" variant).
+
+    Modes: "rays", the whitened 3D point error (P - Xi) / sigma_ray;
+    "points", the same scaled by 1 / (|Xi| + 1e-6); "calib", the pixel and
+    log-depth error of the projections of P and Xi through K_intr [3, 3],
+    whitened by sigma_pixel / sigma_depth, counted where both depths exceed
+    z_eps and border <= u < w - border, border <= v < h - border (the JAX
+    convention, not the pose solve's strict one)."""
     Ti, Tj = Twc[ii], Twc[jj]
     Tij = lie.sim3_mul(lie.sim3_inv(Ti), Tj)
     t, q, s = Tij[:, :3], Tij[:, 3:7], Tij[:, 7:8]
@@ -195,12 +277,49 @@ def _edge_system(Twc, Xi_t, Xj_t, ii, jj, weight_mask, Q, mode: str, p: GNParams
         A[:, 1] - z * A[:, 3] + x * A[:, 5] + y * A[:, 6],
         A[:, 2] + y * A[:, 3] - x * A[:, 4] + z * A[:, 6],
     )  # each [E, 7, N]
-    sigma_inv = 1.0 / p.sigma_ray
-    r = sigma_inv * (P - Xi_t)  # [E, 3, N]
+    if mode in ("rays", "points"):
+        sigma_inv = 1.0 / p.sigma_ray
+        r = sigma_inv * (P - Xi_t)  # [E, 3, N]
+        Jrows = [sigma_inv * J for J in JpAd]
+        gate = None
+        if mode == "points":
+            sc = (1.0 / (torch.sqrt((Xi_t * Xi_t).sum(1)) + 1e-6))[:, None, :]  # [E, 1, N]
+            r = r * sc
+            Jrows = [sc * J for J in Jrows]
+    elif mode == "calib":
+        if K_intr is None or img_size is None:
+            raise ValueError("the calibrated graph solve needs K_intr and img_size")
+        h, w_img = img_size
+        fx, fy, cx, cy = K_intr[0, 0], K_intr[1, 1], K_intr[0, 2], K_intr[1, 2]
+        sp_inv, sd_inv = 1.0 / p.sigma_pixel, 1.0 / p.sigma_depth
+        zi = Xi_t[:, 2]
+        zj = z[:, 0]
+        zi_safe, zj_safe = torch.clamp(zi, min=1e-6), torch.clamp(zj, min=1e-6)
+        zi_inv, zj_inv = 1.0 / zi_safe, 1.0 / zj_safe  # [E, N]
+        uj = fx * x[:, 0] * zj_inv + cx
+        vj = fy * y[:, 0] * zj_inv + cy
+        ui = fx * Xi_t[:, 0] * zi_inv + cx
+        vi = fy * Xi_t[:, 1] * zi_inv + cy
+        r = torch.stack([sp_inv * (uj - ui), sp_inv * (vj - vi),
+                         sd_inv * (torch.log(zj_safe) - torch.log(zi_safe))], dim=1)  # [E, 3, N]
+        # The whitened projection rows folded into the JpAd rows:
+        # dproj = [[a, 0, -a x/zj], [0, b, -b y/zj], [0, 0, sd_inv/zj]].
+        zinv = zj_inv[:, None, :]
+        a = sp_inv * fx * zinv
+        b2 = sp_inv * fy * zinv
+        Jrows = [a * JpAd[0] - (a * x * zinv) * JpAd[2],
+                 b2 * JpAd[1] - (b2 * y * zinv) * JpAd[2],
+                 (sd_inv * zinv) * JpAd[2]]
+        bd = p.pixel_border
+        gate = ((zj > p.z_eps) & (zi > p.z_eps) & (uj >= bd) & (uj < w_img - bd)
+                & (vj >= bd) & (vj < h - bd)).to(r.dtype)  # [E, N]
+    else:
+        raise ValueError(f"unknown graph GN mode {mode!r}")
     sqrt_conf = torch.sqrt(torch.clamp(Q, min=0.0))[:, None, :]
-    w = robust_weight(sqrt_conf * r, p) * (Q * weight_mask)[:, None, :]
+    mask = Q * weight_mask if gate is None else Q * weight_mask * gate
+    w = robust_weight(sqrt_conf * r, p) * mask[:, None, :]
     sw = torch.sqrt(w)
-    Ak = [sw[:, k:k + 1] * (sigma_inv * JpAd[k]) for k in range(3)]  # [E, 7, N]
+    Ak = [sw[:, k:k + 1] * Jrows[k] for k in range(3)]  # [E, 7, N]
     rk = [sw[:, k] * r[:, k] for k in range(3)]  # [E, N]
     S = sum(a @ a.transpose(1, 2) for a in Ak)
     b = sum((a @ v[..., None])[..., 0] for a, v in zip(Ak, rk))
@@ -222,13 +341,13 @@ def _resolve_edge_chunk(E: int, n_pts: int, edge_chunk: int | None) -> int:
 
 
 def _edge_blocks(Twc_cur, Xi_t, Xj_t, ii, jj, weight_mask, Q, chunk: int, mode: str,
-                 p: GNParams):
+                 K_intr, img_size, p: GNParams):
     """S [E,7,7] and b [E,7], one `_edge_system` per chunk of edges."""
     S, b = [], []
     for c0 in range(0, ii.shape[0], chunk):
         sl = slice(c0, c0 + chunk)
         S_c, b_c, _ = _edge_system(Twc_cur, Xi_t[sl], Xj_t[sl], ii[sl], jj[sl],
-                                   weight_mask[sl], Q[sl], mode, p)
+                                   weight_mask[sl], Q[sl], mode, K_intr, img_size, p)
         S.append(S_c)
         b.append(b_c)
     return (S[0], b[0]) if len(S) == 1 else (torch.cat(S), torch.cat(b))
@@ -256,6 +375,7 @@ def gauss_newton_graph(
     edge_mask: torch.Tensor,  # [E] bool: inactive edges
     free_mask: torch.Tensor,  # [K] bool: poses the solver may move
     mode: str = "rays",
+    K_intr: torch.Tensor | None = None,
     img_size: tuple[int, int] | None = None,
     params: GNParams = GNParams(),
     edge_chunk: int | None = None,
@@ -263,13 +383,16 @@ def gauss_newton_graph(
     point_stride: int = 1,
 ):
     """Global Sim(3) pose-graph GN over dense correspondences -> (Twc_new
-    [K, 8], final step norm []). Pinned poses get an identity diagonal; the
+    [K, 8], final step norm []), in `mode` "rays", "points" or "calib" (the
+    last with intrinsics `K_intr` [3, 3] and `img_size`; the caller has put
+    the points on their pixel rays). Pinned poses get an identity diagonal; the
     Levenberg floor is `reg` times max(max|diag H|, 1); a non-finite step is
     replaced by zero. `variant` takes the JAX package's `solve_variant`
     names that sum in f32: "base" (one concatenated [E, 7, 3N] Jacobian)
     and "noconcat" are the same sums, and both run the one path here."""
     if not set(variant.split("+")) <= {"base", "noconcat"}:
-        raise NotImplementedError(f"solve_variant {variant!r} is not ported yet")
+        raise NotImplementedError(
+            f"solve_variant {variant!r} is not ported yet (ROADMAP queue 1 item 8)")
     p = params
     K, dtype = Twc.shape[0], Twc.dtype
     if point_stride < 1:
@@ -296,7 +419,8 @@ def gauss_newton_graph(
                 * ((1.0 - freeF)[:, None, None, None] * torch.eye(7, dtype=dtype, device=Twc.device)))
 
     def step(Twc_cur):
-        S, b = _edge_blocks(Twc_cur, Xi_t, Xj_t, ii, jj, weight_mask, Q, chunk, mode, p)
+        S, b = _edge_blocks(Twc_cur, Xi_t, Xj_t, ii, jj, weight_mask, Q, chunk, mode, K_intr,
+                            img_size, p)
         H, g = _assemble_Hg(K, ii, jj, S, b, dtype)
         H = H * freeF[:, None, None, None] * freeF[None, :, None, None] + pin_diag
         g = g * freeF[:, None]

@@ -9,8 +9,15 @@ steps (`FrameTracker.dispatch_window`), whose keyframe/skip decisions and
 promotions happen inside the steps; INIT, RELOC and windows that do not fit
 take the synchronous per-frame path (`_step_sync`). After each frame the
 backend drains its queue (`_run_backend`: symmetric matching of the new
-keyframe against up to three before it, then a rays-mode graph solve); a full
-arena evicts its lowest-covisibility keyframe (`_evict_if_full`).
+keyframe against up to three before it, then a graph solve, calibrated with
+`use_calib` and rays-mode otherwise); a full arena evicts its
+lowest-covisibility keyframe (`_evict_if_full`).
+
+Calibrated mode (`use_calib: true`): the arena's intrinsics K come from
+`dataset.calib` (processed-image pixels, rescaled for `img_downsample`) or,
+without it, from the first keyframe's mono pointmap
+(`utils.intrinsics.estimate_intrinsics`, in `_process_init`); the tracker
+and the backend then run the pixel + log-depth objectives.
 
 Host and card (the counterpart of the JAX package's two side threads, which
 hide a TPU link's round trip):
@@ -32,7 +39,7 @@ handshake are those of the JAX loop.
 
 Not ported yet, and raising when configured: `save_state` / `load_state`
 and `runtime.snapshot_every`, `runtime.metrics_path`, `runtime.viewer_port`,
-`runtime.weight_quant` (ROADMAP queue 1 item 13) and `use_calib` (item 10).
+and `runtime.weight_quant` (ROADMAP queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -56,6 +63,7 @@ from mast3r_slam_torch.models.mast3r import load_mast3r
 from mast3r_slam_torch.retrieval_db import RetrievalDatabase, load_retriever
 from mast3r_slam_torch.tracker import EVENT_NEW_KF, EVENT_SKIP, FrameTracker
 from mast3r_slam_torch.utils.export import save_ply, save_trajectory_kitti, save_trajectory_tum
+from mast3r_slam_torch.utils.intrinsics import estimate_intrinsics
 
 
 def _not_ported(what: str, item: int) -> NotImplementedError:
@@ -79,8 +87,6 @@ class SLAM:
                          (bool(rt.snapshot_every), "runtime.snapshot_every")):
             if on:
                 raise _not_ported(what, 13)
-        if self.config.use_calib:
-            raise _not_ported("use_calib", 10)
         if model is not None:
             self.model = model
             self.device = resolve_device(model.device if device is None else device)
@@ -349,8 +355,18 @@ class SLAM:
         f = max(1, self.config.dataset.img_downsample)
         self.keyframes = Keyframes(h // f, w // f, device=self.device)
         self.state = SLAMState(mode=Mode.INIT)
+        if self.config.use_calib and self.config.dataset.calib:
+            fx, fy, cx, cy = self.config.dataset.calib
+            if f > 1:
+                # the arena holds the subsampled grid: u' = (u + 0.5) / f - 0.5
+                fx, fy = fx / f, fy / f
+                cx, cy = (cx + 0.5) / f - 0.5, (cy + 0.5) / f - 0.5
+            self.keyframes.set_intrinsics(torch.tensor(
+                [[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]], dtype=torch.float32,
+                device=self.device))
         self.tracker = FrameTracker(self.model, device=self.device, keyframes=self.keyframes)
-        self.factor_graph = FactorGraph(self.model, self.keyframes)
+        K = self.keyframes.get_intrinsics() if self.config.use_calib else None
+        self.factor_graph = FactorGraph(self.model, self.keyframes, K)
         self.retrieval_db = load_retriever(self.model)
         self.retrieval_db.keyframes = self.keyframes
 
@@ -369,6 +385,12 @@ class SLAM:
         X, C, feat, pos = mast3r_inference_mono(self.model, frame)
         frame.X_canon, frame.C, frame.feat, frame.pos = X, C, feat, pos
         frame.N = frame.N_updates = 1
+        if self.config.use_calib and self.keyframes.K is None:
+            # calibration-free: the focal from the first mono pointmap
+            K = estimate_intrinsics(X, (self.keyframes.h, self.keyframes.w), C)
+            self.keyframes.set_intrinsics(K)
+            self.factor_graph.K = K
+            print(f"Estimated focal: {float(K[0, 0]):.1f}px")  # the run's one read of K
         self.keyframes.append(frame)
         self.retrieval_db.update(frame, add_after_query=True)
         self.state.queue_global_optimization(0)
@@ -416,7 +438,7 @@ class SLAM:
                     frame.T_WC = self.keyframes.T_WC[ref_idx].clone()
                     self.keyframes.write_pose(kf_idx, frame.T_WC)
                     self.retrieval_db.update(frame, add_after_query=True)
-                    self.factor_graph.solve_GN_rays()
+                    self._solve_graph()
                     self.events["reloc_solve"] += 1
                     break
             if not success:
@@ -444,10 +466,18 @@ class SLAM:
             if ii:
                 self.factor_graph.add_factors(ii, [idx] * len(ii),
                                               min_match_frac=self.config.local_opt.min_match_frac)
-            self.factor_graph.solve_GN_rays()
+            self._solve_graph()
             solves += 1
         self.events["backend_solve"] += solves
         return solves
+
+    def _solve_graph(self) -> None:
+        """The backend solve of the configured mode: calibrated with
+        `use_calib`, else rays."""
+        if self.config.use_calib:
+            self.factor_graph.solve_GN_calib()
+        else:
+            self.factor_graph.solve_GN_rays()
 
     # --------------------------------------------------------------- output
 

@@ -29,7 +29,12 @@ promotion left to the caller (the SLAM loop's ``_promote_keyframe``), as the
 JAX ``_track_fused`` program does. A model without a network (the oracle of
 the tests) takes the legacy path through `match_fn`.
 
-Calibrated tracking (``use_calib: true``) is not ported yet and raises.
+Calibrated mode (``use_calib: true`` with intrinsics installed in the
+arena): the step matches without payload or hit mask and runs
+`_track_core_calib`, which puts both pointmaps on their pixel rays before it
+gathers, and the pixel + log-depth pose solve. The tracker decides at each
+dispatch whether the calibrated objective is live and passes K then, since a
+calibration-free run estimates K only after the tracker is built.
 """
 
 from __future__ import annotations
@@ -43,10 +48,12 @@ from torch.profiler import record_function
 from mast3r_slam_torch.config import Config, get_config
 from mast3r_slam_torch.device import resolve_device
 from mast3r_slam_torch.frame import Frame, Keyframes, fuse_pointmap_masked
-from mast3r_slam_torch.geometry import point_to_ray_dist
+from mast3r_slam_torch.geometry import (constrain_points_to_ray, get_pixel_coords,
+                                        point_to_ray_dist)
 from mast3r_slam_torch.lie import core as lie
-from mast3r_slam_torch.matching import match
-from mast3r_slam_torch.ops.gauss_newton import GNParams, gauss_newton_pose_rays
+from mast3r_slam_torch.matching import hit_mask, match
+from mast3r_slam_torch.ops.gauss_newton import (GNParams, gauss_newton_pose_calib,
+                                                gauss_newton_pose_rays)
 
 # Event codes per chained frame (stats slot 3).
 EVENT_TRACKED = 0
@@ -127,6 +134,74 @@ def _track_core_rays(
     )
 
 
+def _calib_cfg_key(cfg) -> tuple:
+    """Positional config bundle of `_track_core_calib` (one definition)."""
+    return (
+        cfg.C_conf, cfg.Q_conf, cfg.min_match_frac, cfg.max_iters, cfg.huber,
+        cfg.sigma_pixel, cfg.sigma_depth, cfg.rel_error, cfg.delta_norm,
+        cfg.match_frac_thresh, cfg.pixel_border, cfg.depth_eps, cfg.robust, cfg.tukey_t,
+    )
+
+
+def _track_core_calib(
+    idx_f2k,  # [N]
+    valid_match_k,  # [N, 1] bool
+    Qff,  # [N, 1]
+    Qkf,  # [N, 1]
+    Xf_canon,  # [N, 3]
+    Cf_avg,  # [N, 1]
+    Xk_canon,  # [N, 3]
+    Ck_avg,  # [N, 1]
+    Xkf,  # [N, 3]
+    T_WCf,  # [8]
+    T_WCk,  # [8]
+    K,  # [3, 3] intrinsics
+    img_size: tuple[int, int],  # (h, w) of the pointmap grid
+    cfg_key: tuple,
+) -> dict:
+    """Tracking core, calibrated pixel + log-depth objective; the contract of
+    `_track_core_rays`. Both pointmaps go onto their pixel rays before the
+    packed gather (so the matcher's payload is not used), and the hit mask
+    is `matching.hit_mask` of the matches. Unlike the rays core, the gathered
+    desc_conf is not clamped at 0 before the square root, as in JAX."""
+    (C_conf, Q_conf, _min_match_frac, max_iters, huber_k, sigma_pixel, sigma_depth,
+     _rel_error, delta_norm, _thresh, pixel_border, depth_eps, robust, tukey_t) = cfg_key
+    n = idx_f2k.shape[0]
+    Xf_c = constrain_points_to_ray(img_size, Xf_canon[None], K)[0]
+    Xk_c = constrain_points_to_ray(img_size, Xk_canon[None], K)[0]
+    uv = get_pixel_coords(1, img_size, dtype=Xf_c.dtype, device=Xf_c.device).reshape(-1, 2)
+    meas_k = torch.cat([uv, torch.log(torch.clamp(Xk_c[:, 2:3], min=1e-10))], dim=-1)
+    valid_meas = Xk_c[:, 2:3] > depth_eps
+
+    pay_g = torch.cat([Qff, Cf_avg, Xf_c], dim=-1)[idx_f2k]
+    Qk = torch.sqrt(pay_g[:, 0:1] * Qkf)
+    Cf_g = pay_g[:, 1:2]
+    valid_opt = valid_match_k & (Cf_g > C_conf) & (Ck_avg > C_conf) & (Qk > Q_conf)
+    valid_kf = valid_match_k & (Qk > Q_conf)
+    match_frac = valid_opt.float().mean()
+
+    w = valid_opt.float() * torch.sqrt(Qk)
+    sqrt_info = torch.cat([(w / sigma_pixel).expand(n, 2), w / sigma_depth], dim=-1)
+    T_CkCf_init = lie.sim3_mul(lie.sim3_inv(T_WCk), T_WCf)
+    params = GNParams(
+        sigma_pixel=sigma_pixel, sigma_depth=sigma_depth, huber_k=huber_k, robust=robust,
+        tukey_t=tukey_t, max_iter=max_iters, delta_thresh=delta_norm,
+        pixel_border=pixel_border, z_eps=depth_eps,
+    )
+    T_CkCf, cost = gauss_newton_pose_calib(T_CkCf_init, pay_g[:, 2:5], meas_k, sqrt_info,
+                                           valid_meas, K, img_size, params)
+    hit = hit_mask(idx_f2k[None], valid_match_k[None])[0]
+    stats = torch.stack([match_frac, valid_kf.float().mean(), hit.float().mean()])
+    return dict(
+        Qk=Qk,
+        T_WCf=lie.sim3_mul(T_WCk, T_CkCf),
+        T_CkCf=T_CkCf,
+        Xkk=lie.sim3_act(T_CkCf[None], Xkf),
+        cost=cost,
+        stats=stats,
+    )
+
+
 def _to_unit_image(img: torch.Tensor, device: torch.device) -> torch.Tensor:
     """[H, W, 3] uint8 or float in [0, 1] -> f32 on `device`."""
     img = torch.as_tensor(img).to(device)
@@ -141,9 +216,10 @@ def _mono_pointmap(model, feat, pos, f: int):
             C.reshape(h, w, 1)[::f, ::f].reshape(-1, 1))
 
 
-def make_track_step(model, cfg, filtering_mode: str, img_downsample: int = 1) -> Callable:
+def make_track_step(model, cfg, filtering_mode: str, img_downsample: int = 1,
+                    use_calib: bool = False) -> Callable:
     """The per-frame chained step:
-    ``step(img [H,W,3], state, promote=True, enc=None) -> (out, state)``.
+    ``step(img [H,W,3], state, promote=True, enc=None, K=None) -> (out, state)``.
 
     `state` holds the keys of ``_STATE``; `out` holds the per-frame results
     of ``_PER_FRAME`` (stats = [match_frac, match_frac_k, unique_frac_f,
@@ -151,9 +227,10 @@ def make_track_step(model, cfg, filtering_mode: str, img_downsample: int = 1) ->
     under "promoted", whether the step ran the promotion (a Python bool).
     With ``promote=False`` the step neither reads `new_kf` nor promotes (the
     chain keeps its keyframe); `enc` = (feat [S, D], pos [S, 2]) skips the
-    encode of a frame already encoded.
+    encode of a frame already encoded. With `use_calib` the step runs the
+    calibrated core with the intrinsics `K` [3, 3] of each call.
     """
-    cfg_key = _rays_cfg_key(cfg)
+    cfg_key = _calib_cfg_key(cfg) if use_calib else _rays_cfg_key(cfg)
     min_match_frac, match_frac_thresh = cfg_key[2], cfg_key[9]
     f = max(1, img_downsample)
     dev = model.device
@@ -162,7 +239,7 @@ def make_track_step(model, cfg, filtering_mode: str, img_downsample: int = 1) ->
         return a[:, ::f, ::f] if f > 1 else a
 
     @torch.no_grad()
-    def step(img_f, st, promote: bool = True, enc=None):
+    def step(img_f, st, promote: bool = True, enc=None, K=None):
         with record_function("track.encode"):
             if enc is None:
                 img = _to_unit_image(img_f, dev)
@@ -177,19 +254,30 @@ def make_track_step(model, cfg, filtering_mode: str, img_downsample: int = 1) ->
         Xff, Cff, Qff = Xs_f.reshape(n, 3), Cs_f.reshape(n, 1), Qs_f.reshape(n, 1)
         Xkf, Ckf, Qkf = Xs_k.reshape(n, 3), Cs_k.reshape(n, 1), Qs_k.reshape(n, 1)
 
-        with record_function("track.match"):
-            # The (Q, C, X) payload rides the matcher's tap streams; the hit
-            # mask comes back with the match.
-            pay_img = torch.cat([Qs_f[..., None], Cs_f[..., None], Xs_f], dim=-1)
-            idx, valid, pay_g, hit = match(
-                Xs_f, Xs_k, Ds_f, Ds_k, st["idx"], payload=pay_img, want_hit=True
-            )
         kX, kC, kN, T_WCf, T_WCk = st["kf_X"], st["kf_C"], st["kN"], st["T_prev"], st["kf_T"]
-        with record_function("track.pose"):
-            core = _track_core_rays(
-                idx[0], valid[0], Qff, Qkf, Xff, Cff, kX, kC / torch.clamp(kN, min=1.0), Xkf,
-                T_WCf, T_WCk, cfg_key, pay_g=pay_g[0], unique_hit=hit[0],
-            )
+        if use_calib:
+            # The calibrated core puts the points on their rays before it
+            # selects, so the matcher carries no payload.
+            with record_function("track.match"):
+                idx, valid = match(Xs_f, Xs_k, Ds_f, Ds_k, st["idx"])
+            with record_function("track.pose"):
+                core = _track_core_calib(
+                    idx[0], valid[0], Qff, Qkf, Xff, Cff, kX, kC / torch.clamp(kN, min=1.0),
+                    Xkf, T_WCf, T_WCk, K, tuple(Xs_f.shape[1:3]), cfg_key,
+                )
+        else:
+            with record_function("track.match"):
+                # The (Q, C, X) payload rides the matcher's tap streams; the
+                # hit mask comes back with the match.
+                pay_img = torch.cat([Qs_f[..., None], Cs_f[..., None], Xs_f], dim=-1)
+                idx, valid, pay_g, hit = match(
+                    Xs_f, Xs_k, Ds_f, Ds_k, st["idx"], payload=pay_img, want_hit=True
+                )
+            with record_function("track.pose"):
+                core = _track_core_rays(
+                    idx[0], valid[0], Qff, Qkf, Xff, Cff, kX, kC / torch.clamp(kN, min=1.0),
+                    Xkf, T_WCf, T_WCk, cfg_key, pay_g=pay_g[0], unique_hit=hit[0],
+                )
         with record_function("track.fuse"):
             kX2, kC2, kN2 = fuse_pointmap_masked(kX, kC, kN, core["Xkk"], Ckf, filtering_mode)
 
@@ -247,6 +335,10 @@ class FrameTracker:
       the per-frame results stacked [K, ...] with the final chain state under
       "final", as the JAX window program does.
 
+    With ``use_calib`` every step takes the calibrated objective once the
+    arena holds intrinsics K (`_calib_live`, checked per step); the
+    standalone API has no arena and tracks with rays.
+
     Images are uint8 or float in [0, 1]. Runs on the model's device;
     `device` (default: the arena's, else the card, raising without CUDA)
     must match it.
@@ -260,17 +352,18 @@ class FrameTracker:
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, tracker on {self.device}")
         cfg = cfg or get_config()
-        if cfg.use_calib:
-            raise NotImplementedError(
-                "calibrated tracking (use_calib) is not ported yet (ROADMAP queue 1 item 10)"
-            )
         self.model = model
         self.keyframes = keyframes
         self.cfg = cfg.tracking
+        self.use_calib = cfg.use_calib
         self._img_downsample = max(1, cfg.dataset.img_downsample)
         self._step = make_track_step(
             model, cfg.tracking, cfg.tracking.filtering_mode, self._img_downsample
         )
+        self._step_calib = make_track_step(
+            model, cfg.tracking, cfg.tracking.filtering_mode, self._img_downsample,
+            use_calib=True,
+        ) if cfg.use_calib else None
         self.state: dict | None = None  # chain state of init_keyframe / track_window
         self.idx_f2k: Optional[torch.Tensor] = None
         self.last_stats: Optional[dict] = None
@@ -291,6 +384,18 @@ class FrameTracker:
     def reset_idx_f2k(self) -> None:
         self.idx_f2k = None
 
+    def _calib_live(self) -> bool:
+        """The calibrated objective is on: `use_calib` and intrinsics in the
+        arena (without them the tracker falls back to rays, as JAX does).
+        Read at every step, since a calibration-free run installs K after
+        the tracker is built."""
+        return self.use_calib and self.keyframes is not None and self.keyframes.K is not None
+
+    def _run_step(self, img, st, **kw):
+        if self._calib_live():
+            return self._step_calib(img, st, K=self.keyframes.K, **kw)
+        return self._step(img, st, **kw)
+
     # ------------------------------------------------ standalone window API
 
     @torch.no_grad()
@@ -310,7 +415,7 @@ class FrameTracker:
             raise RuntimeError("init_keyframe() must be called before track_window()")
         outs = []
         for img in imgs:
-            out, self.state = self._step(img, self.state)
+            out, self.state = self._run_step(img, self.state)
             outs.append(out)
         result = {k: torch.stack([o[k] for o in outs]) for k in _PER_FRAME}
         result["final"] = {k: self.state[k] for k in _STATE}
@@ -380,7 +485,7 @@ class FrameTracker:
                   kf_T=chain["T"])
         rows = []
         for img in imgs:
-            out, st = self._step(img, st)
+            out, st = self._run_step(img, st)
             rows.append(out)
         self.idx_f2k = st["idx"]
         self._chain = dict(kf_idx=chain["kf_idx"], feat=st["kf_feat"], pos=st["kf_pos"],
@@ -481,11 +586,15 @@ class FrameTracker:
             self.model, frame, keyframe, idx_i2j_init=self.idx_f2k)
         self.idx_f2k = idx_f2k
         frame.update_pointmap(Xff[0], Cff[0])
-        out = _track_core_rays(
-            idx_f2k[0], valid_match_k[0], Qff[0], Qkf[0], frame.X_canon, frame.get_average_conf(),
-            keyframe.X_canon, keyframe.get_average_conf(), Xkf[0], frame.T_WC, keyframe.T_WC,
-            _rays_cfg_key(self.cfg),
-        )
+        args = (idx_f2k[0], valid_match_k[0], Qff[0], Qkf[0], frame.X_canon,
+                frame.get_average_conf(), keyframe.X_canon, keyframe.get_average_conf(), Xkf[0],
+                frame.T_WC, keyframe.T_WC)
+        if self._calib_live():
+            # JAX's `_track_calib`: the same arithmetic as the calibrated core
+            out = _track_core_calib(*args, keyframe.K, (self.keyframes.h, self.keyframes.w),
+                                    _calib_cfg_key(self.cfg))
+        else:
+            out = _track_core_rays(*args, _rays_cfg_key(self.cfg))
         return self._finish(frame, kf_idx, out, Ckf[0], Qkf, Qff)
 
     def _track_fused(self, frame: Frame, kf_idx: int):
@@ -502,7 +611,7 @@ class FrameTracker:
         st = dict(kf_feat=kf["feat"], kf_pos=kf["pos"], idx=self._warm_idx(), kf_X=kf["X"],
                   kf_C=kf["C"], kN=torch.full((), kf["N"], device=self.device),
                   T_prev=frame.T_WC, kf_T=kf["T"])
-        out, _ = self._step(frame.img, st, promote=False, enc=(frame.feat, frame.pos))
+        out, _ = self._run_step(frame.img, st, promote=False, enc=(frame.feat, frame.pos))
         self.idx_f2k = out["idx"]
         stats = out["stats"].cpu().numpy()  # the one host read of the frame
         match_frac, match_frac_k, unique_frac_f = (float(x) for x in stats[:3])

@@ -56,10 +56,20 @@ def test_slam_and_probe_cases_without_device_raise(no_cuda):
             case()
 
 
-def test_frame_tracker_rejects_calib_and_untracked_use():
+def test_frame_tracker_rejects_calib_and_untracked_use(monkeypatch):
+    """A calibrated tracker builds on the CPU when asked for it (its
+    calibrated step waits for intrinsics in an arena) and, like any tracker,
+    raises without CUDA when no device is named; tracking before a keyframe
+    raises."""
     model = MASt3RModel.create(model_type="tiny", resolution=64, device="cpu")
-    with pytest.raises(NotImplementedError, match="use_calib"):
-        FrameTracker(model, Config.from_dict({"use_calib": True}), device="cpu")
+    calib = Config.from_dict({"use_calib": True})
+    tracker = FrameTracker(model, calib, device="cpu")
+    assert tracker.use_calib and tracker._step_calib is not None
+    assert not tracker._calib_live()  # no arena, no K: the rays step
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            FrameTracker(model, calib)
     tracker = FrameTracker(model, Config(), device="cpu")
     with pytest.raises(RuntimeError, match="init_keyframe"):
         tracker.track_window(torch.zeros(1, 48, 64, 3))

@@ -7,7 +7,9 @@ perturbed off the truth. Band: poses within 1e-5 (f32; the two solves sum
 the same terms in other orders). The FactorGraph test runs the tiny model's
 symmetric decode on both sides: edges and match masks exact, poses within
 5e-4 (the band of test_torch_slice.py: the models' f32 outputs differ by
-~1e-6 relative).
+~1e-6 relative), after a rays solve and after a points-mode solve.
+tests/test_torch_calib_ops.py holds the calib and points modes of the solve
+itself.
 """
 
 import dataclasses
@@ -208,8 +210,11 @@ def test_factor_graph_add_and_solve_matches_jax():
         np.testing.assert_array_equal(tg.jj[:tg.n_edges], jg.jj[:jg.n_edges])
         np.testing.assert_array_equal(tg.valid_match_i[:tg.n_edges].numpy(),
                                       np.asarray(jg.valid_match_i[:jg.n_edges]))
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-            tg.solve_GN_points()
+        # the points-mode solve from the same pruned graph and arena state
+        jg.solve_GN_points()
+        tg.solve_GN_points()
+        np.testing.assert_allclose(tk.T_WC[:4].numpy(), np.asarray(jk.T_WC[:4]), atol=5e-4,
+                                   rtol=0)
         assert dataclasses.is_dataclass(tk[0])
 
 

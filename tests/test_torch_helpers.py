@@ -74,7 +74,10 @@ def run_tiny_slam_pair(extra: dict, n_frames: int, sync_every: int = 2, seed: in
 
     settings = copy.deepcopy(BENCH_SETTINGS)
     for key, value in extra.items():
-        settings.setdefault(key, {}).update(value)
+        if isinstance(value, dict):
+            settings.setdefault(key, {}).update(value)
+        else:
+            settings[key] = value
     settings["runtime"].update(sync_every=sync_every, pipeline=True)
     with both_configs(settings):
         jm, tm = tiny_pair("linear")

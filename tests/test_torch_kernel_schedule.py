@@ -27,6 +27,8 @@ from mast3r_slam_torch.ops.lane_shift import (DIRECT, ROLL_THREADS, WARP, WARP_M
 
 MAIN_PATH = [  # (b, h, sq, skv): encoder, decoder (self and cross), backend batch of 6
     (1, 16, 768, 768), (1, 12, 768, 768), (6, 12, 768, 768)]
+CALIB_PATH = [  # the same calls at EuRoC's 752x480 frames, cropped to 512x320: 640 tokens
+    (1, 16, 640, 640), (1, 12, 640, 640), (6, 12, 640, 640)]
 RAGGED = [(2, 3, sq, skv) for sq in (1, 65, 200) for skv in (1, 77, 129, 768)] + [
     (6, 12, 200, 200), (1, 2, 256, 256), (2, 2, 77, 77), (1, 2, 128, 384)]
 
@@ -48,7 +50,7 @@ def _coverage(b, h, sq, skv, splits, grid, cluster):
     return count
 
 
-@pytest.mark.parametrize("b,h,sq,skv", MAIN_PATH + RAGGED)
+@pytest.mark.parametrize("b,h,sq,skv", MAIN_PATH + CALIB_PATH + RAGGED)
 def test_attention_schedule_covers_every_score_once(b, h, sq, skv):
     sched = attention_schedule(b, h, sq, skv)
     kv_tiles = -(-skv // BLOCK_K)
@@ -59,7 +61,7 @@ def test_attention_schedule_covers_every_score_once(b, h, sq, skv):
     assert count.min() == 1 and count.max() == 1
 
 
-@pytest.mark.parametrize("skv", [1, 77, 129, 200, 768])
+@pytest.mark.parametrize("skv", [1, 77, 129, 200, 640, 768])
 @pytest.mark.parametrize("stages", sorted(RINGS))
 def test_every_launch_covers_every_score_once(skv, stages):
     """Every launch chip_smoke.py forces on the card (each ring depth, 1 up
@@ -85,6 +87,16 @@ def test_schedule_splits_only_into_idle_slots():
         sc = attention_schedule(b, h, sq, skv)
         ctas = sc.grid[0] * sc.grid[1]
         assert sc.splits == 1 or ctas <= 132 * RINGS[sc.stages][0]
+
+
+def test_schedule_at_640_tokens():
+    """At 640 tokens the encoder's 160 q tiles split in two (320 CTAs), the
+    decoder's 120 in three (360), all resident at three per SM; the backend's
+    720 fill the card alone. chip_smoke.py times each against the other
+    split counts."""
+    got = {(b, h): (sc.splits, sc.stages) for b, h, sq, skv in CALIB_PATH
+           for sc in [attention_schedule(b, h, sq, skv)]}
+    assert got == {(1, 16): (2, 4), (1, 12): (3, 4), (6, 12): (1, 2)}
 
 
 def _simulate_roll(rows, c, itemsize, g):

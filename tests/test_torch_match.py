@@ -113,7 +113,22 @@ def test_match_dispatch_reads_the_matching_config():
 
 @pytest.mark.parametrize("method", ["auto", "simple", "iterative"])
 def test_unported_methods_raise(method):
-    X11, X21, D11, D21, _ = map(torch.from_numpy, scene(0))
-    with both_configs({"matching": {"method": method}}):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            match(X11, X21, D11, D21)
+    """Only `iterative` is still unported and raises, naming its queue item;
+    `simple` (and `auto` -> simple with `use_simple`) matches the JAX
+    dispatch exactly, payload and hit mask included."""
+    from mast3r_slam_tpu.matching import match as jax_match_dispatch
+
+    X11, X21, D11, D21, payload = scene(0)
+    # a 3D gate at the median identity-match distance of this scene
+    with both_configs({"matching": {"method": method, "dist_thresh": 0.157}}):
+        if method == "iterative":
+            with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
+                match(*map(torch.from_numpy, (X11, X21, D11, D21)))
+            return
+        got = match(*map(torch.from_numpy, (X11, X21, D11, D21)),
+                    payload=torch.from_numpy(payload), want_hit=True)
+        want = jax_match_dispatch(*map(jnp.asarray, (X11, X21, D11, D21)),
+                                  payload=jnp.asarray(payload), want_hit=True)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert 0 < got[1].float().mean() < 1  # the 3D gate splits the pixels
