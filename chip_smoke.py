@@ -83,6 +83,29 @@ Phases, in order; any failure exits non-zero before the result line:
                attention launches predicted from each run's event log, and
                in (iv) the card's focal within 1e-4 relative of the port's
                CPU estimate from the same pointmap.
+  9. configs - configs/tum.yaml, sevenscenes.yaml and fast.yaml through
+               SLAM.run over 640x480 frames: that torch.addcmul is a fused multiply-add
+               on the card (ops/iter_proj.py relies on it); attention at
+               dunemast3r-base's 432 tokens (336x252 at patch 14), held to the
+               plain version and timed as in phase 3, batch 1 also at every
+               split count; (v) configs/tum.yaml (ASMK retrieval) over 18
+               frames, every frame promoted: the codebook fitted at the 8th
+               keyframe, refitted at the 16th, ASMK answering every query
+               after the fit; (vi) configs/sevenscenes.yaml over 14 frames,
+               every tracked frame relocalised (k 5, min_thresh 0.05, strict),
+               the queries after the fit through ASMK; (vii) tum.yaml with
+               matching.method iterative over 10 frames (tracking and the
+               backend through the iterative matcher); (viii)
+               configs/fast.yaml with dunemast3r-base at 336 in bf16 over 16
+               frames, every frame promoted, an arena of 8 (evictions, solves
+               at point_stride 2). Each run: attention launches as predicted,
+               finite poses and points, ms/frame, solves and host syncs.
+               Then ASMK on the card against the CPU on run (v)'s first eight
+               keyframes (leading eigenvalues within 1e-4 relative; with the
+               CPU's transform and codebook, B and presence bit-equal, scores
+               within 1e-6, the same top-k), and run (vii)'s first tracking
+               match again on the card and the CPU (idx agreeing on at least
+               99.9% of pixels), timed and profiled beside the dense matcher.
 Then it prints the kernels JSON line, the card line, and last
 {"ok": true, "device": {...}}.
 """
@@ -141,6 +164,28 @@ CALIB_RUNS = {
 CALIB_KEYFRAMES = 3  # keyframes of the well-posed calibrated graph problem (3 edges)
 CALIB_SOLVE_ATOL = 1e-4  # card f32 vs CPU f64 poses of the calibrated graph and pose solves
 FOCAL_RTOL = 1e-4  # run (iv): the card's estimated focal vs the CPU's from the same pointmap
+# phase 9: run -> (config file, frames, settings over the file's). (v), (vii) and
+# (viii) open the gates as run (i) does, so every tracked frame is promoted (the
+# simple matcher of fast.yaml at an open 3D gate matches every pixel, so its
+# threshold must exceed 1); (vi) sends every tracked frame into relocalisation,
+# as run (ii) does.
+OPEN_GATES = {"matching": {"dist_thresh": 1e6},
+              "tracking": {"min_match_frac": 0.0, "Q_conf": 0.0, "match_frac_thresh": 1.0}}
+CONFIG_RUNS = {
+    "v": ("tum.yaml", 18, OPEN_GATES),
+    "vi": ("sevenscenes.yaml", 14, {"matching": {"dist_thresh": 1e6},
+                                    "tracking": {"min_match_frac": 1.01},
+                                    "reloc": {"min_match_frac": 0.0}}),
+    "vii": ("tum.yaml", 10, {"matching": {"dist_thresh": 1e6, "method": "iterative"},
+                             "tracking": OPEN_GATES["tracking"]}),
+    "viii": ("fast.yaml", 16, {"matching": {"dist_thresh": 1e6},
+                               "tracking": dict(OPEN_GATES["tracking"], match_frac_thresh=1.01),
+                               "runtime": {"keyframe_capacity": SLAM_CAPACITY}}),
+}
+DUNE_HW = (252, 336)  # a 640x480 frame at resolution 336 and patch 14: 432 tokens
+EIG_RTOL = 1e-4  # ASMK whitening: the card's leading eigenvalues vs the CPU's
+ASMK_SCORE_ATOL = 1e-6  # ASMK scores on the card vs the CPU, same transform and codebook
+ITER_AGREE = 0.999  # run (vii): iterative match idx, card vs CPU, from the same inputs
 
 
 class SmokeFailure(Exception):
@@ -252,10 +297,11 @@ def attention_inputs(b, h, sq, skv, fused: bool, gen):
 
 def attention_cases(model_cfg, hw: tuple[int, int] = (384, 512), tag: str = "") -> list:
     """(name, B, H, Sq, Skv, fused qkv) of the attention calls on the paths
-    at an image of `hw` pixels (16-pixel patches): the tracking step's batch
-    of 1 (encoder, decoder self and cross) and the backend's batch of 6 (three
-    keyframe pairs decoded both ways)."""
-    s = (hw[0] // 16) * (hw[1] // 16)
+    at an image of `hw` pixels (the model's patches): the tracking step's
+    batch of 1 (encoder, decoder self and cross) and the backend's batch of 6
+    (three keyframe pairs decoded both ways)."""
+    p = model_cfg.patch_size
+    s = (hw[0] // p) * (hw[1] // p)
     b_backend = 2 * BACKEND_PAIRS  # add_factors decodes every pair both ways in one batch
     return [
         (f"{tag}encoder self", 1, model_cfg.enc_num_heads, s, s, True),
@@ -985,7 +1031,7 @@ def profile_solve(label: str, name: str, solve) -> dict:
 # -- phase 8 ---------------------------------------------------------------
 
 
-def forced_splits(name, b, h, sq, skv, fused, gen) -> dict:
+def forced_splits(name, b, h, sq, skv, fused, gen, label: str = "calib") -> dict:
     """Device ms of one attention call under every split count of the
     4-stage ring, forced through `attention._launch`, each within ATTN_ATOL
     of the plain version."""
@@ -1003,7 +1049,7 @@ def forced_splits(name, b, h, sq, skv, fused, gen) -> dict:
         check(err <= ATTN_ATOL, f"{name} splits {splits}: max |kernel - plain| {err:.3e}")
         out[splits] = time_graph(lambda x, sc=sc: _launch(x, k, v, schedule=sc), q)
     torch.cuda.synchronize()
-    print(f"[calib] flash_attention {name}: device ms by forced splits "
+    print(f"[{label}] flash_attention {name}: device ms by forced splits "
           f"{ {s: round(t, 5) for s, t in out.items()} }; the schedule takes "
           f"{attention_schedule(b, h, sq, skv).splits}, the fastest here "
           f"{min(out, key=out.get)}", flush=True)
@@ -1304,6 +1350,298 @@ def calib_phase(model) -> dict:
     return dict(attention=attention, splits_768=splits_768, runs=runs, solves=solves)
 
 
+# -- phase 9 ---------------------------------------------------------------
+
+
+def fma_check() -> bool:
+    """Whether torch.addcmul rounds once on the card (a fused multiply-add),
+    as ops/iter_proj.py takes it to: held to the product and sum done in
+    float64 and rounded to float32 once, over a million seeded values."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    a, b, c = (torch.randn(1 << 20, 3, device="cuda", generator=gen) for _ in range(3))
+    fused = all(  # contiguous, and on the strided views that iter_proj passes
+        torch.equal(torch.addcmul(z, x, y), (x.double() * y.double() + z.double()).float())
+        for x, y, z in ((a, b, c), (a[:, 0], b[:, 1], c[:, 2])))
+    print(f"[configs] torch.addcmul on the card is a fused multiply-add: {fused}", flush=True)
+    return fused
+
+
+def config_runs(model) -> tuple[dict, dict]:
+    """SLAM.run under the configs of CONFIG_RUNS over in-memory 640x480 uint8
+    frames: (v)-(vii) with phase 7's mast3r_full model, (viii) with a new
+    dunemast3r-base model at 336 pixels from the run's own entry point. Each
+    run: attention launches equal to the event log's prediction; finite poses
+    and points; ms per frame, graph solves (their point strides and ms
+    between CUDA events) and host syncs. (v): the ASMK codebook fitted at the
+    8th keyframe and refitted at the 16th, every query after the first fit
+    answered by ASMK. (vi): every tracked frame relocalises, the queries
+    after the fit through ASMK. (vii): tracking and the backend through the
+    iterative matcher. (viii): evictions, every solve at point_stride 2.
+    Returns the rows and what the later checks need: run (v)'s first fit's
+    keyframe tokens and run (vii)'s first tracking match's inputs."""
+    import numpy as np
+    import torch
+
+    from mast3r_slam_torch import global_opt, matching
+    from mast3r_slam_torch import slam as slam_mod
+    from mast3r_slam_torch.models import asmk
+    from mast3r_slam_torch.ops.attention import flash_attention
+    from mast3r_slam_torch.profile_step import count_syncs
+    from mast3r_slam_torch.workload import drift_frames
+
+    rng = np.random.default_rng(4)
+    base = rng.uniform(0, 1, (480, 640, 3)).astype(np.float32)
+    imgs = [(f * 255).astype(np.uint8) for f in
+            drift_frames(base, max(n for _, n, _ in CONFIG_RUNS.values()), rng)]
+    solves, fits, queries, fit_feats, match_inputs = [], [], [], [], []
+    graph_solve, fit, query = (global_opt.gauss_newton_graph, asmk.ASMKRetriever.fit_codebook,
+                               asmk.ASMKRetriever.query)
+    iterative = matching.match_iterative_proj
+
+    def timed_solve(*args, **kwargs):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        events[0].record()
+        out = graph_solve(*args, **kwargs)
+        events[1].record()
+        solves.append((kwargs["point_stride"], events))
+        return out
+
+    def recording_fit(self, feats_list, iters=10):
+        fits.append(len(feats_list))
+        if not fit_feats:
+            fit_feats.extend(f.clone() for f in feats_list)
+        return fit(self, feats_list, iters=iters)
+
+    def counting_query(self, feats, k=3):
+        queries.append(self.count)
+        return query(self, feats, k=k)
+
+    def capturing_iterative(*args, **kwargs):
+        if not match_inputs and args[0].shape[0] == 1:
+            match_inputs.append(([a.clone() for a in args], dict(kwargs)))
+        return iterative(*args, **kwargs)
+
+    global_opt.gauss_newton_graph = timed_solve
+    asmk.ASMKRetriever.fit_codebook = recording_fit
+    asmk.ASMKRetriever.query = counting_query
+    matching.match_iterative_proj = capturing_iterative
+    out = {}
+    try:
+        for name, (config_file, n, extra) in CONFIG_RUNS.items():
+            cfg = calib_settings(config_file, extra)
+            if cfg.model.model_type == "dunemast3r":
+                slam = slam_mod.SLAM(model_type="dunemast3r", model_variant=cfg.model.variant,
+                                     resolution=cfg.model.resolution, precision="bf16", seed=0)
+            else:
+                slam = slam_mod.SLAM(model=model)
+            solves.clear()
+            fits.clear()
+            queries.clear()
+            torch.cuda.synchronize()
+            flash_attention.launches = 0
+            t0 = time.perf_counter()
+            results = []
+            syncs = count_syncs(lambda: results.append(slam.run(frames_dataset(imgs[:n]))))
+            res = results[0]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = flash_attention.launches
+            ev, fg, kfs, db = slam.events, slam.factor_graph, slam.keyframes, slam.retrieval_db
+            predicted, how = predicted_attention(ev, fg.n_decodes, slam.model.cfg)
+            strides = sorted({st for st, _ in solves})
+            solve_ms = [a.elapsed_time(b) for _, (a, b) in solves]
+            n_syncs = sum(syncs.values())
+            c = slam.model.cfg
+            row = dict(config=config_file, frames=n, model=f"{c.enc_embed_dim}/{c.enc_depth}/"
+                       f"{c.enc_num_heads} patch {c.patch_size}", hw=[kfs.h, kfs.w],
+                       matcher=cfg.matching.method, retrieval=cfg.retrieval.method, wall_s=wall,
+                       ms_frame=wall / n * 1e3, launches=launches, predicted=predicted,
+                       solves=len(solve_ms), solve_ms=solve_ms, strides=strides,
+                       host_syncs=n_syncs, host_syncs_per_frame=n_syncs / n,
+                       host_sync_sites=syncs, events=dict(ev), keyframes=len(kfs),
+                       edges=fg.n_edges, decodes=fg.n_decodes, asmk_fits=list(fits),
+                       asmk_queries=len(queries))
+            print(f"[configs {name}] {config_file} ({row['model']}, matcher {row['matcher']}, "
+                  f"retrieval {row['retrieval']}): {n} frames of 640x480 (pointmaps {kfs.h}x"
+                  f"{kfs.w}) in {wall:.2f} s = {row['ms_frame']:.1f} ms/frame; events "
+                  f"{dict(sorted(ev.items()))}; keyframes {len(kfs)}; edges {fg.n_edges}; host "
+                  f"syncs {n_syncs} ({n_syncs / n:.1f}/frame): "
+                  f"{dict(sorted(syncs.items(), key=lambda kv: -kv[1]))}", flush=True)
+            print(f"[configs {name}] graph solves {len(solve_ms)} at point strides {strides}: ms "
+                  f"between CUDA events median "
+                  f"{np.median(solve_ms) if solve_ms else float('nan'):.2f} max "
+                  f"{max(solve_ms, default=float('nan')):.2f}; ASMK fits at {fits} keyframes, "
+                  f"{len(queries)} queries answered by ASMK; attention launches {launches}, "
+                  f"predicted {how} = {predicted}", flush=True)
+            check(launches == predicted, f"{name}: attention launched {launches}, "
+                  f"predicted {predicted}")
+            check(res["poses"].shape == (n, 4, 4), f"{name}: poses {res['poses'].shape}")
+            check(bool(np.isfinite(res["poses"]).all()), f"{name}: non-finite poses")
+            check(len(res["points"]) > 0 and bool(np.isfinite(res["points"]).all()),
+                  f"{name}: non-finite or no points")
+            check(ev["init"] == 1 and ev["chained_step"] >= 1, f"{name}: events {dict(ev)}")
+            check(len(solve_ms) >= 1, f"{name}: no graph solve")
+            check(strides == [cfg.local_opt.point_stride], f"{name}: point strides {strides}")
+            promoted = ev["chained_promotion"] + ev["sync_promotion"]
+            if name == "v":
+                check(fits == [8, 16] and db._asmk_fit_size == 16, f"(v): ASMK fits at {fits}")
+                # keyframes 9.. query before their insertion, against 8.. entries
+                check(queries == list(range(8, n)), f"(v): ASMK queries at counts {queries}")
+                check(promoted == n - 1 and len(kfs) == n, f"(v): {promoted} promotions")
+            elif name == "vi":
+                check(ev["reloc"] == n - 1 and ev["reloc_solve"] >= 1, f"(vi): events {dict(ev)}")
+                check(fits == [8] and row["asmk_queries"] >= 1,
+                      f"(vi): ASMK fits {fits}, {row['asmk_queries']} ASMK queries")
+            elif name == "vii":
+                check(cfg.matching.method == "iterative" and bool(match_inputs),
+                      "(vii): no iterative match")
+                check(promoted >= 1 and fg.n_decodes >= 1, f"(vii): events {dict(ev)}")
+            else:
+                check(c.patch_size == 14 and (kfs.h, kfs.w) == DUNE_HW, f"(viii): {row['model']}")
+                check(ev["eviction"] == n - SLAM_CAPACITY and len(kfs) == SLAM_CAPACITY,
+                      f"(viii): {ev['eviction']} evictions, {len(kfs)} keyframes")
+            out[name] = row
+    finally:
+        global_opt.gauss_newton_graph = graph_solve
+        asmk.ASMKRetriever.fit_codebook = fit
+        asmk.ASMKRetriever.query = query
+        matching.match_iterative_proj = iterative
+    return out, dict(fit_feats=fit_feats, match_inputs=match_inputs)
+
+
+def check_asmk_card_vs_cpu(feats: list, rcfg) -> dict:
+    """ASMK on the card held to the CPU on run (v)'s first fit's keyframe
+    tokens: the whitening's leading eigenvalues within EIG_RTOL relative; then,
+    with the CPU's transform and codebook installed on the card, B and the
+    presence mask bit-equal, every keyframe's query scores within
+    ASMK_SCORE_ATOL and the same top-k."""
+    import torch
+
+    from mast3r_slam_torch.models import asmk
+
+    card = [f.float() for f in feats]
+    cpu = [f.cpu() for f in card]
+    p = rcfg.asmk_proj_dim
+
+    def eigenvalues(fs):
+        x = torch.cat(fs)
+        x = x - x.mean(dim=0)
+        return torch.linalg.eigvalsh(x.T @ x / max(x.shape[0] - 1, 1))[-p:]
+
+    ev_card, ev_cpu = eigenvalues(card).cpu(), eigenvalues(cpu)
+    eig_rel = ((ev_card - ev_cpu).abs() / ev_cpu.abs()).max().item()
+    kw = dict(feat_dim=cpu[0].shape[-1], n_words=rcfg.asmk_n_words, proj_dim=p,
+              capacity=len(cpu))
+    on_cpu = asmk.ASMKRetriever(**kw, device="cpu")
+    on_cpu.fit_codebook(cpu)
+    on_card = asmk.ASMKRetriever(**kw, device="cuda")
+    on_card.mu, on_card.projection, on_card.codebook = (
+        on_cpu.mu.cuda(), on_cpu.projection.cuda(), on_cpu.codebook.cuda())
+    for fg, fc in zip(card, cpu):
+        on_card.add(fg)
+        on_cpu.add(fc)
+    B_equal = torch.equal(on_card.B.cpu(), on_cpu.B)
+    present_equal = torch.equal(on_card.present.cpu(), on_cpu.present)
+    score_err, same_topk = 0.0, True
+    for fg, fc in zip(card, cpu):
+        Bg, pg = asmk.aggregate_binarize(on_card._project(fg), on_card.codebook)
+        Bc, pc = asmk.aggregate_binarize(on_cpu._project(fc), on_cpu.codebook)
+        sg = asmk.asmk_similarity(Bg, pg, on_card.B, on_card.present, on_card.count)
+        sc = asmk.asmk_similarity(Bc, pc, on_cpu.B, on_cpu.present, on_cpu.count)
+        score_err = max(score_err, (sg.cpu() - sc).abs().max().item())
+        same_topk &= on_card.query(fg, k=5)[0] == on_cpu.query(fc, k=5)[0]
+    out = dict(keyframes=len(cpu), tokens=sum(f.shape[0] for f in cpu), eig_max_rel=eig_rel,
+               eig_top=ev_cpu[-1].item(), eig_last=ev_cpu[0].item(), B_equal=B_equal,
+               present_equal=present_equal, score_max_abs_err=score_err, same_topk=same_topk)
+    print(f"[configs] ASMK card vs CPU on run (v)'s {len(cpu)} keyframes "
+          f"({out['tokens']} tokens): top {p} eigenvalues ({out['eig_top']:.4e} .. "
+          f"{out['eig_last']:.4e}) max relative gap {eig_rel:.3e}; with the CPU's transform and "
+          f"codebook: B equal {B_equal}, present equal {present_equal}, scores max |gap| "
+          f"{score_err:.3e}, same top-5 {same_topk}", flush=True)
+    check(eig_rel <= EIG_RTOL, f"ASMK eigenvalues card vs CPU {eig_rel:.3e}")
+    check(B_equal and present_equal, "ASMK B or presence differ card vs CPU")
+    check(score_err <= ASMK_SCORE_ATOL and same_topk, f"ASMK scores {score_err:.3e}, top-k")
+    return out
+
+
+def iterative_vs_dense(captured) -> dict:
+    """Run (vii)'s first tracking match (512x384, batch 1) again: the
+    iterative matcher on the card vs the port on the CPU from the same
+    pointmaps, descriptors and warm start (idx agreement at least
+    ITER_AGREE), then its ms between CUDA events per eager call (5 calls
+    after 2: host launch gaps included), device-busy ms and kernel launches
+    (one profiled call) beside the dense matcher's at the same shape
+    (radius 3, dilations (2, 1), as tum.yaml)."""
+    import torch
+
+    from mast3r_slam_torch.matching import match_iterative_proj
+    from mast3r_slam_torch.ops.dense_match import match_dense_window
+
+    args, kw = captured[0]
+    X11, X21, D11, D21 = args[:4]
+    idx_card, valid_card = match_iterative_proj(*args, **kw)
+    idx_cpu, valid_cpu = match_iterative_proj(*[a.cpu() if torch.is_tensor(a) else a
+                                                for a in args], **kw)
+    agree = (idx_card.cpu() == idx_cpu).float().mean().item()
+    valid_agree = (valid_card.cpu() == valid_cpu).float().mean().item()
+
+    def device_ms(fn, reps: int = 5) -> float:
+        for _ in range(2):
+            fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def dense():
+        return match_dense_window(X11, X21, D11, D21, radius=3, dilations=(2, 1),
+                                  dist_thresh=kw["dist_thresh"])
+
+    out = dict(shape=list(X11.shape), idx_agree=agree, valid_agree=valid_agree,
+               valid_frac=valid_card.float().mean().item(),
+               iterative_ms=device_ms(lambda: match_iterative_proj(*args, **kw)),
+               dense_ms=device_ms(dense),
+               iterative=profile_solve("configs", "iterative_match",
+                                       lambda: match_iterative_proj(*args, **kw)),
+               dense=profile_solve("configs", "dense_match", dense))
+    print(f"[configs vii] iterative match {list(X11.shape)}: idx card vs CPU agree on "
+          f"{agree:.6f} of pixels (valid {valid_agree:.6f}); ms between CUDA events per eager "
+          f"call iterative {out['iterative_ms']:.3f}, dense {out['dense_ms']:.3f}; kernels per "
+          f"call iterative {out['iterative']['kernels']:.0f}, dense "
+          f"{out['dense']['kernels']:.0f}", flush=True)
+    check(agree >= ITER_AGREE, f"iterative match card vs CPU: idx agree on {agree:.6f}")
+    return out
+
+
+def configs_phase(model) -> dict:
+    import torch
+
+    from mast3r_slam_torch.config import get_config
+    from mast3r_slam_torch.models import MASt3RConfig
+
+    t0 = time.perf_counter()
+    check(fma_check(), "torch.addcmul does not round once on the card")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    dune_cfg = MASt3RConfig.dunemast3r("base")
+    attention = []
+    for case in attention_cases(dune_cfg, DUNE_HW, "432 tokens "):
+        row = attention_row(*case, gen)
+        if case[1] == 1:
+            row["splits_ms"] = forced_splits(*case, gen, label="configs")
+        attention.append(row)
+    runs, kept = config_runs(model)
+    calib_settings(CONFIG_RUNS["v"][0], {})
+    asmk_check = check_asmk_card_vs_cpu(kept["fit_feats"], get_config().retrieval)
+    matcher = iterative_vs_dense(kept["match_inputs"])
+    print(f"[configs] phase done in {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(attention=attention, runs=runs, asmk=asmk_check, iterative_vs_dense=matcher)
+
+
 # -- another checkout's kernels (--parent) -----------------------------------
 
 
@@ -1432,6 +1770,7 @@ def main(argv=None) -> int:
         main = main_path_phase(cfg)
         slam, model = slam_phase()
         calib = calib_phase(model)
+        configs = configs_phase(model)
     except SmokeFailure as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
         return 1
@@ -1439,6 +1778,7 @@ def main(argv=None) -> int:
     t_total = time.perf_counter() - T_START
     print(f"[chip_smoke] slam: {json.dumps(slam)}", flush=True)
     print(f"[chip_smoke] calib: {json.dumps(calib)}", flush=True)
+    print(f"[chip_smoke] configs: {json.dumps(configs)}", flush=True)
     enc = kern["rows"][0]
     kernels = [dict(
         name="flash_attention",
@@ -1449,8 +1789,10 @@ def main(argv=None) -> int:
         launches_by_path=dict(tracking=main["launches"], slam_i=slam["i"]["launches"],
                               slam_ii=slam["ii"]["launches"],
                               slam_iii=calib["runs"]["iii"]["launches"],
-                              slam_iv=calib["runs"]["iv"]["launches"]),
-        max_abs_err=max([kern["max_err"]] + [r["max_abs_err"] for r in calib["attention"]]),
+                              slam_iv=calib["runs"]["iv"]["launches"],
+                              **{f"slam_{k}": r["launches"] for k, r in configs["runs"].items()}),
+        max_abs_err=max([kern["max_err"]] + [r["max_abs_err"] for r in
+                                             calib["attention"] + configs["attention"]]),
         ms=enc["ms"],
         prev_ms=enc["prev_ms"],
         plain_ms=enc["plain_ms"],
@@ -1458,7 +1800,7 @@ def main(argv=None) -> int:
         bound_by=enc["bound_by"],
         library_ms=enc["library_ms"],
         shape=enc["shape"],
-        by_shape=kern["rows"] + calib["attention"],
+        by_shape=kern["rows"] + calib["attention"] + configs["attention"],
     )]
     for name, row in probe.items():
         kernels.append(dict(

@@ -8,7 +8,8 @@ hand for Hopper live in ``csrc/`` and are built with nvcc on first use
 (`ops.build`); every one has a plain PyTorch version beside it, which CPU
 tensors take.
 
-Ported so far: the per-frame chained tracking step (encode, two-view decode,
-dense matching, ray-distance Sim(3) pose Gauss-Newton, keyframe fusion,
-keyframe/skip decision with promotion). See ROADMAP.md for what remains.
+Ported so far: the per-frame chained tracking step and `slam.SLAM.run`
+under every file of ``configs/`` (rays and calibrated modes; the dense,
+simple and iterative matchers; signature and ASMK retrieval; the
+`mast3r_full` and `dunemast3r` models). See ROADMAP.md for what remains.
 """

@@ -3,7 +3,7 @@
 Same schema, same defaults, same YAML ``inherit`` / ``_base_`` loader, so the
 files under ``configs/`` load unchanged into either package. Unknown keys
 raise. Some fields configure parts of the system that the port does not have
-yet (serving, ASMK, snapshots, the viewer); they are kept so that every
+yet (serving, snapshots, the viewer); they are kept so that every
 config file still parses, and the SLAM loop raises where one of them is
 switched on.
 """

@@ -1,6 +1,6 @@
-"""Ray-distance and pinhole geometry (the port of the parts of
-``mast3r_slam_tpu/geometry.py`` that the tracking step, the backend and
-calibrated mode use)."""
+"""Ray-distance and pinhole geometry and image gradients (the port of the
+parts of ``mast3r_slam_tpu/geometry.py`` that the tracking step, the
+backend, calibrated mode and the iterative matcher use)."""
 
 from __future__ import annotations
 
@@ -72,3 +72,11 @@ def constrain_points_to_ray(img_size: tuple[int, int], Xs: torch.Tensor,
     b = Xs.shape[0]
     uv = get_pixel_coords(b, img_size, dtype=Xs.dtype, device=Xs.device).reshape(b, -1, 2)
     return backproject(uv, Xs[..., 2:3], K)
+
+
+def img_gradient(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Central-difference gradients (d/dx, d/dy) of [B, H, W, C] images, zero
+    on the border columns and rows."""
+    gx = torch.nn.functional.pad((img[:, :, 2:] - img[:, :, :-2]) * 0.5, (0, 0, 1, 1))
+    gy = torch.nn.functional.pad((img[:, 2:] - img[:, :-2]) * 0.5, (0, 0, 0, 0, 1, 1))
+    return gx, gy

@@ -1,11 +1,11 @@
 """Two-view correspondence (the port of ``mast3r_slam_tpu/matching.py``).
 
 ``matching.method``: "dense" (the shifted-tap matcher of the tracking step,
-`ops.dense_match.match_dense_window`) and "simple" (warm-start or identity
+`ops.dense_match.match_dense_window`), "simple" (warm-start or identity
 correspondences and a 3D distance gate, the matcher that "auto" picks with
-``use_simple: true``). "iterative" (projective matching with descriptor
-refinement) raises NotImplementedError until ROADMAP queue 1 item 11 ports
-it.
+``use_simple: true``) and "iterative" (projective matching from the warm
+start, descriptor refinement and the 3D gate, `match_iterative_proj`, which
+"auto" picks with ``use_simple: false``).
 """
 
 from __future__ import annotations
@@ -14,6 +14,9 @@ import torch
 
 from mast3r_slam_torch.config import get_config
 from mast3r_slam_torch.ops.dense_match import match_dense_window
+from mast3r_slam_torch.ops.iter_proj import (fused_dot3, iter_proj, pixel_to_lin,
+                                              prep_for_iter_proj, sqrt_rn)
+from mast3r_slam_torch.ops.refine import refine_matches
 
 
 def match(
@@ -31,8 +34,9 @@ def match(
     (`payload` [B, H, W, P] selected at the matches) and/or hit [B, H*W]
     (view-1 pixel claimed by a valid match) when requested. The dense method
     folds both into its tap streams and ignores the warm start
-    `idx_1_to_2_init`, as in the JAX package; the simple method takes the
-    payload by one row gather and the hit mask by a scatter-max.
+    `idx_1_to_2_init`, as in the JAX package; the simple and iterative
+    methods take the payload by one row gather and the hit mask by a
+    scatter-max.
     """
     cfg = get_config().matching
     method = cfg.method
@@ -48,12 +52,21 @@ def match(
             payload=payload,
             want_hit=want_hit,
         )
-    if method != "simple":
-        raise NotImplementedError(
-            f"matching.method={method!r} is not ported yet (ROADMAP queue 1 item 11); "
-            "the port runs matching.method 'dense' and 'simple'"
+    if method == "simple":
+        idx, valid = match_simple(X11, X21, idx_1_to_2_init, cfg.dist_thresh)
+    elif method == "iterative":
+        idx, valid = match_iterative_proj(
+            X11, X21, D11, D21, idx_1_to_2_init,
+            max_iter=cfg.max_iter,
+            lambda_init=cfg.lambda_init,
+            convergence_thresh=cfg.convergence_thresh,
+            dist_thresh=cfg.dist_thresh,
+            use_refine=cfg.use_refine,
+            refine_radius=cfg.refine_radius,
+            refine_dilation=cfg.refine_dilation,
         )
-    idx, valid = match_simple(X11, X21, idx_1_to_2_init, cfg.dist_thresh)
+    else:
+        raise ValueError(f"unknown matching.method {method!r}")
     out = [idx, valid]
     if payload is not None:
         b = payload.shape[0]
@@ -91,4 +104,42 @@ def match_simple(
     X11_sampled = torch.gather(X11.reshape(b, n, 3), 1, idx[..., None].expand(b, n, 3))
     diff = X11_sampled - X21.reshape(b, n, 3)
     valid = torch.sqrt((diff * diff).sum(-1)) < dist_thresh
+    return idx, valid[..., None]
+
+
+def match_iterative_proj(
+    X11: torch.Tensor,
+    X21: torch.Tensor,
+    D11: torch.Tensor,
+    D21: torch.Tensor,
+    idx_1_to_2_init: torch.Tensor | None = None,
+    max_iter: int = 10,
+    lambda_init: float = 1e-8,
+    convergence_thresh: float = 1e-6,
+    dist_thresh: float = 0.1,
+    use_refine: bool = True,
+    refine_radius: int = 3,
+    refine_dilation: int = 2,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Projective matching of view 2's rays onto view 1's ray image from the
+    warm start (`ops.iter_proj`), then descriptor refinement (`ops.refine`)
+    and the 3D distance gate -> (idx [B, H*W] int64, valid [B, H*W, 1]).
+    The sub-pixel positions are truncated to integers, as JAX's int32 cast
+    truncates them. Computed as ops/iter_proj.py says, the card's matches
+    are the CPU's."""
+    b, h, w = X21.shape[:3]
+    n = h * w
+    rays_with_grad, pts3d_norm, p_init = prep_for_iter_proj(X11, X21, idx_1_to_2_init)
+    p1, valid_proj = iter_proj(rays_with_grad, pts3d_norm, p_init, max_iter=max_iter,
+                               lambda_init=lambda_init, convergence_thresh=convergence_thresh)
+    p1_int = p1.long()
+    if use_refine and refine_radius > 0:
+        p1_int = refine_matches(D11, D21.reshape(b, n, -1), p1_int, radius=refine_radius,
+                                dilation_max=refine_dilation)
+    u = torch.clamp(p1_int[..., 0], 0, w - 1)
+    v = torch.clamp(p1_int[..., 1], 0, h - 1)
+    idx = pixel_to_lin(torch.stack([u, v], dim=-1), w)
+    X11_sampled = torch.gather(X11.reshape(b, n, 3), 1, idx[..., None].expand(b, n, 3))
+    diff = X11_sampled - X21.reshape(b, n, 3)
+    valid = valid_proj & (sqrt_rn(fused_dot3(diff, diff)) < dist_thresh)
     return idx, valid[..., None]

@@ -51,6 +51,18 @@ class MASt3RConfig:
         return MASt3RConfig(dtype=precision_dtype(precision))
 
     @staticmethod
+    def dunemast3r(variant: str = "base", precision: str = "bf16") -> "MASt3RConfig":
+        """The compact DUNE-style encoder at patch 14, "small" (384 wide, 12
+        deep, 6 heads) or "base" (768, 12, 12), with mast3r_full's decoders
+        and heads (336-pixel class)."""
+        dims = {"small": (384, 12, 6), "base": (768, 12, 12)}
+        if variant not in dims:
+            raise ValueError(f"unknown dunemast3r variant {variant!r}")
+        d, depth, heads = dims[variant]
+        return MASt3RConfig(enc_embed_dim=d, enc_depth=depth, enc_num_heads=heads, patch_size=14,
+                            dtype=precision_dtype(precision))
+
+    @staticmethod
     def tiny(patch_size: int = 16) -> "MASt3RConfig":
         """Test-scale config, structure-identical to the full model."""
         return MASt3RConfig(
@@ -123,7 +135,8 @@ class MASt3RNet(MASt3RBackbone):
 
 
 def _canonical_hw(resolution: int, patch: int) -> tuple[int, int]:
-    """4:3 landscape, multiples of the patch (512 -> 384x512 at patch 16)."""
+    """4:3 landscape, multiples of the patch (512 -> 384x512 at patch 16,
+    336 -> 252x336 at patch 14)."""
     h = (int(round(resolution * 3 / 4)) // patch) * patch
     return h, (resolution // patch) * patch
 
@@ -162,14 +175,17 @@ class MASt3RModel:
     def create(cls, model_type: str = "mast3r_full", resolution: int = 512,
                precision: str = "bf16", seed: int = 0, head_type: str | None = None,
                device: str | torch.device | None = None,
-               cfg: MASt3RConfig | None = None) -> "MASt3RModel":
+               cfg: MASt3RConfig | None = None, variant: str = "base") -> "MASt3RModel":
         """Build a randomly initialized model (seeded torch.Generator) on
         `device` (default: the card; raises without CUDA). ``model_type`` is
-        "mast3r_full" or "tiny"; `cfg` overrides both."""
+        "mast3r_full", "dunemast3r" (of `variant` "small" or "base") or
+        "tiny"; `cfg` overrides them."""
         dev = resolve_device(device)
         if cfg is None:
             if model_type == "mast3r_full":
                 cfg = MASt3RConfig.mast3r_full(precision)
+            elif model_type == "dunemast3r":
+                cfg = MASt3RConfig.dunemast3r(variant, precision)
             elif model_type == "tiny":
                 cfg = MASt3RConfig.tiny()
             else:
@@ -233,13 +249,12 @@ class MASt3RModel:
 def load_mast3r(model_type: str = "mast3r_full", variant: str = "base", resolution: int = 512,
                 precision: str = "bf16", checkpoint: str | None = None,
                 head_type: str | None = None, seed: int = 0, device=None) -> MASt3RModel:
-    """The SLAM loop's model factory: a randomly initialised model from
-    `seed` on `device` (default: the card). Loading a checkpoint file waits
-    until one exists in the repository (ROADMAP queue 1 item 3)."""
+    """The SLAM loop's model factory: a randomly initialised "mast3r_full" or
+    "dunemast3r" (`variant` "small" or "base") from `seed` on `device`
+    (default: the card). Loading a checkpoint file waits until one exists in
+    the repository (ROADMAP queue 1 item 3)."""
     if checkpoint is not None:
         raise NotImplementedError(
             "loading a checkpoint file is not ported yet (ROADMAP queue 1 item 3)")
-    if variant != "base":
-        raise NotImplementedError(f"model variant {variant!r} is not ported yet")
-    return MASt3RModel.create(model_type=model_type, resolution=resolution, precision=precision,
-                              seed=seed, head_type=head_type, device=device)
+    return MASt3RModel.create(model_type=model_type, variant=variant, resolution=resolution,
+                              precision=precision, seed=seed, head_type=head_type, device=device)

@@ -1,4 +1,4 @@
-"""Loop-closure retrieval database on the signature path (the port of
+"""Loop-closure retrieval database (the port of
 ``mast3r_slam_tpu/retrieval_db.py``).
 
 Signatures live in a preallocated [capacity, D] matrix on the device; a query
@@ -12,7 +12,13 @@ signature, else the mean-pooled, L2-normalised tokens do ("simple
 retrieval"). As in the JAX package, a head that fails to build quietly
 selects simple retrieval: that is the system's retrieval policy, not a
 fallback from the card, and it computes on the same device either way.
-``retrieval.method: asmk`` is not ported yet and raises.
+
+``retrieval.method: asmk`` adds an ASMK database (`models.asmk`) on the same
+device: the first `retrieval.asmk_codebook_kf` keyframes' tokens are held
+until the codebook is fitted on them, and until then queries take the
+signature path; once the database holds twice as many entries as at the
+last fit, the codebook is refitted from the tokens of the keyframe arena
+(`keyframes`, wired by the SLAM loop).
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import torch
 
 from mast3r_slam_torch.config import get_config
 from mast3r_slam_torch.frame import Frame, _arena_remove
+from mast3r_slam_torch.models.asmk import ASMKRetriever
 from mast3r_slam_torch.models.retrieval import RetrievalModel
 
 
@@ -43,15 +50,13 @@ def _mean_pool_signature(feat: torch.Tensor) -> torch.Tensor:
 
 class RetrievalDatabase:
     """Global-signature retrieval, with the optional learned head and its
-    online whitening (`retrieval.whitening_kf`)."""
+    online whitening (`retrieval.whitening_kf`), and ASMK with
+    `retrieval.method: asmk`."""
 
     def __init__(self, model, backbone_dim: int = 1024, capacity: int | None = None,
                  device=None):
         cfg = get_config()
         rcfg = cfg.retrieval
-        if rcfg.method == "asmk":
-            raise NotImplementedError(
-                "retrieval.method=asmk is not ported yet (ROADMAP queue 1 item 9)")
         self.model = model
         self.device = torch.device(device) if device is not None else model.device
         self.backbone_dim = backbone_dim
@@ -70,7 +75,15 @@ class RetrievalDatabase:
         self._whitening_kf = rcfg.whitening_kf
         self._sig_pending: list[torch.Tensor] = []
         self._whitening_fitted = False
-        self.keyframes = None  # the SLAM loop's arena (read by nothing on this path)
+        self.asmk: Optional[ASMKRetriever] = None
+        self._asmk_pending: list[torch.Tensor] = []  # tokens awaiting the first fit
+        self._asmk_codebook_kf = rcfg.asmk_codebook_kf
+        self._asmk_fit_size = 0  # entries at the last (re)fit
+        self.keyframes = None  # the SLAM loop's arena: the tokens of an ASMK refit
+        if self.method == "asmk":
+            self.asmk = ASMKRetriever(feat_dim=backbone_dim, n_words=rcfg.asmk_n_words,
+                                      proj_dim=rcfg.asmk_proj_dim, capacity=self.capacity,
+                                      device=self.device)
 
     @property
     def kf_counter(self) -> int:
@@ -94,7 +107,10 @@ class RetrievalDatabase:
         sig = self.compute_signature(frame.feat)
         topk: list[int] = []
         count = self.kf_counter
-        if count > 0:
+        if self.asmk is not None and self.asmk.ready() and self.asmk.count > 0:
+            ids, scores = self.asmk.query(frame.feat, k=k)
+            topk = [self.kf_ids[i] for i, s in zip(ids, scores) if s > min_thresh]
+        elif count > 0:
             scores, idx = _topk_scores(self.signatures, count, sig, min(k, count))
             # one host read for both (indices < capacity are exact in f32)
             scores, idx = torch.stack([scores, idx.float()]).cpu().tolist()
@@ -105,6 +121,8 @@ class RetrievalDatabase:
             assert count < self.capacity, "retrieval arena full"
             self.signatures[count] = sig
             self.kf_ids.append(count)
+            if self.asmk is not None:
+                self._asmk_add(frame.feat)
             self._maybe_fit_whitening(frame.feat)
         return topk
 
@@ -131,8 +149,34 @@ class RetrievalDatabase:
             return
         _arena_remove(self.signatures, idx)
         self.kf_ids.pop()  # kf_ids is the identity map [0, count)
+        if self.asmk is not None:
+            if self.asmk.ready():
+                self.asmk.remove(idx)
+            elif idx < len(self._asmk_pending):
+                self._asmk_pending.pop(idx)
         if not self._whitening_fitted and idx < len(self._sig_pending):
             self._sig_pending.pop(idx)
+
+    def _asmk_add(self, feat: torch.Tensor) -> None:
+        """Insert into the ASMK database: hold the tokens until
+        `asmk_codebook_kf` keyframes have come, then fit and add them all;
+        after that add, and refit from the arena once the database has
+        doubled since the last fit."""
+        if not self.asmk.ready():
+            self._asmk_pending.append(feat)
+            if len(self._asmk_pending) >= self._asmk_codebook_kf:
+                self.asmk.fit_codebook(self._asmk_pending)
+                for f in self._asmk_pending:
+                    self.asmk.add(f)
+                self._asmk_fit_size = len(self._asmk_pending)
+                self._asmk_pending = []
+            return
+        self.asmk.add(feat)
+        count = self.asmk.count
+        if (self.keyframes is not None and self.keyframes._feat is not None
+                and count >= 2 * max(self._asmk_fit_size, 1) and count <= len(self.keyframes)):
+            self.asmk.refit([self.keyframes._feat[i] for i in range(count)])
+            self._asmk_fit_size = count
 
     @torch.no_grad()
     def query(self, feat: torch.Tensor, k: int = 3) -> tuple[list[int], list[float]]:

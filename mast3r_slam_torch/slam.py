@@ -525,7 +525,9 @@ def main(argv: list[str] | None = None) -> int:
                                  description=SLAM.__doc__)
     ap.add_argument("dataset", help="dataset path (TUM/EuRoC dir, image folder, video)")
     ap.add_argument("--config", default=None)
-    ap.add_argument("--model-type", default="mast3r_full", choices=["mast3r_full"])
+    ap.add_argument("--model-type", default="mast3r_full", choices=["mast3r_full", "dunemast3r"])
+    ap.add_argument("--variant", default="base", choices=["small", "base"],
+                    help="dunemast3r's encoder width")
     ap.add_argument("--resolution", type=int, default=512)
     ap.add_argument("--precision", default="bf16", choices=["bf16", "fp32"])
     ap.add_argument("--checkpoint", default=None, metavar="PATH",
@@ -543,8 +545,9 @@ def main(argv: list[str] | None = None) -> int:
         cfg = get_config()
         cfg.model.checkpoint = args.checkpoint
         set_config(cfg)
-    slam = SLAM(model_type=args.model_type, resolution=args.resolution,
-                precision=args.precision, device=args.device, seed=args.seed)
+    slam = SLAM(model_type=args.model_type, model_variant=args.variant,
+                resolution=args.resolution, precision=args.precision, device=args.device,
+                seed=args.seed)
     slam.run(args.dataset, max_frames=args.max_frames)
     if args.save_traj:
         slam.save_trajectory(args.save_traj, format=args.traj_format)

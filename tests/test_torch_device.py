@@ -76,8 +76,9 @@ def test_frame_tracker_rejects_calib_and_untracked_use(monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """Run the CPU slice once in a fresh interpreter; then neither jax nor
-    mast3r_slam_tpu may be in sys.modules."""
+    """Run the CPU slice once in a fresh interpreter, then an ASMK fit and
+    query and an iterative match; then neither jax nor mast3r_slam_tpu may be
+    in sys.modules."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -96,6 +97,20 @@ def test_port_imports_no_jax():
         tracker.init_keyframe(rng.uniform(0, 1, (48, 64, 3)).astype(np.float32))
         out = tracker.track_window(rng.uniform(0, 1, (2, 48, 64, 3)).astype(np.float32))
         assert out["stats"].shape == (2, 6) and bool(torch.isfinite(out["T_WCf"]).all())
+
+        from mast3r_slam_torch.matching import match_iterative_proj
+        from mast3r_slam_torch.models import asmk
+        from mast3r_slam_torch.ops import iter_proj, refine  # noqa: F401
+
+        db = asmk.ASMKRetriever(feat_dim=16, n_words=4, proj_dim=4, capacity=4)
+        feats = [torch.from_numpy(rng.normal(size=(20, 16)).astype(np.float32)) for _ in range(3)]
+        db.fit_codebook(feats)
+        for f in feats:
+            db.add(f)
+        assert db.query(feats[1], k=2)[0][0] == 1
+        X, D = torch.rand(1, 8, 8, 3) + 1.0, torch.rand(1, 8, 8, 4)
+        idx, valid = match_iterative_proj(X, X, D, D)
+        assert idx.shape == (1, 64) and valid.shape == (1, 64, 1)
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "mast3r_slam_tpu"))
         print("FOREIGN", bad)

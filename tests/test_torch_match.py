@@ -113,22 +113,25 @@ def test_match_dispatch_reads_the_matching_config():
 
 @pytest.mark.parametrize("method", ["auto", "simple", "iterative"])
 def test_unported_methods_raise(method):
-    """Only `iterative` is still unported and raises, naming its queue item;
-    `simple` (and `auto` -> simple with `use_simple`) matches the JAX
-    dispatch exactly, payload and hit mask included."""
+    """Every method is ported now: `simple` (and `auto` -> simple with
+    `use_simple`) matches the JAX dispatch exactly, payload and hit mask
+    included; `iterative` within the band of tests/test_torch_iter_proj.py
+    (idx on at least 99.9% of pixels, the rest equal where idx is)."""
     from mast3r_slam_tpu.matching import match as jax_match_dispatch
 
     X11, X21, D11, D21, payload = scene(0)
     # a 3D gate at the median identity-match distance of this scene
     with both_configs({"matching": {"method": method, "dist_thresh": 0.157}}):
-        if method == "iterative":
-            with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
-                match(*map(torch.from_numpy, (X11, X21, D11, D21)))
-            return
         got = match(*map(torch.from_numpy, (X11, X21, D11, D21)),
                     payload=torch.from_numpy(payload), want_hit=True)
         want = jax_match_dispatch(*map(jnp.asarray, (X11, X21, D11, D21)),
                                   payload=jnp.asarray(payload), want_hit=True)
-    for a, b in zip(got, want):
-        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-    assert 0 < got[1].float().mean() < 1  # the 3D gate splits the pixels
+    got, want = [a.numpy()[0] for a in got], [np.asarray(b)[0] for b in want]
+    agree = got[0] == want[0]
+    assert agree.mean() >= (0.999 if method == "iterative" else 1.0)
+    for a, b in zip(got[1:3], want[1:3]):
+        np.testing.assert_array_equal(a[agree], b[agree])
+    touched = np.zeros(agree.shape, bool)
+    touched[want[0][~agree]] = touched[got[0][~agree]] = True
+    np.testing.assert_array_equal(got[3][~touched], want[3][~touched])
+    assert 0 < got[1].mean() < 1  # the 3D gate splits the pixels

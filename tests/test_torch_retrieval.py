@@ -152,8 +152,13 @@ def test_online_whitening_recomputes_the_stored_signatures(configs):
 
 
 def test_asmk_and_checkpoints_raise(configs):
-    configs({"retrieval": {"method": "asmk"}})
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        retrieval_db.load_retriever(_Model(16))
+    """`retrieval.method: asmk` builds the ASMK database on the database's
+    device (tests/test_torch_asmk.py holds it to JAX); only loading a
+    retrieval checkpoint still raises."""
+    configs({"retrieval": {"method": "asmk", "asmk_n_words": 16, "asmk_proj_dim": 8},
+             "runtime": {"keyframe_capacity": 8}})
+    db = retrieval_db.load_retriever(_Model(16))
+    assert db.method == "asmk" and db.asmk is not None and not db.asmk.ready()
+    assert db.asmk.B.shape == (8, 16, 8) and db.asmk.B.device == torch.device("cpu")
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         RetrievalModel.from_pretrained(16, checkpoint="weights.pth", device="cpu")
