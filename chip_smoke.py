@@ -106,6 +106,31 @@ Phases, in order; any failure exits non-zero before the result line:
                within 1e-6, the same top-k), and run (vii)'s first tracking
                match again on the card and the CPU (idx agreeing on at least
                99.9% of pixels), timed and profiled beside the dense matcher.
+ 10. serving - BatchTracker with the same mast3r_full model at bench.py's
+               serving settings (microbatch 4): attention held to its plain
+               version and timed at the serving shapes (the decoder's
+               microbatch of 4, the image-fed encoder at B 8 and 16); then
+               at B 8 and 16, each stream its own drifting image, bench.py's
+               serving leg: 2 synchronous steps and a chain of 8 step_async
+               calls with one stats fetch (tracked frames/s, ms/batch,
+               attention launches per batch as predicted, no host sync in a
+               step_async), the same through step_images_async; one batch of
+               each profiled (kernels per microbatch chunk, equal at B 8 and
+               16; the device idle share); every stream of the batch held to
+               the same stream run alone (B 1) and microbatch 4 to one flat
+               pass within the bands of tests/test_serving.py (stats and
+               poses rtol 2e-4 / atol 2e-5, pointmaps 2e-3 / 2e-4), and the
+               lanes beside a closed and reopened slot to the plain run.
+ 11. state   - save_checkpoint of the full-width weights (safetensors, in a
+               temporary directory) and load_mast3r(checkpoint=...) into a
+               fresh model: encode and decode bit-equal; SLAM.run under run
+               (i)'s settings over 8 frames, save_state, load_state into a
+               fresh SLAM (arena, graph, retrieval, poses and mode
+               bit-equal); two sessions resumed from the file run 8 more
+               frames, bit-equal in events and poses, one with
+               runtime.metrics_path and snapshot_every 4 (its summary, the
+               periodic file, host syncs per frame outside the snapshot
+               writer equal to the other session's, one wait per snapshot).
 Then it prints the kernels JSON line, the card line, and last
 {"ok": true, "device": {...}}.
 """
@@ -113,6 +138,7 @@ Then it prints the kernels JSON line, the card line, and last
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import os
@@ -186,6 +212,27 @@ DUNE_HW = (252, 336)  # a 640x480 frame at resolution 336 and patch 14: 432 toke
 EIG_RTOL = 1e-4  # ASMK whitening: the card's leading eigenvalues vs the CPU's
 ASMK_SCORE_ATOL = 1e-6  # ASMK scores on the card vs the CPU, same transform and codebook
 ITER_AGREE = 0.999  # run (vii): iterative match idx, card vs CPU, from the same inputs
+# phase 10: bench.py's serving leg (bench.py:130-165, 421-459)
+SERVING_B = (8, 16)
+SERVING_MB = 4  # runtime.serving_microbatch
+SERVING_WARM, SERVING_CHAIN = 2, 8  # synchronous steps, then a chain of step_async calls
+SERVING_SETTINGS = {"runtime": {"keyframe_capacity": 32, "serving_microbatch": SERVING_MB,
+                                "serving_scan_unroll": 4},
+                    "local_opt": {"max_edges": 32}}
+SLOT, SERVING_SLOT_STEPS = 3, 3  # the lane closed and reopened; steps of that run
+# the bands of tests/test_serving.py: stats and poses, pointmaps
+STATS_BAND = dict(rtol=2e-4, atol=2e-5)
+POINTS_BAND = dict(rtol=2e-3, atol=2e-4)
+SERVING_BANDS = dict(stats=STATS_BAND, T_WC=STATS_BAND, kf_N=STATS_BAND, fr_N=STATS_BAND,
+                     kf_X=POINTS_BAND, kf_C=POINTS_BAND, fr_X=POINTS_BAND, fr_C=POINTS_BAND)
+# A stream of a batch against itself alone on the random-weight network:
+# the statistics within phase 5's band, the counts exact; poses and
+# pointmaps are reported (the pose solve is ill-conditioned there).
+TRACK_STATS_ATOL = 0.02
+NETWORK_BANDS = dict(stats=dict(rtol=0.0, atol=TRACK_STATS_ATOL), kf_N=dict(rtol=0.0, atol=0.0),
+                     fr_N=dict(rtol=0.0, atol=0.0))
+POSED_POSE_ATOL = 1e-4  # the well-posed problem's final poses against the truth
+SNAP_FRAMES, SNAP_EVERY = 8, 4  # phase 11: frames before the snapshot and after it
 
 
 class SmokeFailure(Exception):
@@ -664,7 +711,7 @@ def reference_phase(cfg, device: str = "cuda") -> None:
     print(f"[reference] tracker stats max diff {dstats:.3e}, pose max diff {dpose:.3e}", flush=True)
     # the match statistics are fractions over 3072 pixels; the poses of this
     # random-weight model are not compared (they follow the bf16 noise above)
-    check(dstats < 0.02, f"tracker statistics differ card vs CPU by {dstats:.3e}")
+    check(dstats < TRACK_STATS_ATOL, f"tracker statistics differ card vs CPU by {dstats:.3e}")
     check(bool(torch.isfinite(rg["T_WCf"]).all()), "non-finite poses on the card")
 
 
@@ -1642,6 +1689,568 @@ def configs_phase(model) -> dict:
     return dict(attention=attention, runs=runs, asmk=asmk_check, iterative_vs_dense=matcher)
 
 
+# -- phase 10 --------------------------------------------------------------
+
+
+def _trace_kernels(path: str, annotation: str) -> list:
+    """The device work (kernels, memcpys, memsets) that each call of the
+    host-side `annotation` range launched, from a chrome trace written by
+    torch.profiler: a launch belongs to the range whose host span holds its
+    runtime call, matched to the device event by correlation id (the
+    device-side annotation spans are not reliable for this: they may leave
+    out kernels of a nested range). -> [[(start_us, end_us, name), ...] per
+    call]."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") == "user_annotation" and e.get("name") == annotation)
+    device = {e["args"]["correlation"]: (e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+              if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+              and "correlation" in e.get("args", {})}
+    calls = [[] for _ in spans]
+    for e in events:
+        corr = e.get("args", {}).get("correlation")
+        if e.get("cat") not in ("cuda_runtime", "cuda_driver") or corr not in device:
+            continue
+        for i, (lo, hi) in enumerate(spans):
+            if lo <= e["ts"] < hi:
+                calls[i].append(device[corr])
+                break
+    return calls
+
+
+def profile_batch(bt, args: tuple, label: str, images: bool = False) -> dict:
+    """One more batch step under torch.profiler: the device work launched in
+    each microbatch chunk (the serving.chunk ranges) and in the whole batch,
+    and the batch's device busy time (trace under build/profile/)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from mast3r_slam_torch.profile_step import _union_ms
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # small kernels and a wait first: the trace drops the first few
+        # kernels it sees (measured: the first chunk of a batch 7-8 short)
+        x = torch.zeros(64, device="cuda")
+        for _ in range(32):
+            x.add_(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with record_function("serving.batch"):
+            (bt.step_images_async if images else bt.step_async)(*args)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    path = os.path.join(REPO, "build", "profile", f"serving_{label}_trace.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    (batch,) = _trace_kernels(path, "serving.batch")
+    chunks = _trace_kernels(path, "serving.chunk")
+    if len({len(c) for c in chunks}) > 1:
+        names = [collections.Counter(k[2][:60] for k in c) for c in chunks]
+        print(f"[serving] {label}: the chunks' kernels differ from the last chunk's by "
+              f"{[dict((n - names[-1]) + (names[-1] - n)) for n in names]}", flush=True)
+    return dict(kernels=len(batch), kernels_per_chunk=[len(c) for c in chunks],
+                device_busy_ms=_union_ms([k[:2] for k in batch]), wall_ms_profiled=wall)
+
+
+def compare_streams(what: str, got: dict, want: dict, lanes, bands: dict) -> dict:
+    """Per lane, `got`'s stats of every step and final state against `want`'s
+    (each a dict of [steps, B, 5] stats and BatchState tensors [B, ...] whose
+    lane index is given by `lanes` as (got lane, want lane)); each key within
+    its band (`bands[key]`; None: reported only), checked after the
+    differences are printed. Returns the worst difference and its share of
+    the band by key (the stats by column), and whether all were bit-equal."""
+    import torch
+
+    def lane(rec, key, i):
+        return rec[key][:, i] if key == "stats" else rec[key][i]
+
+    worst, share, bit_equal = {}, {}, True
+    for key in got:
+        band = bands.get(key)
+        for g, w in lanes:
+            a, b = lane(got, key, g).float(), lane(want, key, w).float()
+            diff = (a - b).abs()
+            if band is None:
+                ratio = torch.zeros_like(diff)
+            else:
+                ratio = torch.where(diff == 0, 0.0, diff / (band["atol"] + band["rtol"] * b.abs()))
+            if key == "stats":
+                names = [f"stats[{c}]" for c in range(a.shape[-1])]
+                diffs, ratios = diff.amax(0).tolist(), ratio.amax(0).tolist()
+            else:
+                names, diffs, ratios = [key], [diff.max().item()], [ratio.max().item()]
+            for name, d, r in zip(names, diffs, ratios):
+                worst[name] = max(worst.get(name, 0.0), d)
+                if band is not None:
+                    share[name] = max(share.get(name, 0.0), r)
+            bit_equal &= torch.equal(a, b)
+    print(f"[serving] {what}: bit-equal {bit_equal}; max |diff| "
+          f"{ {k: float('%.3e' % v) for k, v in worst.items()} }; share of the band "
+          f"{ {k: float('%.3g' % v) for k, v in share.items()} }", flush=True)
+    bad = {k: v for k, v in share.items() if not v <= 1.0}
+    check(not bad, f"{what}: beyond the band by {bad}")
+    return dict(max_abs_diff=worst, of_band=share, bit_equal=bit_equal)
+
+
+def _record(bt, stats: list) -> dict:
+    """A run's stats of every step [steps, B, 5] and its final state."""
+    import torch
+
+    s = bt.state
+    return dict(stats=torch.stack(stats), T_WC=s.T_WC, kf_X=s.kf_X, kf_C=s.kf_C, kf_N=s.kf_N,
+                fr_X=s.fr_X, fr_C=s.fr_C, fr_N=s.fr_N)
+
+
+def _surface(params, h: int, w: int):
+    """A smooth depth surface per stream, params [b, 4] (phases) -> the
+    keyframe camera's points [b, h, w, 3] (focal 1.2 w, depth 1.6-2.4)."""
+    import math
+
+    import torch
+
+    dev = params.device
+    u = torch.arange(w, device=dev, dtype=torch.float32) / w * (2 * math.pi)
+    v = torch.arange(h, device=dev, dtype=torch.float32) / h * (2 * math.pi)
+    p = params[:, :, None, None]
+    z = (2.0 + 0.2 * torch.sin(u + p[:, 0]) * torch.cos(v[:, None] + p[:, 1])
+         + 0.2 * torch.cos(2 * u + p[:, 2]) * torch.sin(2 * v[:, None] + p[:, 3]))
+    f = 1.2 * w
+    uu = torch.arange(w, device=dev, dtype=torch.float32) - w / 2
+    vv = (torch.arange(h, device=dev, dtype=torch.float32) - h / 2)[:, None]
+    return torch.stack([uu / f * z, vv / f * z, z], dim=-1)
+
+
+def posed_problem(model, b: int, steps: int, rng) -> tuple:
+    """A well-posed tracking problem at full width for `b` streams, carried
+    in the encoder tokens so that the step itself decides nothing from the
+    host: token 0 of stream s's frame t holds its camera pose xi[t, s] (a
+    random walk from the keyframe, which sits at the identity) and the
+    phases of its surface; the keyframe's token holds the phases. The
+    decoder is replaced by `posed_decode`, which puts both views' points
+    where that camera sees the surface (the random-weight network would
+    make the pose solve ill-conditioned: its poses run to 1e4).
+    -> (feats per step, (kf_feat, kf_pos, kf_X, kf_C), pos)."""
+    import numpy as np
+    import torch
+
+    h, w = model.out_hw
+    dev = model.device
+    xi = np.cumsum(rng.normal(size=(steps, b, 7)) * ([3e-3] * 3 + [2e-3] * 3 + [1e-3]), axis=0)
+    phases = torch.from_numpy(rng.uniform(0, 2 * np.pi, (b, 4)).astype(np.float32)).to(dev)
+    feats = torch.zeros(steps, b, 1, 16, device=dev)
+    feats[..., 0, :7] = torch.from_numpy(xi.astype(np.float32)).to(dev)
+    feats[..., 0, 7:11] = phases
+    kf_feat = torch.zeros(b, 1, 16, device=dev)
+    kf_feat[:, 0, 7:11] = phases
+    pos = torch.zeros(b, 1, 2, dtype=torch.int32, device=dev)
+    kf_X = _surface(phases, h, w).reshape(b, h * w, 3)
+    return list(feats), (kf_feat, pos, kf_X, torch.full((b, h * w, 1), 2.0, device=dev)), pos
+
+
+def posed_decode(model):
+    """The decoder of `posed_problem`: both views' points are the surface
+    seen from the frame's camera, in its coordinates; confidences 2, unit
+    descriptors all equal (the matcher then matches by ray alone)."""
+    import torch
+
+    from mast3r_slam_torch.lie import core as lie
+
+    h, w = model.out_hw
+
+    def decode(f1, _pos1, f2, _pos2):
+        world = _surface(f2[:, 0, 7:11], h, w)
+        T = lie.sim3_inv(lie.sim3_exp(f1[:, 0, :7]))
+        X = lie.sim3_act(T[:, None, None, :], world)
+        b = X.shape[0]
+        conf = torch.full((b, h, w), 2.0, device=X.device)
+        out = dict(pts3d=X, conf=conf, desc=torch.full((b, h, w, 24), 24 ** -0.5,
+                                                       device=X.device), desc_conf=conf)
+        return out, dict(out)
+
+    return decode
+
+
+def serving_phase(model) -> dict:
+    """Serving (`BatchTracker`) with the full-width model of phase 7 at
+    bench.py's settings and microbatch 4, at B = 8 and 16 as bench.py's
+    serving leg runs it: SERVING_WARM steps, then a chain of SERVING_CHAIN
+    step_async calls with one stats fetch; then the same through
+    step_images_async. Each stream is its own image drifting 2 px per
+    frame. Each stream of a batch is held to the same stream run alone: on
+    the network (random weights: the tracker's statistics within
+    TRACK_STATS_ATOL, phase 5's band; poses and pointmaps are reported, as
+    the pose solve is ill-conditioned there), and on `posed_problem` with
+    the issue's bands of tests/test_serving.py; microbatch 4 against one
+    flat pass likewise; the lanes beside a closed and reopened slot against
+    the plain run within those bands."""
+    import numpy as np
+    import torch
+
+    from mast3r_slam_torch.config import Config, set_config
+    from mast3r_slam_torch.lie import core as lie
+    from mast3r_slam_torch.ops.attention import flash_attention
+    from mast3r_slam_torch.profile_step import count_syncs
+    from mast3r_slam_torch.serving import BatchTracker
+    from mast3r_slam_torch.workload import BENCH_SETTINGS, drift_frames
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    c = model.cfg
+    p = c.patch_size
+    s_tok = (model.out_hw[0] // p) * (model.out_hw[1] // p)
+    attention = [attention_row(f"serving decoder {kind} (microbatch {SERVING_MB})", SERVING_MB,
+                               c.dec_num_heads, s_tok, s_tok, kind == "self", gen)
+                 for kind in ("self", "cross")]
+    attention += [attention_row(f"serving encoder (B {b})", b, c.enc_num_heads, s_tok, s_tok,
+                                True, gen) for b in SERVING_B]
+
+    settings = {k: dict(v) for k, v in BENCH_SETTINGS.items()}
+    for key, value in SERVING_SETTINGS.items():
+        settings.setdefault(key, {}).update(value)
+    set_config(Config.from_dict(settings))
+    steps = SERVING_WARM + SERVING_CHAIN
+    b_max = max(SERVING_B)
+    h, w = model.out_hw
+    rng = np.random.default_rng(6)
+    bases = rng.uniform(0, 1, (b_max, h, w, 3)).astype(np.float32)
+    frames = np.stack([drift_frames(bases[s], steps, rng) for s in range(b_max)], 1)
+    u8 = torch.from_numpy((frames * 255).astype(np.uint8)).to(model.device)  # [steps, B, h, w, 3]
+    kf_u8 = torch.from_numpy((bases * 255).astype(np.uint8)).to(model.device)
+
+    def encode(x):
+        return model.encode(x.float() / 255.0 * 2.0 - 1.0)
+
+    kf_feat, kf_pos = encode(kf_u8)
+    monos = [model.mono(kf_feat[s], kf_pos[s]) for s in range(b_max)]
+    kf = (kf_feat, kf_pos, torch.stack([m[0] for m in monos]), torch.stack([m[1] for m in monos]))
+    feats = [encode(u8[t])[0] for t in range(steps)]
+    pos = kf_pos
+
+    def run(feats, kf, pos, lanes, microbatch=None, record_at=None):
+        """`steps` feature-fed steps of streams `lanes` -> (record, record
+        after step `record_at`)."""
+        bt = BatchTracker(model, microbatch=microbatch)
+        bt.init_from_keyframes(*(a[lanes] for a in kf))
+        stats, early = [], None
+        for t in range(steps):
+            stats.append(bt.step_async(feats[t][lanes], pos[lanes]))
+            if t == record_at:
+                early = _record(bt, list(stats))
+        return _record(bt, stats), early
+
+    def alone(feats, kf, pos):
+        recs = [run(feats, kf, pos, slice(s, s + 1))[0] for s in range(b_max)]
+        return {k: torch.cat([r[k] for r in recs], dim=1 if k == "stats" else 0)
+                for k in recs[0]}
+
+    def lanes(b, skip=()):
+        return [(s, s) for s in range(b) if s not in skip]
+
+    t1 = time.perf_counter()
+    net_alone = alone(feats, kf, pos)
+    t_alone = time.perf_counter() - t1
+
+    out = dict(attention=attention, by_b={})
+    per_chunk_all = []
+    for b in SERVING_B:
+        row = {}
+        bt = BatchTracker(model)
+        bt.init_from_keyframes(*(a[:b] for a in kf))
+        stats = [bt.step_async(feats[t][:b], pos[:b]) for t in range(SERVING_WARM)]
+        for handle in stats:
+            bt.resolve_stats(handle)
+        torch.cuda.synchronize()
+        flash_attention.launches = 0
+        t1 = time.perf_counter()
+        chain = [bt.step_async(feats[t][:b], pos[:b]) for t in range(SERVING_WARM, steps)]
+        torch.stack(chain).cpu()  # the chain's one stats fetch
+        ms_batch = (time.perf_counter() - t1) / SERVING_CHAIN * 1e3
+        launches = flash_attention.launches
+        chunks = b // SERVING_MB
+        predicted = SERVING_CHAIN * chunks * 4 * c.dec_depth
+        check(launches == predicted, f"serving B {b}: attention launched {launches}, predicted "
+              f"{SERVING_CHAIN} batches x {chunks} chunks x {4 * c.dec_depth} = {predicted}")
+        rec = _record(bt, stats + chain)
+        check(bool(torch.isfinite(rec["stats"]).all() and torch.isfinite(rec["T_WC"]).all()),
+              f"serving B {b}: non-finite stats or poses")
+        row["vs_alone"] = compare_streams(f"B {b}, network: each stream against itself alone",
+                                          rec, net_alone, lanes(b), NETWORK_BANDS)
+        row.update(ms_batch=ms_batch, fps=b / (ms_batch / 1e3),
+                   attention_launches_per_batch=launches / SERVING_CHAIN)
+        # the counter's own line (set_sync_debug_mode) reports one at times,
+        # here as in every phase; it is no sync of the step
+        syncs = {s: n for s, n in count_syncs(lambda: bt.step_async(feats[0][:b], pos[:b])).items()
+                 if not s.startswith("mast3r_slam_torch/profile_step.py")}
+        row["host_syncs_per_batch"] = sum(syncs.values())
+        check(not syncs, f"serving B {b}: step_async synchronised with the host: {syncs}")
+        prof = profile_batch(bt, (feats[1][:b], pos[:b]), f"b{b}")
+        check(len(prof["kernels_per_chunk"]) == chunks,
+              f"serving B {b}: {len(prof['kernels_per_chunk'])} chunk spans in the trace")
+        per_chunk_all += prof["kernels_per_chunk"]
+        row["profile"] = prof
+        row["device_idle_share"] = 1.0 - prof["device_busy_ms"] / ms_batch
+
+        bti = BatchTracker(model)
+        bti.init_from_keyframes(*(a[:b] for a in kf))
+        for t in range(SERVING_WARM):
+            bti.resolve_stats(bti.step_images_async(u8[t, :b]))
+        torch.cuda.synchronize()
+        flash_attention.launches = 0
+        t1 = time.perf_counter()
+        chain_i = [bti.step_images_async(u8[t, :b]) for t in range(SERVING_WARM, steps)]
+        stats_i = torch.stack(chain_i).cpu()
+        ms_img = (time.perf_counter() - t1) / SERVING_CHAIN * 1e3
+        launches_i = flash_attention.launches
+        predicted_i = predicted + SERVING_CHAIN * c.enc_depth
+        check(launches_i == predicted_i, f"serving images B {b}: attention launched "
+              f"{launches_i}, predicted {predicted} + {SERVING_CHAIN} x {c.enc_depth}")
+        check(bool(torch.isfinite(stats_i).all()), f"serving images B {b}: non-finite stats")
+        prof_i = profile_batch(bti, (u8[0, :b],), f"images_b{b}", images=True)
+        row["images"] = dict(ms_batch=ms_img, fps=b / (ms_img / 1e3),
+                             attention_launches_per_batch=launches_i / SERVING_CHAIN,
+                             profile=prof_i,
+                             device_idle_share=1.0 - prof_i["device_busy_ms"] / ms_img)
+        print(f"[serving] B {b} microbatch {SERVING_MB}: features {row['fps']:.1f} tracked "
+              f"frames/s ({ms_batch:.1f} ms/batch), attention launches/batch "
+              f"{launches / SERVING_CHAIN:.0f}, kernels/batch {prof['kernels']} (per chunk "
+              f"{prof['kernels_per_chunk']}), device idle {row['device_idle_share']:.1%}; images "
+              f"{row['images']['fps']:.1f} frames/s ({ms_img:.1f} ms/batch), attention "
+              f"launches/batch {launches_i / SERVING_CHAIN:.0f}, kernels/batch "
+              f"{prof_i['kernels']}, device idle {row['images']['device_idle_share']:.1%}; "
+              f"host syncs per step_async {row['host_syncs_per_batch']}", flush=True)
+        out["by_b"][b] = row
+    check(len(set(per_chunk_all)) == 1,
+          f"kernels per chunk differ between B {SERVING_B}: {per_chunk_all}")
+    out["kernels_per_chunk"] = per_chunk_all[0]
+
+    b = min(SERVING_B)
+    mb4, mb4_early = run(feats, kf, pos, slice(0, b), record_at=SERVING_SLOT_STEPS - 1)
+    flat, _ = run(feats, kf, pos, slice(0, b), microbatch=0)
+    out["microbatch_vs_flat"] = compare_streams(
+        f"B {b}, network: microbatch {SERVING_MB} against flat", mb4, flat, lanes(b),
+        NETWORK_BANDS)
+    # open_slot / close_slot on lane SLOT: a new stream (stream b's keyframe
+    # and frames) joins it; every other lane is held to the plain run
+    slot = BatchTracker(model)
+    slot.init_from_keyframes(*(a[:b] for a in kf))
+    stats = [slot.step_async(feats[0][:b], pos[:b])]
+    slot.close_slot(SLOT)
+    stats.append(slot.step_async(feats[1][:b], pos[:b]))
+    slot.open_slot(SLOT, *(a[b] for a in kf))
+    joined = list(range(b))
+    joined[SLOT] = b
+    joined = torch.tensor(joined, device=model.device)
+    stats.append(slot.step_async(feats[2][joined], pos[joined]))
+    check(slot.resolve_stats(stats[-1])["tracked"].all(), "slot: a lane stopped tracking")
+    out["slot"] = compare_streams(f"B {b}, network: the lanes beside a closed and reopened slot",
+                                  _record(slot, stats), mb4_early, lanes(b, (SLOT,)),
+                                  SERVING_BANDS)
+
+    # The same batches on the well-posed problem (the decoder replaced)
+    pfeats, pkf, ppos = posed_problem(model, b_max, steps, rng)
+    model.decode = posed_decode(model)
+    try:
+        posed_alone = alone(pfeats, pkf, ppos)
+        recs = {b: run(pfeats, pkf, ppos, slice(0, b))[0] for b in SERVING_B}
+        flat, _ = run(pfeats, pkf, ppos, slice(0, min(SERVING_B)), microbatch=0)
+    finally:
+        del model.decode
+    out["posed"] = {b: compare_streams(f"B {b}, well-posed: each stream against itself alone",
+                                       rec, posed_alone, lanes(b), SERVING_BANDS)
+                    for b, rec in recs.items()}
+    b = min(SERVING_B)
+    out["posed_microbatch_vs_flat"] = compare_streams(
+        f"B {b}, well-posed: microbatch {SERVING_MB} against flat", recs[b], flat, lanes(b),
+        SERVING_BANDS)
+    truth = lie.sim3_exp(pfeats[-1][:, 0, :7])
+    err = (posed_alone["T_WC"] - truth).abs().max().item()
+    out["posed_pose_err"] = err
+    check(err < POSED_POSE_ATOL, f"well-posed: final poses {err:.3e} from the truth")
+    print(f"[serving] well-posed: final poses within {err:.3e} of the truth; {b_max} streams "
+          f"alone on the network {t_alone:.1f} s; phase {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
+
+
+# -- phase 11 --------------------------------------------------------------
+
+
+def checkpoint_check(model) -> dict:
+    """`save_checkpoint` of the full-width weights to a safetensors file in a
+    temporary directory, `load_mast3r(checkpoint=...)` into a fresh model on
+    the card, and one encode and decode of both, bit-equal."""
+    import tempfile
+
+    import torch
+
+    from mast3r_slam_torch.models.io import save_checkpoint
+    from mast3r_slam_torch.models.mast3r import load_mast3r
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mast3r_full.safetensors")
+        t0 = time.perf_counter()
+        save_checkpoint(model.net, path)
+        t_save = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        other = load_mast3r("mast3r_full", resolution=512, precision="bf16", checkpoint=path,
+                            seed=1, device=model.device)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    other.set_out_hw(*model.out_hw)
+    x = torch.rand(1, *model.out_hw, 3, device=model.device,
+                   generator=torch.Generator(device=model.device).manual_seed(8)) * 2 - 1
+    outs = []
+    for m in (model, other):
+        f, p = m.encode(x)
+        outs.append((f, m.decode(f, p, f, p)))
+    (f1, d1), (f2, d2) = outs
+    equal = torch.equal(f1, f2) and all(torch.equal(a[k], b[k]) for a, b in zip(d1, d2)
+                                         for k in a)
+    print(f"[state] checkpoint: {size / 1e9:.3f} GB safetensors written in {t_save:.1f} s, "
+          f"loaded into a fresh model on the card in {t_load:.1f} s; encode and decode "
+          f"bit-equal {equal}", flush=True)
+    check(equal, "a reloaded checkpoint gives other encode or decode outputs")
+    del other
+    return dict(bytes=size, save_s=t_save, load_s=t_load, bit_equal=equal)
+
+
+def _state_tensors(slam) -> dict:
+    """The state a snapshot must carry, by name (tensors and host values)."""
+    import torch
+
+    k, g, r = slam.keyframes, slam.factor_graph, slam.retrieval_db
+    e = g.n_edges
+    return dict(
+        kf_X=k.X, kf_C=k.C, kf_T=k.T_WC, kf_N=k.N, kf_feat=k._feat, kf_pos=k._pos,
+        kf_imgs=torch.stack(k.imgs), fg_idx_ii2jj=g.idx_ii2jj, fg_idx_jj2ii=g.idx_jj2ii,
+        fg_valid_j=g.valid_match_j, fg_valid_i=g.valid_match_i, fg_Q_ii2jj=g.Q_ii2jj,
+        fg_Q_jj2ii=g.Q_jj2ii, signatures=r.signatures, poses=torch.stack(slam.poses),
+        host=(k.frame_ids, k._n_host, k._nups_host, k._score_host, g.ii[:e].tolist(),
+              g.jj[:e].tolist(), e, r.kf_ids, r._whitening_fitted, slam.timestamps,
+              slam.state.mode.name, slam.state.global_optimizer_tasks, slam.state.reloc_pending),
+    )
+
+
+def snapshot_check(model) -> dict:
+    """Run (i)'s settings (arena of 8, every frame promoted) over SNAP_FRAMES
+    frames, `save_state`; a fresh SLAM `load_state`s it, bit-equal in arena,
+    graph, retrieval state, poses and mode; two sessions resumed from the file
+    run the remaining SNAP_FRAMES frames (synchronous steps over the host
+    pipeline's frames, each from the last pose), bit-equal in events and
+    poses, all finite, one of them with
+    `runtime.metrics_path` and `snapshot_every` SNAP_EVERY: its summary, the
+    periodic file, and host syncs per frame outside the snapshot writer equal
+    to the other's."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mast3r_slam_torch.config import Config, set_config
+    from mast3r_slam_torch.dataloader import PrefetchLoader
+    from mast3r_slam_torch.frame import create_frame
+    from mast3r_slam_torch.profile_step import count_syncs
+    from mast3r_slam_torch.slam import SLAM
+    from mast3r_slam_torch.utils.metrics import summarize
+    from mast3r_slam_torch.workload import BENCH_SETTINGS, drift_frames
+
+    rng = np.random.default_rng(2)
+    base = rng.uniform(0, 1, (480, 640, 3)).astype(np.float32)
+    imgs = [(f * 255).astype(np.uint8) for f in drift_frames(base, 2 * SNAP_FRAMES, rng)]
+    settings = copy.deepcopy(BENCH_SETTINGS)
+    settings["tracking"]["match_frac_thresh"] = 1.0
+    settings["runtime"]["keyframe_capacity"] = SLAM_CAPACITY
+    set_config(Config.from_dict(settings))
+    t0 = time.perf_counter()
+    saver = SLAM(model=model)
+    saver.run(frames_dataset(imgs[:SNAP_FRAMES]))
+    loader = PrefetchLoader(frames_dataset(imgs), img_size=512, patch=model.patch_size)
+    tail = list(loader(max_frames=2 * SNAP_FRAMES))[SNAP_FRAMES:]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.npz")
+        saver.save_state(path)
+        size = os.path.getsize(path)
+        restored = SLAM(model=model)
+        restored.load_state(path)
+        want, got = _state_tensors(saver), _state_tensors(restored)
+        equal = {k: (torch.equal(want[k], got[k]) if torch.is_tensor(want[k])
+                     else want[k] == got[k]) for k in want}
+        print(f"[state] snapshot after {SNAP_FRAMES} frames: {size / 1e6:.1f} MB, "
+              f"{len(saver.keyframes)} keyframes, {saver.factor_graph.n_edges} edges; restored "
+              f"bit-equal {equal}", flush=True)
+        check(all(equal.values()), f"a restored snapshot differs: {equal}")
+
+        sessions, syncs = [], []
+        periodic = os.path.join(tmp, "periodic.npz")
+        metrics_path = os.path.join(tmp, "metrics.jsonl")
+        for with_services in (False, True):
+            d = copy.deepcopy(settings)
+            if with_services:
+                d["runtime"].update(metrics_path=metrics_path, snapshot_every=SNAP_EVERY,
+                                    snapshot_path=periodic)
+            set_config(Config.from_dict(d))
+            slam = SLAM(model=model)
+            slam.load_state(path)
+
+            def resume(slam=slam):
+                # each frame starts from the last pose, as the loop's chained
+                # dispatch starts it (T_init); from the identity, the pose
+                # solve on these random-weight keyframes (translations of
+                # 6e4) runs to NaN at the second frame, in both sessions alike
+                for j, (ts, processed) in enumerate(tail):
+                    img = torch.from_numpy(processed["unnormalized_img"]).to(model.device)
+                    slam._step_sync(create_frame(SNAP_FRAMES + j, img, T_WC=slam.poses[-1]), ts)
+                torch.cuda.synchronize()
+
+            syncs.append(count_syncs(resume))
+            sessions.append(slam)
+        plain, served = sessions
+        served.metrics.close()
+        summary = summarize(metrics_path)
+        check(os.path.exists(periodic), "no periodic snapshot was written")
+        periodic_poses = len(np.load(periodic)["poses"])
+    poses_equal = torch.equal(torch.stack(plain.poses), torch.stack(served.poses))
+    events_equal = plain.events == served.events
+    if not poses_equal:
+        first = next(j for j, (a, b) in enumerate(zip(plain.poses, served.poses))
+                     if not torch.equal(a, b))
+        print(f"[state] the resumed sessions' poses part at pose {first} (of "
+              f"{len(plain.poses)}; {SNAP_FRAMES} restored): "
+              f"{(plain.poses[first] - served.poses[first]).abs().max().item():.3e}", flush=True)
+    snap_sites = {s: c for s, c in syncs[1].items() if "utils/snapshot.py" in s}
+    other = {s: c for s, c in syncs[1].items() if s not in snap_sites}
+    n_snaps = SNAP_FRAMES // SNAP_EVERY
+    print(f"[state] two sessions resumed from the file, {SNAP_FRAMES} more frames each: poses "
+          f"bit-equal {poses_equal}, events bit-equal {events_equal} ({dict(plain.events)}); "
+          f"metrics summary {summary}; periodic snapshot holds {periodic_poses} poses; host "
+          f"syncs per frame without services {sum(syncs[0].values()) / SNAP_FRAMES:.2f}, with "
+          f"metrics and snapshots {sum(other.values()) / SNAP_FRAMES:.2f} outside the snapshot "
+          f"writer and {sum(snap_sites.values())} in it ({n_snaps} snapshots: {snap_sites}); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(poses_equal and events_equal, "two sessions resumed from one snapshot differ")
+    check(bool(torch.isfinite(torch.stack(plain.poses)).all()), "resumed poses not finite")
+    check(summary["n_frames"] == SNAP_FRAMES, f"metrics summary {summary}")
+    check(periodic_poses == 2 * SNAP_FRAMES, f"the periodic snapshot holds {periodic_poses} poses")
+    check(other == syncs[0], f"metrics or snapshots changed the host syncs outside the "
+          f"snapshot writer: {other} vs {syncs[0]}")
+    check(sum(snap_sites.values()) == n_snaps, f"snapshot writer syncs {snap_sites} for "
+          f"{n_snaps} snapshots")
+    return dict(bytes=size, restored_bit_equal=True, resumed_bit_equal=True, summary=summary,
+                host_syncs_per_frame=sum(syncs[0].values()) / SNAP_FRAMES,
+                snapshot_syncs=sum(snap_sites.values()), snapshots=n_snaps)
+
+
+def state_phase(model) -> dict:
+    t0 = time.perf_counter()
+    out = dict(checkpoint=checkpoint_check(model), snapshot=snapshot_check(model))
+    print(f"[state] phase done in {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 # -- another checkout's kernels (--parent) -----------------------------------
 
 
@@ -1771,6 +2380,9 @@ def main(argv=None) -> int:
         slam, model = slam_phase()
         calib = calib_phase(model)
         configs = configs_phase(model)
+        model.set_out_hw(384, 512)  # phases 8-9 decoded other frame shapes
+        serving = serving_phase(model)
+        state = state_phase(model)
     except SmokeFailure as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
         return 1
@@ -1779,6 +2391,8 @@ def main(argv=None) -> int:
     print(f"[chip_smoke] slam: {json.dumps(slam)}", flush=True)
     print(f"[chip_smoke] calib: {json.dumps(calib)}", flush=True)
     print(f"[chip_smoke] configs: {json.dumps(configs)}", flush=True)
+    print(f"[chip_smoke] serving: {json.dumps(serving)}", flush=True)
+    print(f"[chip_smoke] state: {json.dumps(state)}", flush=True)
     enc = kern["rows"][0]
     kernels = [dict(
         name="flash_attention",
@@ -1790,9 +2404,15 @@ def main(argv=None) -> int:
                               slam_ii=slam["ii"]["launches"],
                               slam_iii=calib["runs"]["iii"]["launches"],
                               slam_iv=calib["runs"]["iv"]["launches"],
-                              **{f"slam_{k}": r["launches"] for k, r in configs["runs"].items()}),
+                              **{f"slam_{k}": r["launches"] for k, r in configs["runs"].items()},
+                              **{f"serving_b{b}_per_batch": r["attention_launches_per_batch"]
+                                 for b, r in serving["by_b"].items()},
+                              **{f"serving_images_b{b}_per_batch":
+                                 r["images"]["attention_launches_per_batch"]
+                                 for b, r in serving["by_b"].items()}),
         max_abs_err=max([kern["max_err"]] + [r["max_abs_err"] for r in
-                                             calib["attention"] + configs["attention"]]),
+                                             calib["attention"] + configs["attention"]
+                                             + serving["attention"]]),
         ms=enc["ms"],
         prev_ms=enc["prev_ms"],
         plain_ms=enc["plain_ms"],
@@ -1800,7 +2420,7 @@ def main(argv=None) -> int:
         bound_by=enc["bound_by"],
         library_ms=enc["library_ms"],
         shape=enc["shape"],
-        by_shape=kern["rows"] + calib["attention"] + configs["attention"],
+        by_shape=kern["rows"] + calib["attention"] + configs["attention"] + serving["attention"],
     )]
     for name, row in probe.items():
         kernels.append(dict(

@@ -11,5 +11,8 @@ tensors take.
 Ported so far: the per-frame chained tracking step and `slam.SLAM.run`
 under every file of ``configs/`` (rays and calibrated modes; the dense,
 simple and iterative matchers; signature and ASMK retrieval; the
-`mast3r_full` and `dunemast3r` models). See ROADMAP.md for what remains.
+`mast3r_full` and `dunemast3r` models), serving (`serving.BatchTracker`),
+checkpoint files (`models.io`), and the run services in ``utils/``
+(snapshots, metrics, profiling, evaluation, plots). See ROADMAP.md for what
+remains.
 """

@@ -3,9 +3,9 @@
 Same schema, same defaults, same YAML ``inherit`` / ``_base_`` loader, so the
 files under ``configs/`` load unchanged into either package. Unknown keys
 raise. Some fields configure parts of the system that the port does not have
-yet (serving, snapshots, the viewer); they are kept so that every
-config file still parses, and the SLAM loop raises where one of them is
-switched on.
+yet (int8 weights and the live viewer, which the SLAM loop raises on when
+switched on; the window program's knobs of ROADMAP queue 1 item 2, which
+nothing reads); they are kept so that every config file still parses.
 """
 
 from __future__ import annotations

@@ -60,11 +60,14 @@ def fuse_pointmap(X_old, C_old, X_new, C_new, mode: str = "weighted_pointmap"):
 
 def fuse_pointmap_masked(X_old, C_old, N_old, X_new, C_new, mode: str = "weighted_pointmap"):
     """Fusion where a count N_old < 0.5 (first observation) takes the new
-    observation as is, decided on the device. Returns (X, C, N)."""
+    observation as is, decided on the device. Returns (X, C, N). The
+    pointmaps may carry a leading batch dimension [B, N, *] with one count
+    per stream, N_old [B] (the serving path, where JAX vmaps this)."""
     X_f, C_f = fuse_pointmap(X_old, C_old, X_new, C_new, mode)
     first = N_old < 0.5
-    X = torch.where(first, X_new, X_f)
-    C = torch.where(first, C_new, C_f)
+    first_pts = first.reshape(first.shape + (1,) * (X_new.dim() - first.dim()))
+    X = torch.where(first_pts, X_new, X_f)
+    C = torch.where(first_pts, C_new, C_f)
     if mode.startswith("weighted"):
         N = torch.where(first, torch.ones_like(N_old), N_old + 1.0)
     else:
@@ -269,6 +272,7 @@ class SLAMState:
 
     mode: Mode = Mode.INIT
     global_optimizer_tasks: list[int] = dataclasses.field(default_factory=list)
+    reloc_pending: int = 0  # carried by snapshots, as in JAX
 
     def queue_global_optimization(self, idx: int) -> None:
         self.global_optimizer_tasks.append(idx)

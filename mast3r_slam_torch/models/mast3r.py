@@ -249,12 +249,15 @@ class MASt3RModel:
 def load_mast3r(model_type: str = "mast3r_full", variant: str = "base", resolution: int = 512,
                 precision: str = "bf16", checkpoint: str | None = None,
                 head_type: str | None = None, seed: int = 0, device=None) -> MASt3RModel:
-    """The SLAM loop's model factory: a randomly initialised "mast3r_full" or
-    "dunemast3r" (`variant` "small" or "base") from `seed` on `device`
-    (default: the card). Loading a checkpoint file waits until one exists in
-    the repository (ROADMAP queue 1 item 3)."""
+    """The SLAM loop's model factory: "mast3r_full" or "dunemast3r" (`variant`
+    "small" or "base") on `device` (default: the card), initialised from
+    `seed`, then, with `checkpoint`, loaded strictly from that local
+    upstream-named safetensors / .npz / .pth file (`models.io`)."""
+    model = MASt3RModel.create(model_type=model_type, variant=variant, resolution=resolution,
+                               precision=precision, seed=seed, head_type=head_type,
+                               device=device)
     if checkpoint is not None:
-        raise NotImplementedError(
-            "loading a checkpoint file is not ported yet (ROADMAP queue 1 item 3)")
-    return MASt3RModel.create(model_type=model_type, variant=variant, resolution=resolution,
-                              precision=precision, seed=seed, head_type=head_type, device=device)
+        from mast3r_slam_torch.models.io import load_checkpoint_into
+
+        load_checkpoint_into(model.net, checkpoint)
+    return model

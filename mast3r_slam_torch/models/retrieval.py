@@ -54,12 +54,20 @@ class RetrievalModel:
     @classmethod
     def from_pretrained(cls, backbone_dim: int = 1024, checkpoint: str | None = None,
                         device=None) -> "RetrievalModel":
-        """The head, with its initial weights: loading a retrieval checkpoint
-        waits until one exists in the repository (ROADMAP queue 1 item 9)."""
+        """The head; with `checkpoint`, its weights from a naver retrieval
+        file (prewhiten / projector / attention / postwhiten, folded by
+        `models.io.import_retrieval_state_dict`) or from a state dict in the
+        head's own names (`models.io.import_retrieval_params`, strict)."""
+        model = cls(backbone_dim, device=device)
         if checkpoint:
-            raise NotImplementedError(
-                "loading a retrieval checkpoint is not ported yet (ROADMAP queue 1 item 9)")
-        return cls(backbone_dim, device=device)
+            from mast3r_slam_torch.models import io
+
+            state = io.load_state_dict_file(checkpoint)
+            if io.is_retrieval_state_dict(state):
+                model.params = io.import_retrieval_state_dict(model.params, state)
+            else:
+                model.params = io.import_retrieval_params(model.params, state)
+        return model
 
     def _dense(self, name: str, x: torch.Tensor) -> torch.Tensor:
         p = self.params[name]

@@ -22,6 +22,14 @@ freezes the pose (and the convergence state) once the JAX condition would
 have stopped; the result is the same and the host never reads a value
 inside the loop. As in JAX, ``rel_error`` is the loop's own 1e-3: the
 tracker's ``tracking.rel_error`` does not reach it.
+
+Batched streams. The rays pose solve takes an optional leading batch
+dimension [B] (the serving path tracks B streams in one solve, where JAX
+vmaps the solve): the finiteness guard, the `done` flag and the convergence
+state are per stream, so each stream freezes at the iteration where JAX's
+vmapped ``while_loop`` would stop it, and a stream whose system is not
+positive definite takes a zero step without touching the others. The
+launches of one solve do not depend on B.
 """
 
 from __future__ import annotations
@@ -75,14 +83,15 @@ def robust_weight(r: torch.Tensor, p: GNParams) -> torch.Tensor:
 
 
 def gauss_newton_pose_rays(
-    T_init: torch.Tensor,  # [8] initial T_CkCf
-    Xf: torch.Tensor,  # [N, 3] frame points (gathered to keyframe order)
-    rd_k: torch.Tensor,  # [N, 4] keyframe ray-distance measurements
-    sqrt_info: torch.Tensor,  # [N, 4] whitening (validity and confidence folded in)
+    T_init: torch.Tensor,  # [..., 8] initial T_CkCf
+    Xf: torch.Tensor,  # [..., N, 3] frame points (gathered to keyframe order)
+    rd_k: torch.Tensor,  # [..., N, 4] keyframe ray-distance measurements
+    sqrt_info: torch.Tensor,  # [..., N, 4] whitening (validity and confidence folded in)
     params: GNParams = GNParams(),
 ):
-    """-> (T [8], final cost []): the tracker's ray-distance pose solve."""
-    return _pose_gn_loop_rays_soa(T_init, Xf.T, rd_k.T, sqrt_info.T, params)
+    """-> (T [..., 8], final cost [...]): the tracker's ray-distance pose
+    solve, over optional leading batch dimensions (one stream each)."""
+    return _pose_gn_loop_rays_soa(T_init, Xf.mT, rd_k.mT, sqrt_info.mT, params)
 
 
 def _cross_soa(a, b):
@@ -93,20 +102,22 @@ def _cross_soa(a, b):
 
 
 def _pose_gn_loop_rays_soa(T_init, Xt, rdk_t, w_t, p: GNParams, rel_error: float = 1e-3):
-    """Xt [3, N], rdk_t / w_t [4, N]. With P = d*r the chained Jacobian is
+    """Xt [..., 3, N], rdk_t / w_t [..., 4, N]. With P = d*r the chained
+    Jacobian is
         drd/dX @ [I | -[P]x | P] = [ d^-1(I - r r^T) | -[r]x | 0 ]
                                    [       r^T       |   0   | d ]
     so no per-point matrix products are formed."""
 
     def solve_step(T):
-        t, q, s = T[:3], T[3:7], T[7]
-        qv, qw = q[:3, None].expand_as(Xt), q[3]
+        t, q, s = T[..., :3, None], T[..., 3:7, None], T[..., 7:, None]
+        qv, qw = q[..., :3, :].expand_as(Xt), q[..., 3:, :]
         uv = 2.0 * _cross_soa(qv, Xt)
-        P = s * (Xt + qw * uv + _cross_soa(qv, uv)) + t[:, None]  # [3, N]
-        d = torch.sqrt((P * P).sum(0) + 1e-10)
+        P = s * (Xt + qw * uv + _cross_soa(qv, uv)) + t  # [..., 3, N]
+        d = torch.sqrt((P * P).sum(-2) + 1e-10)
         dinv = 1.0 / d
-        r0, r1, r2 = P[0] * dinv, P[1] * dinv, P[2] * dinv
-        res = torch.stack([rdk_t[0] - r0, rdk_t[1] - r1, rdk_t[2] - r2, rdk_t[3] - d])
+        r0, r1, r2 = P[..., 0, :] * dinv, P[..., 1, :] * dinv, P[..., 2, :] * dinv
+        rk = rdk_t.unbind(-2)
+        res = torch.stack([rk[0] - r0, rk[1] - r1, rk[2] - r2, rk[3] - d], dim=-2)
         robust = w_t * torch.sqrt(robust_weight(w_t * res, p))
         z = torch.zeros_like(d)
         jrow = [
@@ -115,15 +126,18 @@ def _pose_gn_loop_rays_soa(T_init, Xt, rdk_t, w_t, p: GNParams, rel_error: float
             [-dinv * r2 * r0, -dinv * r2 * r1, dinv * (1.0 - r2 * r2), r1, -r0, z, z],
             [r0, r1, r2, z, z, z, d],
         ]
+        rb = robust.unbind(-2)
         Bm = torch.stack(
-            [torch.cat([-robust[r] * jrow[r][a] for r in range(4)]) for a in range(7)]
-        )  # [7, 4N]
-        b = (robust * res).reshape(-1)
-        H = Bm @ Bm.T
-        g = Bm @ b
-        cost = 0.5 * (b * b).sum()
+            [torch.cat([-rb[r] * jrow[r][a] for r in range(4)], dim=-1) for a in range(7)],
+            dim=-2,
+        )  # [..., 7, 4N]
+        b = (robust * res).flatten(-2)
+        H = Bm @ Bm.mT
+        g = (Bm @ b[..., None])[..., 0]
+        cost = 0.5 * (b * b).sum(-1)
         tau = cholesky_solve(H, -g, reg=p.reg)
-        tau = torch.where(torch.isfinite(tau).all(), tau, torch.zeros_like(tau))
+        # per stream: a non-PD system gives this stream alone a zero step
+        tau = torch.where(torch.isfinite(tau).all(-1, keepdim=True), tau, torch.zeros_like(tau))
         return lie.sim3_retract(T, tau), tau, cost
 
     return _pose_gn_iterate(solve_step, T_init, p, rel_error)
@@ -131,12 +145,14 @@ def _pose_gn_loop_rays_soa(T_init, Xt, rdk_t, w_t, p: GNParams, rel_error: float
 
 def _pose_gn_iterate(solve_step, T_init, p: GNParams, rel_error: float):
     """`max_iter` calls of solve_step(T) -> (T_new, tau, cost) under a
-    device-side `done` flag that freezes the pose and the convergence state
-    once JAX's while_loop would have stopped (relative cost change under
-    `rel_error` or step norm under `delta_thresh`) -> (T, final cost)."""
-    inf = torch.full((), torch.inf, dtype=T_init.dtype, device=T_init.device)
+    device-side `done` flag (one per stream of T [..., 8]) that freezes the
+    pose and the convergence state once JAX's while_loop would have stopped
+    (relative cost change under `rel_error` or step norm under
+    `delta_thresh`) -> (T, final cost)."""
+    batch = T_init.shape[:-1]
+    inf = torch.full(batch, torch.inf, dtype=T_init.dtype, device=T_init.device)
     T, old_cost, new_cost, delta_norm = T_init, inf, inf, inf
-    done = torch.zeros((), dtype=torch.bool, device=T_init.device)
+    done = torch.zeros(batch, dtype=torch.bool, device=T_init.device)
     for it in range(p.max_iter):
         if it > 0:
             converged = ((old_cost - new_cost).abs() / (old_cost + 1e-10) < rel_error) | (
@@ -144,10 +160,10 @@ def _pose_gn_iterate(solve_step, T_init, p: GNParams, rel_error: float):
             )
             done = done | converged
         T_new, tau, cost = solve_step(T)
-        T = torch.where(done, T, T_new)
+        T = torch.where(done[..., None], T, T_new)
         old_cost = torch.where(done, old_cost, new_cost)
         new_cost = torch.where(done, new_cost, cost)
-        delta_norm = torch.where(done, delta_norm, torch.linalg.vector_norm(tau))
+        delta_norm = torch.where(done, delta_norm, torch.linalg.vector_norm(tau, dim=-1))
     return T, new_cost
 
 
@@ -392,7 +408,7 @@ def gauss_newton_graph(
     and "noconcat" are the same sums, and both run the one path here."""
     if not set(variant.split("+")) <= {"base", "noconcat"}:
         raise NotImplementedError(
-            f"solve_variant {variant!r} is not ported yet (ROADMAP queue 1 item 8)")
+            f"solve_variant {variant!r} is not ported yet (ROADMAP queue 1 item 5)")
     p = params
     K, dtype = Twc.shape[0], Twc.dtype
     if point_stride < 1:

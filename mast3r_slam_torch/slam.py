@@ -37,9 +37,17 @@ each `add_factors`, none inside a solve). Processing order, bookkeeping,
 replay after a skip and the `refresh_chain` / `queue_arena_correction`
 handshake are those of the JAX loop.
 
-Not ported yet, and raising when configured: `save_state` / `load_state`
-and `runtime.snapshot_every`, `runtime.metrics_path`, `runtime.viewer_port`,
-and `runtime.weight_quant` (ROADMAP queue 1 item 13).
+Run services, as in the JAX loop: `save_state` / `load_state` and a
+snapshot every `runtime.snapshot_every` frames to `runtime.snapshot_path`
+(`utils.snapshot`, JAX's file format); a JSON-lines record per frame and per
+eviction to `runtime.metrics_path`, summarised at the end of `run`
+(`utils.metrics`). A frame record takes the tracker's match statistics from
+the window's one stats read, so metrics add no host read; a snapshot reads
+the device state once (one wait per snapshot).
+
+Not ported yet, and raising when configured: `runtime.weight_quant` (int8
+weights, ROADMAP queue 1 item 6) and `runtime.viewer_port` (the live viewer,
+item 7).
 """
 
 from __future__ import annotations
@@ -64,6 +72,8 @@ from mast3r_slam_torch.retrieval_db import RetrievalDatabase, load_retriever
 from mast3r_slam_torch.tracker import EVENT_NEW_KF, EVENT_SKIP, FrameTracker
 from mast3r_slam_torch.utils.export import save_ply, save_trajectory_kitti, save_trajectory_tum
 from mast3r_slam_torch.utils.intrinsics import estimate_intrinsics
+from mast3r_slam_torch.utils.metrics import MetricsLogger, summarize
+from mast3r_slam_torch.utils.snapshot import load_snapshot, save_snapshot
 
 
 def _not_ported(what: str, item: int) -> NotImplementedError:
@@ -81,12 +91,10 @@ class SLAM:
             load_config(config_path)
         self.config = get_config()
         rt = self.config.runtime
-        for on, what in ((rt.weight_quant != "none", "runtime.weight_quant"),
-                         (bool(rt.metrics_path), "runtime.metrics_path"),
-                         (bool(rt.viewer_port), "runtime.viewer_port"),
-                         (bool(rt.snapshot_every), "runtime.snapshot_every")):
+        for on, what, item in ((rt.weight_quant != "none", "runtime.weight_quant", 6),
+                               (bool(rt.viewer_port), "runtime.viewer_port", 7)):
             if on:
-                raise _not_ported(what, 13)
+                raise _not_ported(what, item)
         if model is not None:
             self.model = model
             self.device = resolve_device(model.device if device is None else device)
@@ -106,11 +114,13 @@ class SLAM:
         self.retrieval_db: Optional[RetrievalDatabase] = None
         self.timestamps: list[float] = []
         self.poses: list[torch.Tensor] = []
+        self.metrics: Optional[MetricsLogger] = None  # with runtime.metrics_path
         # What the network ran, by event (an init, a chained or synchronous
         # tracking step, a promotion, a reloc's mono decode, a symmetric
         # backend decode), and the backend's solves and evictions.
         self.events: collections.Counter = collections.Counter()
         self._frame_events: dict = {}
+        self._t_last_frame: Optional[float] = None
         self._callback = None
         self._last_T_WC = None
         self._n_done = 0
@@ -219,6 +229,9 @@ class SLAM:
             drain_inflight()
             self._run_backend(budget=0)  # drain any deferred backend tasks
         print(f"Done! {len(self.keyframes)} keyframes, {len(self.poses)} poses")
+        if self.metrics:
+            self.metrics.close()
+            print("Run metrics:", summarize(self.config.runtime.metrics_path))
         return self._get_results()
 
     def _count_chained(self, rows: list) -> None:
@@ -331,6 +344,8 @@ class SLAM:
         self.tracker._kf_cache = None
         self.events["eviction"] += 1
         print(f"Evicted keyframe {victim} (degree {int(deg[victim])})")
+        if self.metrics:
+            self.metrics.log(dict(event="eviction", victim=victim, degree=int(deg[victim])))
         return victim
 
     def _bookkeep(self, frame: Frame, timestamp: float) -> int:
@@ -341,13 +356,32 @@ class SLAM:
         if self._callback:
             self._callback(frame, self.keyframes)
         solves = self._run_backend()
+        if self.metrics:
+            self._log_frame(frame, timestamp, solves)
         self._frame_events = {}
         self._n_done += 1
         if self._n_done % 10 == 0:
             dt = time.perf_counter() - self._t_start
             print(f"Processed {self._n_done}/{self._n_frames_total} frames, "
                   f"{len(self.keyframes)} keyframes, {self._n_done / dt:.2f} FPS")
+        snap_every = self.config.runtime.snapshot_every
+        if snap_every and self._n_done % snap_every == 0:
+            self.save_state(self.config.runtime.snapshot_path)
         return solves
+
+    def _log_frame(self, frame: Frame, timestamp: float, solves: int) -> None:
+        """The frame's metrics record: host values only (the match statistics
+        are those the loop has read already)."""
+        now = time.perf_counter()
+        prev = self._t_start if self._t_last_frame is None else self._t_last_frame
+        rec = dict(event="frame", frame=frame.frame_id, ts=timestamp, frame_ms=(now - prev) * 1e3,
+                   mode=self.state.mode.name, n_keyframes=len(self.keyframes),
+                   n_edges=self.factor_graph.n_edges, backend_solves=solves)
+        if self.tracker.last_stats:
+            rec.update(self.tracker.last_stats)
+        rec.update(self._frame_events)
+        self.metrics.log(rec)
+        self._t_last_frame = now
 
     def _initialize_state(self, h: int, w: int) -> None:
         if hasattr(self.model, "set_out_hw"):
@@ -369,14 +403,22 @@ class SLAM:
         self.factor_graph = FactorGraph(self.model, self.keyframes, K)
         self.retrieval_db = load_retriever(self.model)
         self.retrieval_db.keyframes = self.keyframes
+        if self.config.runtime.metrics_path:
+            self.metrics = MetricsLogger(self.config.runtime.metrics_path)
 
     # ------------------------------------------------------- checkpointing
 
     def save_state(self, path) -> None:
-        raise _not_ported("saving SLAM state (utils/snapshot.py)", 13)
+        """Snapshot the SLAM state (arena, graph, retrieval, poses; not the
+        model weights) to `path` (`utils.snapshot`)."""
+        save_snapshot(self, path)
+        print(f"Saved SLAM state to {path}")
 
     def load_state(self, path) -> None:
-        raise _not_ported("resuming SLAM state (utils/snapshot.py)", 13)
+        """Resume from a snapshot of a run with the same model and dataset
+        geometry (`utils.snapshot`)."""
+        load_snapshot(self, path)
+        print(f"Resumed SLAM state from {path}")
 
     # ----------------------------------------------------------- mode steps
 
@@ -531,7 +573,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--resolution", type=int, default=512)
     ap.add_argument("--precision", default="bf16", choices=["bf16", "fp32"])
     ap.add_argument("--checkpoint", default=None, metavar="PATH",
-                    help="local upstream-layout weights (not ported yet: raises)")
+                    help="local upstream-named weights (safetensors, .npz or .pth), loaded "
+                         "strictly")
     ap.add_argument("--seed", type=int, default=0, help="seed of the random weights")
     ap.add_argument("--device", default=None, help="default: the card")
     ap.add_argument("--max-frames", type=int, default=None)

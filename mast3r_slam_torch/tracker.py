@@ -78,57 +78,63 @@ def _rays_cfg_key(cfg) -> tuple:
 
 
 def _track_core_rays(
-    idx_f2k,  # [N]
-    valid_match_k,  # [N, 1] bool
-    Qff,  # [N, 1]
-    Qkf,  # [N, 1]
-    Xf_canon,  # [N, 3] frame canonical points
-    Cf_avg,  # [N, 1]
-    Xk_canon,  # [N, 3] keyframe canonical points
-    Ck_avg,  # [N, 1]
-    Xkf,  # [N, 3] keyframe points in frame coords (model output)
-    T_WCf,  # [8]
-    T_WCk,  # [8]
+    idx_f2k,  # [..., N]
+    valid_match_k,  # [..., N, 1] bool
+    Qff,  # [..., N, 1]
+    Qkf,  # [..., N, 1]
+    Xf_canon,  # [..., N, 3] frame canonical points
+    Cf_avg,  # [..., N, 1]
+    Xk_canon,  # [..., N, 3] keyframe canonical points
+    Ck_avg,  # [..., N, 1]
+    Xkf,  # [..., N, 3] keyframe points in frame coords (model output)
+    T_WCf,  # [..., 8]
+    T_WCk,  # [..., 8]
     cfg_key: tuple,
-    pay_g=None,  # [N, 5] (Q, C, X) selected by the matcher
-    unique_hit=None,  # [N] bool hit mask from the matcher
+    pay_g=None,  # [..., N, 5] (Q, C, X) selected by the matcher
+    unique_hit=None,  # [..., N] bool hit mask from the matcher
 ) -> dict:
     """Tracking core, ray-distance objective: confidence gates, pose GN,
-    keyframe-frame points for fusion, and the selection statistics."""
+    keyframe-frame points for fusion, and the selection statistics
+    ([..., 3]: match_frac, match_frac_k, unique_frac_f). An optional leading
+    batch dimension holds independent streams (the serving path, where JAX
+    vmaps this core): every fraction reduces per stream and the pose solve
+    is batched."""
     (C_conf, Q_conf, _min_match_frac, max_iters, huber_k, sigma_ray, sigma_dist,
      _rel_error, delta_norm, _thresh, robust, tukey_t) = cfg_key
-    n = idx_f2k.shape[0]
+    # int64: torch.gather misreads an expanded int32 index (torch 2.13, CPU)
+    idx_f2k = idx_f2k.long()
     if pay_g is None:
-        pay_g = torch.cat([Qff, Cf_avg, Xf_canon], dim=-1)[idx_f2k]
+        payload = torch.cat([Qff, Cf_avg, Xf_canon], dim=-1)
+        pay_g = torch.gather(payload, -2, idx_f2k[..., None].expand(*idx_f2k.shape, 5))
     pay_g = pay_g.float()
-    Qk = torch.sqrt(torch.clamp(pay_g[:, 0:1], min=0.0) * Qkf)
-    Cf_g = pay_g[:, 1:2]
+    Qk = torch.sqrt(torch.clamp(pay_g[..., 0:1], min=0.0) * Qkf)
+    Cf_g = pay_g[..., 1:2]
     valid_opt = valid_match_k & (Cf_g > C_conf) & (Ck_avg > C_conf) & (Qk > Q_conf)
     valid_kf = valid_match_k & (Qk > Q_conf)
-    match_frac = valid_opt.float().mean()
+    match_frac = valid_opt.float().mean((-2, -1))
 
     rd_k = point_to_ray_dist(Xk_canon)
     w = valid_opt.float() * torch.sqrt(Qk)
-    sqrt_info = torch.cat([(w / sigma_ray).expand(n, 3), w / sigma_dist], dim=-1)
+    sqrt_info = torch.cat([(w / sigma_ray).expand(*w.shape[:-1], 3), w / sigma_dist], dim=-1)
     T_CkCf_init = lie.sim3_mul(lie.sim3_inv(T_WCk), T_WCf)
     params = GNParams(
         sigma_ray=sigma_ray, sigma_dist=sigma_dist, huber_k=huber_k, robust=robust,
         tukey_t=tukey_t, max_iter=max_iters, delta_thresh=delta_norm,
     )
-    T_CkCf, cost = gauss_newton_pose_rays(T_CkCf_init, pay_g[:, 2:5], rd_k, sqrt_info, params)
+    T_CkCf, cost = gauss_newton_pose_rays(T_CkCf_init, pay_g[..., 2:5], rd_k, sqrt_info, params)
 
     if unique_hit is None:
-        unique_hit = torch.zeros(n, device=idx_f2k.device).scatter_reduce(
-            0, idx_f2k, valid_match_k[:, 0].float(), reduce="amax"
+        unique_hit = torch.zeros(idx_f2k.shape, device=idx_f2k.device).scatter_reduce(
+            -1, idx_f2k, valid_match_k[..., 0].float(), reduce="amax"
         ) > 0.5
     stats = torch.stack(
-        [match_frac, valid_kf.float().mean(), unique_hit.float().mean()]
+        [match_frac, valid_kf.float().mean((-2, -1)), unique_hit.float().mean(-1)], dim=-1
     )
     return dict(
         Qk=Qk,
         T_WCf=lie.sim3_mul(T_WCk, T_CkCf),
         T_CkCf=T_CkCf,
-        Xkk=lie.sim3_act(T_CkCf[None], Xkf),
+        Xkk=lie.sim3_act(T_CkCf[..., None, :], Xkf),
         cost=cost,
         stats=stats,
     )

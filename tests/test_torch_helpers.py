@@ -45,19 +45,40 @@ def tiny_pair(head_type: str = "linear", resolution: int = 64):
     return jm, tm
 
 
+def slam_settings(extra: dict, sync_every: int = 2) -> dict:
+    """bench.py's settings updated by `extra`, with the windowed chained path
+    on (windows of `sync_every`)."""
+    import copy
+
+    settings = copy.deepcopy(BENCH_SETTINGS)
+    for key, value in extra.items():
+        if isinstance(value, dict):
+            settings.setdefault(key, {}).update(value)
+        else:
+            settings[key] = value
+    settings["runtime"].update(sync_every=sync_every, pipeline=True)
+    return settings
+
+
+def tiny_frames(n: int, seed: int = 0, hw: tuple = (48, 64)) -> list:
+    """n uint8 frames [H, W, 3]: a seeded image drifting 2 px per frame."""
+    from mast3r_slam_torch.workload import drift_frames
+
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(0, 1, hw + (3,)).astype(np.float32)
+    return list((drift_frames(base, n, rng) * 255).astype(np.uint8))
+
+
 def run_tiny_slam_pair(extra: dict, n_frames: int, sync_every: int = 2, seed: int = 0):
     """`SLAM.run` of the JAX package and of the port over the same in-memory
     frames (a seeded image drifting 2 px per frame, at the tiny model's 48x64
     so the loaders pass it through unchanged), with the same tiny weights,
     under bench.py's settings updated by `extra`, the windowed chained path
     on. -> (jax SLAM, jax results, port SLAM, port results)."""
-    import copy
-
     from mast3r_slam_tpu.dataloader import Dataset as JaxDataset
     from mast3r_slam_tpu.slam import SLAM as JaxSLAM
     from mast3r_slam_torch.dataloader import Dataset
     from mast3r_slam_torch.slam import SLAM
-    from mast3r_slam_torch.workload import drift_frames
 
     class JaxFrames(JaxDataset):
         def __init__(self, imgs):
@@ -72,19 +93,11 @@ def run_tiny_slam_pair(extra: dict, n_frames: int, sync_every: int = 2, seed: in
     class Frames(JaxFrames, Dataset):
         pass
 
-    settings = copy.deepcopy(BENCH_SETTINGS)
-    for key, value in extra.items():
-        if isinstance(value, dict):
-            settings.setdefault(key, {}).update(value)
-        else:
-            settings[key] = value
-    settings["runtime"].update(sync_every=sync_every, pipeline=True)
+    settings = slam_settings(extra, sync_every)
     with both_configs(settings):
         jm, tm = tiny_pair("linear")
         h, w = jm._out_hw
-        rng = np.random.default_rng(seed)
-        base = rng.uniform(0, 1, (h, w, 3)).astype(np.float32)
-        imgs = list((drift_frames(base, n_frames, rng) * 255).astype(np.uint8))
+        imgs = tiny_frames(n_frames, seed, (h, w))
         jslam = JaxSLAM(model=jm, resolution=w)
         jres = jslam.run(JaxFrames(imgs))
         tslam = SLAM(model=tm, resolution=w)
