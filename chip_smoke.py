@@ -131,6 +131,39 @@ Phases, in order; any failure exits non-zero before the result line:
                runtime.metrics_path and snapshot_every 4 (its summary, the
                periodic file, host syncs per frame outside the snapshot
                writer equal to the other session's, one wait per snapshot).
+ 12. window  - the window program's knobs at bench.py's settings (K = 8):
+               the same frames through the chained window with
+               window_batched_encode and window_spec_decode (microbatch 4)
+               on, then off (2 windows each), then a promoting window
+               (match_frac_thresh 1.0: one speculative decode, then live
+               decodes) each way: events exact, statistics within phase 5's
+               0.02, attention launches as predicted window by window,
+               ms/frame of each.
+ 13. offline - OfflineReconstructor(pair_k=3, pair_batch=8) over 8
+               full-width frames: pairs equal to select_pairs_from_retrieval
+               on the same signatures in float64 on the host, attention
+               launches exact, poses finite, the graph solve repeated from
+               its captured inputs bit-equal; attention at the new shapes,
+               (8,12,768,768,64) and (16,12,768,768,64), held to its plain
+               version and timed beside it and SDPA.
+ 14. quant   - int8 weights: every quantized weight quantized on the card
+               and the CPU from the same values (int8 and scales bit-equal);
+               encode and decode of the quantized model against the bf16
+               model within tests/test_quant.py's bands (desc < 0.1, pts3d
+               < 0.15 relative) at that test's depth (2 + 2 blocks) and
+               mast3r_full's widths, and at full depth desc < 0.1 (pts3d
+               reported); resident bytes against bf16; then
+               SLAM.run under run (i)'s settings with weight_quant int8 and
+               the live viewer on: events and attention launches as
+               predicted, ms/frame, one GET of the page and of the state
+               JSON on localhost, host syncs per frame with the viewer's
+               (2 per publish and 1 per keyframe it colors first).
+ 15. solve-bf16 - solve_variant noconcat+bf16 against noconcat on phase 7's
+               well-posed full-width world problem: within 5e-2
+               (tests/test_gauss_newton.py's band) and not equal, repeats
+               bit-equal, device ms per solve of each; one edge pass's bf16
+               blocks on the card within 1e-5 of the CPU's and not equal to
+               the f32 ones.
 Then it prints the kernels JSON line, the card line, and last
 {"ok": true, "device": {...}}.
 """
@@ -140,6 +173,7 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import itertools
 import json
 import os
 import subprocess
@@ -158,6 +192,8 @@ SLAM_CAPACITY = 8  # the keyframe arena of run (i)
 BACKEND_PAIRS = 3  # SLAM._run_backend matches a new keyframe with up to three before it
 SOLVES_CHECKED = 2  # graph solves of run (i) held to a float64 CPU solve
 WORLD_SOLVE_ATOL = 1e-4  # card f32 vs CPU f64 poses of the well-posed full-width solve
+BLOCK_EDGES = 2  # phase 15's edge pass, card against CPU
+BF16_BLOCK_RTOL = 1e-5  # tests/test_torch_solve_bf16.py's band for "base+bf16" blocks
 F32_GAP_RATIO = 4.0  # run (i) solves: card gap to f64 over the CPU f32 gap (1.6 and 1.0 on an H100)
 PROBE_SCRIPT = "scripts/probe_mosaic_rotate.py"
 # probe case -> (input shape, dtype, dynamic shift?, line of the Pallas case)
@@ -233,6 +269,8 @@ NETWORK_BANDS = dict(stats=dict(rtol=0.0, atol=TRACK_STATS_ATOL), kf_N=dict(rtol
                      fr_N=dict(rtol=0.0, atol=0.0))
 POSED_POSE_ATOL = 1e-4  # the well-posed problem's final poses against the truth
 SNAP_FRAMES, SNAP_EVERY = 8, 4  # phase 11: frames before the snapshot and after it
+WINDOW_MB = 4  # phase 12: runtime.window_decode_microbatch
+OFFLINE_FRAMES, OFFLINE_PAIR_BATCH = 8, 8  # phase 13: OfflineReconstructor's frames, pair_batch
 
 
 class SmokeFailure(Exception):
@@ -1719,39 +1757,52 @@ def _trace_kernels(path: str, annotation: str) -> list:
     return calls
 
 
-def profile_batch(bt, args: tuple, label: str, images: bool = False) -> dict:
-    """One more batch step under torch.profiler: the device work launched in
-    each microbatch chunk (the serving.chunk ranges) and in the whole batch,
-    and the batch's device busy time (trace under build/profile/)."""
+def profile_batch(bt, args: tuple, label: str, images: bool = False, traces: int = 1) -> dict:
+    """`traces` more batch steps, each under torch.profiler of its own: the
+    device work launched in each microbatch chunk (the serving.chunk ranges)
+    and in the whole batch, and the batch's device busy time (traces under
+    build/profile/). A trace may lose records (measured once: one chunk of
+    9,776 kernels read 9,758 while the rest of the run read 9,776) but
+    never gains one, so each count is the most that any of the traces shows,
+    and the busy time is that of the trace that lost least."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from mast3r_slam_torch.profile_step import _union_ms
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        # small kernels and a wait first: the trace drops the first few
-        # kernels it sees (measured: the first chunk of a batch 7-8 short)
-        x = torch.zeros(64, device="cuda")
-        for _ in range(32):
-            x.add_(1)
+    seen = []
+    for n in range(traces):
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with record_function("serving.batch"):
-            (bt.step_images_async if images else bt.step_async)(*args)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    path = os.path.join(REPO, "build", "profile", f"serving_{label}_trace.json")
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    prof.export_chrome_trace(path)
-    (batch,) = _trace_kernels(path, "serving.batch")
-    chunks = _trace_kernels(path, "serving.chunk")
-    if len({len(c) for c in chunks}) > 1:
-        names = [collections.Counter(k[2][:60] for k in c) for c in chunks]
-        print(f"[serving] {label}: the chunks' kernels differ from the last chunk's by "
-              f"{[dict((n - names[-1]) + (names[-1] - n)) for n in names]}", flush=True)
-    return dict(kernels=len(batch), kernels_per_chunk=[len(c) for c in chunks],
-                device_busy_ms=_union_ms([k[:2] for k in batch]), wall_ms_profiled=wall)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            # small kernels and a wait first: the trace drops the first few
+            # kernels it sees (measured: the first chunk of a batch 7-8 short)
+            x = torch.zeros(64, device="cuda")
+            for _ in range(32):
+                x.add_(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with record_function("serving.batch"):
+                (bt.step_images_async if images else bt.step_async)(*args)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        path = os.path.join(REPO, "build", "profile", f"serving_{label}_trace{n}.json")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        prof.export_chrome_trace(path)
+        (batch,) = _trace_kernels(path, "serving.batch")
+        chunks = _trace_kernels(path, "serving.chunk")
+        if len({len(c) for c in chunks}) > 1:
+            names = [collections.Counter(k[2][:60] for k in c) for c in chunks]
+            print(f"[serving] {label} trace {n}: the chunks' kernels differ from the last "
+                  f"chunk's by {[dict((m - names[-1]) + (names[-1] - m)) for m in names]}",
+                  flush=True)
+        seen.append(dict(kernels=len(batch), kernels_per_chunk=[len(c) for c in chunks],
+                         device_busy_ms=_union_ms([k[:2] for k in batch]), wall_ms_profiled=wall))
+    best = max(seen, key=lambda t: t["kernels"])
+    per_chunk = [max(col) for col in itertools.zip_longest(
+        *(t["kernels_per_chunk"] for t in seen), fillvalue=0)]
+    return dict(best, kernels_per_chunk=per_chunk,
+                kernels_per_trace=[t["kernels"] for t in seen],
+                kernels_per_chunk_per_trace=[t["kernels_per_chunk"] for t in seen])
 
 
 def compare_streams(what: str, got: dict, want: dict, lanes, bands: dict) -> dict:
@@ -1985,9 +2036,9 @@ def serving_phase(model) -> dict:
                  if not s.startswith("mast3r_slam_torch/profile_step.py")}
         row["host_syncs_per_batch"] = sum(syncs.values())
         check(not syncs, f"serving B {b}: step_async synchronised with the host: {syncs}")
-        prof = profile_batch(bt, (feats[1][:b], pos[:b]), f"b{b}")
-        check(len(prof["kernels_per_chunk"]) == chunks,
-              f"serving B {b}: {len(prof['kernels_per_chunk'])} chunk spans in the trace")
+        prof = profile_batch(bt, (feats[1][:b], pos[:b]), f"b{b}", traces=3)
+        spans = [len(t) for t in prof["kernels_per_chunk_per_trace"]]
+        check(all(n == chunks for n in spans), f"serving B {b}: {spans} chunk spans in the traces")
         per_chunk_all += prof["kernels_per_chunk"]
         row["profile"] = prof
         row["device_idle_share"] = 1.0 - prof["device_busy_ms"] / ms_batch
@@ -2015,7 +2066,7 @@ def serving_phase(model) -> dict:
         print(f"[serving] B {b} microbatch {SERVING_MB}: features {row['fps']:.1f} tracked "
               f"frames/s ({ms_batch:.1f} ms/batch), attention launches/batch "
               f"{launches / SERVING_CHAIN:.0f}, kernels/batch {prof['kernels']} (per chunk "
-              f"{prof['kernels_per_chunk']}), device idle {row['device_idle_share']:.1%}; images "
+              f"{prof['kernels_per_chunk']}; per trace {prof['kernels_per_chunk_per_trace']}), device idle {row['device_idle_share']:.1%}; images "
               f"{row['images']['fps']:.1f} frames/s ({ms_img:.1f} ms/batch), attention "
               f"launches/batch {launches_i / SERVING_CHAIN:.0f}, kernels/batch "
               f"{prof_i['kernels']}, device idle {row['images']['device_idle_share']:.1%}; "
@@ -2251,6 +2302,472 @@ def state_phase(model) -> dict:
     return out
 
 
+# -- phase 12 --------------------------------------------------------------
+
+
+def _window_run(model, settings: dict, imgs: list, base, windows: int) -> dict:
+    """`FrameTracker.track_window` over `windows` windows of WINDOW frames
+    from a fresh keyframe `base`, under `settings` (bench.py's updated) ->
+    per-window outputs, attention launches over the windows, ms/frame of the
+    last window, and the encoder / decoder calls by batch size."""
+    import torch
+
+    from mast3r_slam_torch.config import Config, set_config
+    from mast3r_slam_torch.ops.attention import flash_attention
+    from mast3r_slam_torch.tracker import FrameTracker
+
+    cfg = set_config(Config.from_dict(settings))
+    tracker = FrameTracker(model, cfg)
+    tracker.init_keyframe(base)
+    calls = collections.Counter()
+    enc, dec = model.encode, model.decode
+
+    def count(what, fn):
+        def wrapped(x, *rest):
+            calls[f"{what} B{x.shape[0]}"] += 1
+            return fn(x, *rest)
+        return wrapped
+
+    model.encode, model.decode = count("encode", enc), count("decode", dec)
+    outs = []
+    try:
+        torch.cuda.synchronize()
+        flash_attention.launches = 0
+        for j in range(windows):
+            t0 = time.perf_counter()
+            outs.append(tracker.track_window(imgs[j * WINDOW:(j + 1) * WINDOW]))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / WINDOW * 1e3
+        launches = flash_attention.launches
+    finally:
+        del model.encode, model.decode
+    return dict(outs=outs, launches=launches, ms_frame=ms, calls=dict(calls))
+
+
+def predicted_window_attention(events, model_cfg, batched: bool, spec: bool, mb: int) -> int:
+    """Attention launches of one window of K = len(events) frames: an encode
+    (of any batch) is one launch per encoder block, a decode (two-view of any
+    batch, or a promotion's mono) one per decoder block, direction and
+    attention. Batched encode: one encode per window, else one per frame.
+    Speculative decode: floor(K / mb) chunks and one of the rest before the
+    chain, then a live decode for every frame after the first promotion;
+    without it a live decode per frame. A decode more per promotion."""
+    import numpy as np
+
+    from mast3r_slam_torch.tracker import EVENT_NEW_KF
+
+    enc, dec = model_cfg.enc_depth, 4 * model_cfg.dec_depth
+    k = len(events)
+    promoted = np.nonzero(np.asarray(events) == EVENT_NEW_KF)[0]
+    n_enc = 1 if batched or spec else k
+    if spec:
+        size = mb if mb and k > mb else k
+        live = k - 1 - int(promoted[0]) if len(promoted) else 0
+        n_dec = k // size + (1 if k % size else 0) + live
+    else:
+        n_dec = k
+    return enc * n_enc + dec * (n_dec + len(promoted))
+
+
+def window_phase(model) -> dict:
+    """Phase 12: the window program's knobs at bench.py's settings (K = 8):
+    the same frames through the chained window with
+    `window_batched_encode` and `window_spec_decode` (microbatch 4) on, and
+    off; then a promoting window (match_frac_thresh 1.0) each way, where
+    the first frame takes the speculative decode and the rest decode live.
+    Events exact, statistics within TRACK_STATS_ATOL, attention launches as
+    predicted window by window."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from mast3r_slam_torch.workload import BENCH_SETTINGS, drift_frames
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(12)
+    h, w = model.out_hw
+    base = rng.uniform(0, 1, (h, w, 3)).astype(np.float32)
+    imgs = drift_frames(base, 2 * WINDOW, rng)
+    knobs = dict(window_batched_encode=True, window_spec_decode=True,
+                 window_decode_microbatch=WINDOW_MB)
+    runs, results = {}, {}
+    for name, on, thresh, windows in (("spec", True, None, 2), ("plain", False, None, 2),
+                                      ("spec promoting", True, 1.0, 1),
+                                      ("plain promoting", False, 1.0, 1)):
+        settings = copy.deepcopy(BENCH_SETTINGS)
+        if on:
+            settings["runtime"].update(knobs)
+        if thresh is not None:
+            settings["tracking"]["match_frac_thresh"] = thresh
+        run = _window_run(model, settings, imgs, base, windows)
+        predicted = sum(predicted_window_attention(o["stats"][:, 3].tolist(), model.cfg, on, on,
+                                                   WINDOW_MB) for o in run["outs"])
+        events = [o["stats"][:, 3].tolist() for o in run["outs"]]
+        print(f"[window] {name}: {windows} x {WINDOW} frames, {run['ms_frame']:.2f} ms/frame "
+              f"(last window); events {events}; model calls {run['calls']}; attention "
+              f"launches {run['launches']}, predicted {predicted}", flush=True)
+        check(run["launches"] == predicted,
+              f"window {name}: attention launched {run['launches']}, predicted {predicted}")
+        for o in run["outs"]:
+            check(bool(torch.isfinite(o["stats"]).all() and torch.isfinite(o["T_WCf"]).all()),
+                  f"window {name}: non-finite statistics or poses")
+        runs[name] = run
+        results[name] = dict(ms_frame=run["ms_frame"], launches=run["launches"],
+                             predicted=predicted, events=events, model_calls=run["calls"])
+    for on, off in (("spec", "plain"), ("spec promoting", "plain promoting")):
+        for a, b in zip(runs[on]["outs"], runs[off]["outs"]):
+            check(torch.equal(a["stats"][:, 3], b["stats"][:, 3]),
+                  f"window {on} vs {off}: events {a['stats'][:, 3]} vs {b['stats'][:, 3]}")
+            gap = (a["stats"] - b["stats"]).abs().max().item()
+            check(gap <= TRACK_STATS_ATOL, f"window {on} vs {off}: statistics {gap:.3e} apart")
+            results[on]["stats_gap"] = max(gap, results[on].get("stats_gap", 0.0))
+    promoted = runs["spec promoting"]["outs"][0]["stats"][:, 3]
+    check(int((promoted == 1).sum()) >= 2,
+          f"the promoting window promoted {promoted.tolist()}: no live decode after a promotion")
+    print(f"[window] knobs on vs off: events equal, statistics within {TRACK_STATS_ATOL} "
+          f"(max {results['spec']['stats_gap']:.3e}, promoting "
+          f"{results['spec promoting']['stats_gap']:.3e}); phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return results
+
+
+# -- phase 13 --------------------------------------------------------------
+
+
+def offline_phase(model) -> dict:
+    """Phase 13: `OfflineReconstructor(pair_k=3, pair_batch=8)` over
+    OFFLINE_FRAMES full-width drifting frames. The pairs equal
+    `select_pairs_from_retrieval` on the same signatures in float64 on the
+    host; attention launches exact (an encode and a mono decode per frame,
+    one symmetric decode per 8 pairs, one decode per 8 consecutive pairs of
+    the chain); poses finite; the graph solve, repeated from its captured
+    inputs, bit-equal. Then attention at the new shapes, the chain decode's
+    batch of 8 and the factor decode's 16, held to its plain version and
+    timed beside it and SDPA."""
+    import numpy as np
+    import torch
+
+    from mast3r_slam_torch import global_opt
+    from mast3r_slam_torch.config import Config, set_config
+    from mast3r_slam_torch.frame import create_frame
+    from mast3r_slam_torch.offline import OfflineReconstructor
+    from mast3r_slam_torch.ops.attention import flash_attention
+    from mast3r_slam_torch.retrieval_db import select_pairs_from_retrieval
+    from mast3r_slam_torch.workload import BENCH_SETTINGS, drift_frames
+
+    t0 = time.perf_counter()
+    set_config(Config.from_dict(BENCH_SETTINGS))
+    rng = np.random.default_rng(13)
+    h, w = model.out_hw
+    base = rng.uniform(0, 1, (h, w, 3)).astype(np.float32)
+    frames = [create_frame(i, torch.from_numpy(img).cuda())
+              for i, img in enumerate(drift_frames(base, OFFLINE_FRAMES, rng))]
+    captured = []
+    graph_solve = global_opt.gauss_newton_graph
+
+    def capturing_solve(*args, **kwargs):
+        inputs = [a.clone() for a in args]
+        out = graph_solve(*args, **kwargs)
+        captured.append((inputs, kwargs, out[0].clone()))
+        return out
+
+    global_opt.gauss_newton_graph = capturing_solve
+    try:
+        torch.cuda.synchronize()
+        flash_attention.launches = 0
+        t1 = time.perf_counter()
+        out = OfflineReconstructor(model, pair_k=3, pair_batch=OFFLINE_PAIR_BATCH).reconstruct(
+            frames)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = flash_attention.launches
+    finally:
+        global_opt.gauss_newton_graph = graph_solve
+    f = OFFLINE_FRAMES
+    means = torch.stack([fr.feat.float().mean(dim=0) for fr in frames]).cpu().double()
+    want = select_pairs_from_retrieval(means / means.norm(dim=-1, keepdim=True), k=3,
+                                       min_thresh=-1.0)
+    pairs = out["pairs"]
+    enc, dec = model.cfg.enc_depth, 4 * model.cfg.dec_depth
+    n_sym = -(-len(pairs) // OFFLINE_PAIR_BATCH)
+    n_chain = -(-(f - 1) // OFFLINE_PAIR_BATCH)
+    predicted = enc * f + dec * (f + n_sym + n_chain)
+    print(f"[offline] {f} frames in {wall:.2f} s; {len(pairs)} pairs {pairs}; edges "
+          f"{out['n_edges']}; attention launches {launches}, predicted {enc}*{f} encodes + "
+          f"{dec}*({f} mono + {n_sym} symmetric + {n_chain} chain decodes) = {predicted}",
+          flush=True)
+    check(pairs == want, f"offline pairs {pairs} != float64 host selection {want}")
+    check(launches == predicted, f"offline: attention launched {launches}, predicted {predicted}")
+    check(out["poses"].shape == (f, 8) and bool(np.isfinite(out["poses"]).all()),
+          "offline: non-finite poses")
+    check(len(captured) == 1, f"offline: {len(captured)} graph solves")
+    args, kw, T_run = captured[0]
+    for _ in range(2):
+        check(torch.equal(graph_solve(*args, **kw)[0], T_run),
+              "offline: a repeated graph solve differs")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    s = h * w // model.cfg.patch_size ** 2
+    rows = [attention_row(f"offline {what} B{b}", b, model.cfg.dec_num_heads, s, s, fused, gen)
+            for b in (OFFLINE_PAIR_BATCH, 2 * OFFLINE_PAIR_BATCH)
+            for what, fused in (("decoder self", True), ("decoder cross", False))]
+    print(f"[offline] graph solve repeated twice bit-equal; phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(frames=f, wall_s=wall, pairs=len(pairs), edges=out["n_edges"],
+                launches=launches, predicted=predicted, attention=rows)
+
+
+# -- phase 14 --------------------------------------------------------------
+
+
+def _get(port: int, path: str) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=10) as r:
+        return r.read().decode()
+
+
+def quant_phase(model) -> dict:
+    """Phase 14: int8 weights. Every weight the leaf rule selects quantized
+    on the card and on the CPU from the same values: int8 and scales
+    bit-equal. The encode and two-view decode before and after
+    `quantize_weights`, within tests/test_quant.py:72-86's bands (desc < 0.1
+    absolute, pts3d < 0.15 of its largest magnitude) at that test's depth (2
+    + 2 blocks, mast3r_full's widths); at full depth desc within 0.1 and
+    pts3d reported (PERF.md, PR 7: random weights make pointmaps of 1e4 and
+    more, where pts3d = expm1(|raw|) makes every deviation of the raw output
+    a relative one). Then `SLAM.run` under
+    run (i)'s settings with `runtime.weight_quant: int8` and the live viewer
+    on (`runtime.viewer_port`): events and attention launches as predicted,
+    one GET of the page and of the state JSON on localhost, host syncs per
+    frame (the viewer's sites apart). Resident weight bytes against bf16,
+    ms/frame."""
+    import copy
+    import json as _json
+    import socket
+
+    import numpy as np
+    import torch
+
+    from mast3r_slam_torch.config import Config, set_config
+    from mast3r_slam_torch.models import MASt3RModel
+    from mast3r_slam_torch.models.quant import (is_quantized_param, quantize_tensor,
+                                                resident_bytes)
+    from mast3r_slam_torch.ops.attention import flash_attention
+    from mast3r_slam_torch.profile_step import count_syncs
+    from mast3r_slam_torch.slam import SLAM
+    from mast3r_slam_torch.workload import BENCH_SETTINGS, drift_frames
+
+    t0 = time.perf_counter()
+    # the division the scales need: by a Python scalar, and by a tensor
+    absmax = torch.cat([p.detach().float().abs().amax(dim=tuple(range(1, p.dim())))
+                        for p in model.net.parameters() if is_quantized_param(p)])
+    by_scalar = int(((absmax / 127.0).cpu() != absmax.cpu() / 127.0).sum())
+    by_tensor = int(((absmax / torch.full_like(absmax, 127.0)).cpu()
+                     != absmax.cpu() / 127.0).sum())
+    print(f"[quant] of {absmax.numel()} scales max|w| / 127, the card's differ from the CPU's at "
+          f"{by_scalar} dividing by a Python scalar, at {by_tensor} by a tensor", flush=True)
+    n_q = n_el = 0
+    with torch.no_grad():
+        for name, p in model.net.named_parameters():
+            if not is_quantized_param(p):
+                continue
+            qc, sc = quantize_tensor(p)
+            qh, sh = quantize_tensor(p.cpu())
+            check(torch.equal(qc.cpu(), qh) and torch.equal(sc.cpu(), sh),
+                  f"quant: {name} quantizes differently on the card and the CPU")
+            n_q += 1
+            n_el += p.numel()
+    t_cmp = time.perf_counter() - t0
+    print(f"[quant] {n_q} weights ({n_el / 1e6:.1f}M values) quantized on the card and the CPU: "
+          f"int8 and scales bit-equal ({t_cmp:.1f} s)", flush=True)
+
+    rng = np.random.default_rng(14)
+    h, w = model.out_hw
+    x = torch.from_numpy(rng.uniform(-1, 1, (2, h, w, 3)).astype(np.float32)).cuda()
+
+    def deviation(m) -> tuple[float, float]:
+        """(desc max |d|, pts3d max |d| / max |pts3d|) of m's two-view decode
+        after quantize_weights against before (tests/test_quant.py's measures)."""
+        def forward():
+            f, p = m.encode(x)
+            return m.decode(f[:1], p[:1], f[1:], p[1:])[0]
+        ref = forward()
+        m.quantize_weights("int8")
+        got = forward()
+        d_desc = (ref["desc"].float() - got["desc"].float()).abs().max().item()
+        d_pts = ((ref["pts3d"].float() - got["pts3d"].float()).abs().max()
+                 / (ref["pts3d"].float().abs().max() + 1e-6)).item()
+        return d_desc, d_pts
+
+    # test_quant's bands at test_quant's depth (2 encoder and 2 decoder
+    # blocks), at mast3r_full's widths
+    cut = MASt3RModel.create(cfg=dataclasses.replace(model.cfg, enc_depth=2, dec_depth=2),
+                             resolution=512, seed=0)
+    cut_desc, cut_pts = deviation(cut)
+    del cut
+    bytes_bf16 = resident_bytes(model.net)
+    d_desc, d_pts = deviation(model)
+    bytes_int8 = resident_bytes(model.net)
+    print(f"[quant] resident weights {bytes_int8 / 1e9:.3f} GB int8 against {bytes_bf16 / 1e9:.3f}"
+          f" GB bf16 ({bytes_int8 / bytes_bf16:.3f}); int8 vs bf16 forward, desc max |d| and "
+          f"pts3d max |d| / max |pts3d|: depth 2+2 {cut_desc:.3e} (< 0.1), {cut_pts:.3e} (< 0.15);"
+          f" full depth {d_desc:.3e} (< 0.1), {d_pts:.3e} (reported: on random weights pts3d = "
+          f"expm1(|raw|) reaches 1e4, where a deviation of raw is a relative one)",
+          flush=True)
+    check(np.isfinite(cut_desc) and cut_desc < 0.1, f"quant: depth 2+2 desc deviates {cut_desc:.3e}")
+    check(np.isfinite(cut_pts) and cut_pts < 0.15, f"quant: depth 2+2 pts3d deviates {cut_pts:.3e}")
+    check(np.isfinite(d_desc) and d_desc < 0.1, f"quant: desc deviates {d_desc:.3e}")
+    check(np.isfinite(d_pts), "quant: non-finite pts3d")
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    settings = copy.deepcopy(BENCH_SETTINGS)
+    settings["tracking"]["match_frac_thresh"] = 1.0
+    settings["runtime"].update(keyframe_capacity=SLAM_CAPACITY, weight_quant="int8",
+                               viewer_port=port)
+    set_config(Config.from_dict(settings))
+    rng = np.random.default_rng(2)
+    base = rng.uniform(0, 1, (480, 640, 3)).astype(np.float32)
+    n = SLAM_FRAMES[0]
+    imgs = [(f * 255).astype(np.uint8) for f in drift_frames(base, n, rng)]
+    slam = SLAM(model=model)
+    publishes, seen = [], set()  # publishes, keyframe frame ids a publish has colored
+
+    def counted_publish():
+        publishes.append(1)
+        seen.update(slam.keyframes.frame_ids)
+        publish()
+
+    publish = slam._publish_viewer
+    slam._publish_viewer = counted_publish
+    results = []
+    torch.cuda.synchronize()
+    flash_attention.launches = 0
+    t1 = time.perf_counter()
+    try:
+        syncs = count_syncs(lambda: results.append(slam.run(frames_dataset(imgs))))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = flash_attention.launches
+        page = _get(slam.viewer.port, "/")
+        state = _json.loads(_get(slam.viewer.port, "/state.json"))
+    finally:
+        if slam.viewer is not None:
+            slam.viewer.close()
+    res, ev = results[0], slam.events
+    predicted, how = predicted_attention(ev, slam.factor_graph.n_decodes, model.cfg)
+    viewer_lines = _viewer_sync_lines()
+    on_viewer = sum(v for k, v in syncs.items() if k in viewer_lines)
+    total = sum(syncs.values())
+    print(f"[quant] SLAM.run int8, run (i)'s settings: {n} frames in {wall:.2f} s = "
+          f"{wall / n * 1e3:.1f} ms/frame; events {dict(sorted(ev.items()))}; attention launches "
+          f"{launches}, predicted {how} = {predicted}", flush=True)
+    print(f"[viewer] {len(publishes)} publishes over {n} frames; GET / {len(page)} bytes, "
+          f"/state.json seq {state['seq']}: {len(state['traj'])} poses, {len(state['points'])} "
+          f"points, {state['n_keyframes']} keyframes; host syncs {total} = "
+          f"{total / n:.2f} per frame, {on_viewer} of them in the viewer's publish "
+          f"(2 per publish and 1 per keyframe it colors first: 2 * {len(publishes)} + "
+          f"{len(seen)}), the rest "
+          f"{(total - on_viewer) / n:.2f} per frame; sites "
+          f"{dict(sorted(syncs.items(), key=lambda kv: -kv[1]))}", flush=True)
+    check(launches == predicted, f"quant SLAM: attention launched {launches}, predicted {predicted}")
+    check(ev["init"] == 1 and ev["chained_step"] >= 1, f"quant SLAM: events {dict(ev)}")
+    check(res["poses"].shape == (n, 4, 4) and bool(np.isfinite(res["poses"]).all()),
+          "quant SLAM: non-finite poses")
+    check("<canvas" in page and len(state["traj"]) == n and len(state["points"]) > 0
+          and state["n_keyframes"] == len(slam.keyframes), "viewer: page or state wrong")
+    check(on_viewer == 2 * len(publishes) + len(seen),
+          f"viewer: {on_viewer} syncs over {len(publishes)} publishes of {len(seen)} keyframes")
+    print(f"[quant] phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(weights=n_q, values=n_el, bytes_int8=bytes_int8, bytes_bf16=bytes_bf16,
+                desc_dev=d_desc, pts_dev=d_pts, depth2_desc_dev=cut_desc, depth2_pts_dev=cut_pts,
+                scale_div_scalar_mismatch=by_scalar, frames=n, wall_s=wall, ms_frame=wall / n * 1e3,
+                launches=launches, predicted=predicted, events=dict(ev),
+                viewer=dict(publishes=len(publishes), syncs=total, syncs_in_publish=on_viewer,
+                            syncs_per_frame=total / n))
+
+
+def _viewer_sync_lines() -> set:
+    """The source lines ("mast3r_slam_torch/slam.py:N") of `SLAM._publish_viewer`."""
+    import inspect
+
+    from mast3r_slam_torch.slam import SLAM
+
+    lines, first = inspect.getsourcelines(SLAM._publish_viewer)
+    return {f"mast3r_slam_torch/slam.py:{first + i}" for i in range(len(lines))}
+
+
+# -- phase 15 --------------------------------------------------------------
+
+
+def solve_bf16_phase() -> dict:
+    """Phase 15: `solve_variant` "noconcat+bf16" against "noconcat" on phase
+    7's well-posed full-width world problem (7 keyframes x 196,608 points):
+    poses within tests/test_gauss_newton.py:296-297's band (5e-2) and not
+    equal to the f32 ones, repeats bit-equal, device ms per solve of each
+    between CUDA events. Then one edge pass of the first BLOCK_EDGES edges
+    with and without bf16: the card's bf16 blocks S and b within
+    BF16_BLOCK_RTOL of the CPU's (f32 sums of the same bf16 products;
+    tests/test_torch_solve_bf16.py holds the CPU's to JAX's), and the f32
+    blocks not equal to them."""
+    import torch
+
+    from mast3r_slam_torch.ops.gauss_newton import GNParams, _edge_system, gauss_newton_graph
+
+    hw = (384, 512)
+    prob = world_graph_problem(*hw, 7, seed=5, device="cuda")
+    out = {}
+    for variant in ("noconcat", "noconcat+bf16"):
+        Ts, ms = [], []
+        for _ in range(3):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            T, _ = gauss_newton_graph(*prob["args"], img_size=hw, variant=variant)
+            end.record()
+            torch.cuda.synchronize()
+            Ts.append(T)
+            ms.append(start.elapsed_time(end))
+        check(all(torch.equal(T, Ts[0]) for T in Ts[1:]), f"{variant}: repeated solves differ")
+        check(bool(torch.isfinite(Ts[0]).all()), f"{variant}: non-finite poses")
+        out[variant] = dict(T=Ts[0], ms=ms)
+    gap = (out["noconcat+bf16"]["T"] - out["noconcat"]["T"]).abs().max().item()
+    truth = (out["noconcat+bf16"]["T"].cpu() - prob["T_gt"]).abs().max().item()
+    print(f"[solve-bf16] world graph solve 7 x {hw[0] * hw[1]} points, {prob['edges']} edges: "
+          f"noconcat+bf16 vs noconcat max |dT| {gap:.3e} (band 5e-2), vs truth {truth:.3e}; "
+          f"repeats bit-equal; device ms per solve noconcat {out['noconcat']['ms']} "
+          f"noconcat+bf16 {out['noconcat+bf16']['ms']}", flush=True)
+    check(0 < gap <= 5e-2, f"solve-bf16: {gap:.3e} from the f32 solve (band 5e-2, above 0)")
+
+    T, Xs, _, ii, jj, idx = prob["args"][:6]
+    ii, jj, idx = ii[:BLOCK_EDGES].long(), jj[:BLOCK_EDGES].long(), idx[:BLOCK_EDGES].long()
+    Xi = torch.gather(Xs[ii], 1, idx[..., None].expand(-1, -1, 3)).transpose(1, 2)
+    Xj = Xs[jj].transpose(1, 2)
+    Q = torch.full(Xi[:, 0].shape, 4.0, device=Xi.device)
+    blocks = {}
+    for dev in ("cuda", "cpu"):
+        a = [x.to(dev) for x in (T, Xi, Xj, ii, jj, torch.ones_like(Q), Q)]
+        for bf16 in (True, False):
+            S, b, _ = _edge_system(*a, "rays", None, None, GNParams(), bf16=bf16)
+            blocks[dev, bf16] = (S.cpu(), b.cpu())
+    rel = {}
+    for key in (("cuda", True), ("cuda", False)):
+        rel[key] = max(((got - ref).abs().max() / ref.abs().max()).item()
+                       for got, ref in zip(blocks[key], blocks["cpu", True]))
+    print(f"[solve-bf16] edge pass of {BLOCK_EDGES} edges x {Xi.shape[2]} points, max |d| / max "
+          f"of the CPU's bf16 blocks S, b: card bf16 {rel['cuda', True]:.3e} (band "
+          f"{BF16_BLOCK_RTOL:.0e}), card f32 {rel['cuda', False]:.3e}", flush=True)
+    check(blocks["cuda", True][0].dtype == torch.float32, "solve-bf16: blocks not f32")
+    check(rel["cuda", True] <= BF16_BLOCK_RTOL,
+          f"solve-bf16: card bf16 blocks {rel['cuda', True]:.3e} from the CPU's")
+    check(not all(torch.equal(x, y) for x, y in zip(blocks["cuda", True], blocks["cuda", False])),
+          "solve-bf16: the bf16 blocks equal the f32 ones")
+    return dict(gap=gap, truth_err=truth, ms_f32=out["noconcat"]["ms"],
+                ms_bf16=out["noconcat+bf16"]["ms"], block_rel=rel["cuda", True],
+                block_rel_f32=rel["cuda", False])
+
+
 # -- another checkout's kernels (--parent) -----------------------------------
 
 
@@ -2383,6 +2900,10 @@ def main(argv=None) -> int:
         model.set_out_hw(384, 512)  # phases 8-9 decoded other frame shapes
         serving = serving_phase(model)
         state = state_phase(model)
+        window = window_phase(model)
+        offline = offline_phase(model)
+        quant = quant_phase(model)  # quantizes the model: the last phase that runs it
+        solve_bf16 = solve_bf16_phase()
     except SmokeFailure as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
         return 1
@@ -2393,6 +2914,10 @@ def main(argv=None) -> int:
     print(f"[chip_smoke] configs: {json.dumps(configs)}", flush=True)
     print(f"[chip_smoke] serving: {json.dumps(serving)}", flush=True)
     print(f"[chip_smoke] state: {json.dumps(state)}", flush=True)
+    print(f"[chip_smoke] window: {json.dumps(window)}", flush=True)
+    print(f"[chip_smoke] offline: {json.dumps(offline)}", flush=True)
+    print(f"[chip_smoke] quant: {json.dumps(quant)}", flush=True)
+    print(f"[chip_smoke] solve_bf16: {json.dumps(solve_bf16)}", flush=True)
     enc = kern["rows"][0]
     kernels = [dict(
         name="flash_attention",
@@ -2409,10 +2934,13 @@ def main(argv=None) -> int:
                                  for b, r in serving["by_b"].items()},
                               **{f"serving_images_b{b}_per_batch":
                                  r["images"]["attention_launches_per_batch"]
-                                 for b, r in serving["by_b"].items()}),
+                                 for b, r in serving["by_b"].items()},
+                              **{f"window_{k.replace(' ', '_')}": r["launches"]
+                                 for k, r in window.items()},
+                              offline=offline["launches"], slam_int8=quant["launches"]),
         max_abs_err=max([kern["max_err"]] + [r["max_abs_err"] for r in
                                              calib["attention"] + configs["attention"]
-                                             + serving["attention"]]),
+                                             + serving["attention"] + offline["attention"]]),
         ms=enc["ms"],
         prev_ms=enc["prev_ms"],
         plain_ms=enc["plain_ms"],
@@ -2420,7 +2948,8 @@ def main(argv=None) -> int:
         bound_by=enc["bound_by"],
         library_ms=enc["library_ms"],
         shape=enc["shape"],
-        by_shape=kern["rows"] + calib["attention"] + configs["attention"] + serving["attention"],
+        by_shape=(kern["rows"] + calib["attention"] + configs["attention"] + serving["attention"]
+                  + offline["attention"]),
     )]
     for name, row in probe.items():
         kernels.append(dict(

@@ -11,8 +11,10 @@ tensors take.
 Ported so far: the per-frame chained tracking step and `slam.SLAM.run`
 under every file of ``configs/`` (rays and calibrated modes; the dense,
 simple and iterative matchers; signature and ASMK retrieval; the
-`mast3r_full` and `dunemast3r` models), serving (`serving.BatchTracker`),
-checkpoint files (`models.io`), and the run services in ``utils/``
-(snapshots, metrics, profiling, evaluation, plots). See ROADMAP.md for what
-remains.
+`mast3r_full` and `dunemast3r` models; the window program's knobs), serving
+(`serving.BatchTracker`), offline reconstruction (`offline`), int8 weights
+(`models.quant`), the live viewer (`viewer`), checkpoint files
+(`models.io`), the Lie group classes (`lie`) and the run services in
+``utils/`` (snapshots, metrics, profiling, evaluation, plots): everything
+of the JAX package but ``parallel/`` (ROADMAP.md).
 """

@@ -2,10 +2,9 @@
 
 Same schema, same defaults, same YAML ``inherit`` / ``_base_`` loader, so the
 files under ``configs/`` load unchanged into either package. Unknown keys
-raise. Some fields configure parts of the system that the port does not have
-yet (int8 weights and the live viewer, which the SLAM loop raises on when
-switched on; the window program's knobs of ROADMAP queue 1 item 2, which
-nothing reads); they are kept so that every config file still parses.
+raise. Every field is read by the port; two runtime knobs are exact by
+construction in eager PyTorch and so change nothing (`gelu_barrier`,
+`serving_scan_unroll`; see their readers, `models.vit.Mlp` and `serving`).
 """
 
 from __future__ import annotations
@@ -137,11 +136,18 @@ class RuntimeConfig:
     snapshot_path: str = "slam_state.npz"
     serving_microbatch: int = 4
     serving_scan_unroll: int = 1
+    # the window program (tracker.FrameTracker._window_steps): decode a
+    # window's frames against its first keyframe in chunks of
+    # window_decode_microbatch before the chain; encode them in one batch
     window_spec_decode: bool = False
     window_decode_microbatch: int = 4
     window_batched_encode: bool = False
+    # JAX's "auto" | "xla" | "flash" (an unknown value takes "xla") compute
+    # one function, f32 scores and sums with P rounded to bf16, and differ in
+    # who fuses it; the port has no XLA fuser to defer to, so every value,
+    # an unknown one included, runs ops.attention.flash_attention
     attention_impl: str = "auto"
-    gelu_barrier: bool = False  # no meaning in eager PyTorch; read by nothing
+    gelu_barrier: bool = False  # exact by construction here (models.vit.Mlp)
     weight_quant: str = "none"
     gelu_impl: str = "erf"  # "erf" (exact) | "tanh" (approximation)
     eviction: str = "covisibility"

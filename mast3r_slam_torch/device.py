@@ -46,28 +46,45 @@ def precision_dtype(precision: str) -> torch.dtype:
         raise ValueError(f"unknown precision {precision!r}") from None
 
 
-class Linear(nn.Linear):
-    """nn.Linear that computes in its weight's dtype (flax ``Dense(dtype=)``)."""
+class _LayerWeight:
+    """The weight a Linear / Conv layer computes with: its parameter, or,
+    once `models.quant.quantize_module` has replaced that by int8 values and
+    per-output-row scales (buffers ``weight_q``, ``weight_scale``), those
+    dequantized at every call: the f32 product rounded once to the model
+    dtype, then cast to the layer's own dtype (JAX dequantizes to the model
+    dtype and flax casts to the layer's)."""
 
     keep_f32 = False
+    quant_dtype: torch.dtype | None = None  # set by quantize_module
+    compute_dtype: torch.dtype | None = None
+
+    def layer_weight(self) -> torch.Tensor:
+        if self.quant_dtype is None:
+            return self.weight
+        w = self.weight_q.float() * self.weight_scale
+        return w.to(self.quant_dtype).to(self.compute_dtype)
+
+
+class Linear(_LayerWeight, nn.Linear):
+    """nn.Linear that computes in its weight's dtype (flax ``Dense(dtype=)``)."""
 
     def forward(self, x):
-        w = self.weight
+        w = self.layer_weight()
         return nn.functional.linear(x.to(w.dtype), w, self.bias)
 
 
-class Conv2d(nn.Conv2d):
-    keep_f32 = False
-
+class Conv2d(_LayerWeight, nn.Conv2d):
     def forward(self, x):
-        return super().forward(x.to(self.weight.dtype))
+        w = self.layer_weight()
+        return self._conv_forward(x.to(w.dtype), w, self.bias)
 
 
-class ConvTranspose2d(nn.ConvTranspose2d):
-    keep_f32 = False
-
+class ConvTranspose2d(_LayerWeight, nn.ConvTranspose2d):
     def forward(self, x):
-        return super().forward(x.to(self.weight.dtype))
+        w = self.layer_weight()
+        return nn.functional.conv_transpose2d(x.to(w.dtype), w, self.bias, self.stride,
+                                              self.padding, self.output_padding, self.groups,
+                                              self.dilation)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -90,8 +107,15 @@ def keep_f32(layer: nn.Module) -> nn.Module:
 
 def apply_dtype_policy(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Cast every compute layer's parameters to `dtype`; LayerNorms and the
-    layers marked by `keep_f32` stay f32."""
+    layers marked by `keep_f32` stay f32. A layer quantized before (int8
+    values, f32 scales) keeps them and computes in the layer's dtype."""
     for m in model.modules():
         if isinstance(m, (Linear, Conv2d, ConvTranspose2d)):
-            m.to(torch.float32 if m.keep_f32 else dtype)
+            layer_dtype = torch.float32 if m.keep_f32 else dtype
+            if m.quant_dtype is None:
+                m.to(layer_dtype)
+                continue
+            m.compute_dtype = layer_dtype
+            if m.bias is not None:
+                m.bias.data = m.bias.data.to(layer_dtype)
     return model

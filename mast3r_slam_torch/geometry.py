@@ -1,10 +1,11 @@
-"""Ray-distance and pinhole geometry and image gradients (the port of the
-parts of ``mast3r_slam_tpu/geometry.py`` that the tracking step, the
-backend, calibrated mode and the iterative matcher use)."""
+"""Ray-distance and pinhole geometry with analytic Jacobians, and image
+gradients (the port of ``mast3r_slam_tpu/geometry.py``)."""
 
 from __future__ import annotations
 
 import torch
+
+from mast3r_slam_torch.lie import core as lie
 
 _EPS = 1e-10
 
@@ -18,10 +19,29 @@ def normalize_rays(X: torch.Tensor) -> torch.Tensor:
     return X / point_to_dist(X)
 
 
-def point_to_ray_dist(X: torch.Tensor) -> torch.Tensor:
-    """[..., 3] point -> [..., 4] ray-distance [rx, ry, rz, d]."""
+def point_to_ray_dist(X: torch.Tensor, jacobian: bool = False):
+    """[..., 3] point -> [..., 4] ray-distance [rx, ry, rz, d]; with
+    `jacobian` also d[r, d]/dX [..., 4, 3]: dr/dX = (I - r r^T) / d and
+    dd/dX = r^T."""
     d = point_to_dist(X)
-    return torch.cat([X * (1.0 / d), d], dim=-1)
+    d_inv = 1.0 / d
+    r = X * d_inv
+    rd = torch.cat([r, d], dim=-1)
+    if not jacobian:
+        return rd
+    eye = torch.eye(3, dtype=X.dtype, device=X.device).expand(*X.shape[:-1], 3, 3)
+    dr_dX = d_inv[..., None] * (eye - r[..., :, None] * r[..., None, :])
+    return rd, torch.cat([dr_dX, r[..., None, :]], dim=-2)
+
+
+def act_Sim3(T_data: torch.Tensor, p: torch.Tensor, jacobian: bool = False):
+    """Points p [..., 3] moved by the Sim3 T_data [..., 8] (broadcast); with
+    `jacobian` also the left-perturbation Jacobian d(exp(xi) T p)/dxi
+    [..., 3, 7] = [I | -[pW]x | pW]."""
+    pW = lie.sim3_act(T_data, p)
+    if not jacobian:
+        return pW
+    return pW, lie.point_jacobian(pW)
 
 
 def cartesian_to_spherical(P: torch.Tensor) -> torch.Tensor:
@@ -55,6 +75,35 @@ def decompose_K(K: torch.Tensor):
     if K.dim() < 2 or K.shape[-2:] != (3, 3):
         raise ValueError(f"intrinsics must be [..., 3, 3], got {tuple(K.shape)}")
     return K[..., 0, 0], K[..., 1, 1], K[..., 0, 2], K[..., 1, 2]
+
+
+def project_calib(P: torch.Tensor, K: torch.Tensor, img_size: tuple[int, int],
+                  jacobian: bool = False, border: int = 0, z_eps: float = 0.0):
+    """Project points P [..., 3] through K [3, 3] -> ([u, v, log z] [..., 3],
+    valid [..., 1]), and with `jacobian` the pinhole chain d[u, v, log z]/dP
+    [..., 3, 3] between them. Valid: border < u < w-1-border,
+    border < v < h-1-border and z > z_eps; log z is
+    log(max(z, 1e-10) + 1e-10), and 0 where z <= z_eps."""
+    h, w = img_size
+    fx, fy, cx, cy = decompose_K(K)
+    x, y, z = P.unbind(-1)
+    z_inv = 1.0 / (z + _EPS)
+    u = fx * x * z_inv + cx
+    v = fy * y * z_inv + cy
+    valid_z = z > z_eps
+    valid = ((u > border) & (u < w - 1 - border) & (v > border) & (v < h - 1 - border)
+             & valid_z)[..., None]
+    logz = torch.where(valid_z, torch.log(torch.clamp(z, min=_EPS) + _EPS), 0.0)
+    pz = torch.stack([u, v, logz], dim=-1)
+    if not jacobian:
+        return pz, valid
+    zero = torch.zeros_like(z)
+    J = torch.stack([
+        torch.stack([fx * z_inv, zero, -fx * x * z_inv * z_inv], dim=-1),
+        torch.stack([zero, fy * z_inv, -fy * y * z_inv * z_inv], dim=-1),
+        torch.stack([zero, zero, z_inv], dim=-1),
+    ], dim=-2)
+    return pz, J, valid
 
 
 def backproject(p: torch.Tensor, z: torch.Tensor, K: torch.Tensor) -> torch.Tensor:

@@ -63,6 +63,10 @@ def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
     return torch.stack(rows, dim=-2)
 
 
+def quat_normalize(q: torch.Tensor) -> torch.Tensor:
+    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+
+
 def so3_exp(phi: torch.Tensor) -> torch.Tensor:
     """so(3) -> unit quaternion, Taylor branch below theta^2 = 1e-6."""
     theta_sq = (phi * phi).sum(-1, keepdim=True)
@@ -71,6 +75,21 @@ def so3_exp(phi: torch.Tensor) -> torch.Tensor:
     imag = torch.where(small, 0.5 - theta_sq / 48.0, torch.sin(0.5 * theta) / theta)
     real = torch.where(small, 1.0 - theta_sq / 8.0, torch.cos(0.5 * theta))
     return torch.cat([imag * phi, real], dim=-1)
+
+
+def so3_log(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion -> so(3) rotation vector (principal log: the qw >= 0
+    hemisphere), Taylor branch below |qv|^2 = 1e-6."""
+    qv, qw = q[..., :3], q[..., 3:4]
+    nv_sq = (qv * qv).sum(-1, keepdim=True)
+    nv = torch.sqrt(nv_sq + _EPS)
+    sign = torch.where(qw < 0, -1.0, 1.0)
+    qv, qw = sign * qv, sign * qw
+    theta = 2.0 * torch.atan2(nv, qw)
+    qw_c = torch.clamp(qw, min=0.5)
+    # theta/|qv| ~ 2/qw (1 - |qv|^2 / (3 qw^2)) for small |qv|
+    scale = torch.where(nv_sq < _SMALL, 2.0 / qw_c * (1.0 - nv_sq / (3.0 * qw_c**2)), theta / nv)
+    return scale * qv
 
 
 def skew(v: torch.Tensor) -> torch.Tensor:
@@ -83,6 +102,44 @@ def skew(v: torch.Tensor) -> torch.Tensor:
         torch.stack([-y, x, zero], dim=-1),
     ]
     return torch.stack(rows, dim=-2)
+
+
+# ---------------------------------------------------------------------------
+# SE(3): element [t(3), q(4)], tangent [v(3), w(3)]
+# ---------------------------------------------------------------------------
+
+
+def _so3_V(omega: torch.Tensor) -> torch.Tensor:
+    """Left SO3 Jacobian V(w), with the SE3 exp translation t = V @ v."""
+    theta_sq = (omega * omega).sum(-1)[..., None, None]
+    theta = torch.sqrt(theta_sq + _EPS)
+    small = theta_sq < _SMALL
+    K = skew(omega)
+    A = torch.where(small, 0.5 - theta_sq / 24.0, (1.0 - torch.cos(theta)) / theta_sq)
+    B = torch.where(small, 1.0 / 6.0 - theta_sq / 120.0,
+                    (theta - torch.sin(theta)) / (theta_sq * theta))
+    eye = torch.eye(3, dtype=omega.dtype, device=omega.device).expand(K.shape)
+    return eye + A * K + B * (K @ K)
+
+
+def se3_exp(xi: torch.Tensor) -> torch.Tensor:
+    """se(3) [..., 6] -> SE3 [..., 7]."""
+    v, omega = xi[..., :3], xi[..., 3:6]
+    t = (_so3_V(omega) @ v[..., None])[..., 0]
+    return torch.cat([t, so3_exp(omega)], dim=-1)
+
+
+def se3_log(T: torch.Tensor) -> torch.Tensor:
+    """SE3 [..., 7] -> se(3) [..., 6]."""
+    t, q = T[..., :3], T[..., 3:7]
+    omega = so3_log(q)
+    v = torch.linalg.solve(_so3_V(omega), t[..., None])[..., 0]
+    return torch.cat([v, omega], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Sim(3): element [t(3), q(4), s(1)], tangent [v(3), w(3), sigma(1)]
+# ---------------------------------------------------------------------------
 
 
 def sim3_identity(batch_shape: tuple[int, ...] = (), dtype=torch.float32, device=None):
@@ -128,6 +185,15 @@ def sim3_exp(xi: torch.Tensor) -> torch.Tensor:
     return torch.cat([t, q, s[..., None]], dim=-1)
 
 
+def sim3_log(T: torch.Tensor) -> torch.Tensor:
+    """Sim3 [..., 8] -> sim(3) [..., 7], the inverse of `sim3_exp`."""
+    t, q, s = T[..., :3], T[..., 3:7], T[..., 7]
+    omega = so3_log(q)
+    sigma = torch.log(s)
+    v = torch.linalg.solve(_sim3_W(omega, sigma), t[..., None])[..., 0]
+    return torch.cat([v, omega, sigma[..., None]], dim=-1)
+
+
 def sim3_inv(T: torch.Tensor) -> torch.Tensor:
     """(t, R, s) -> (-s^-1 R^T t, R^T, s^-1)."""
     t, q, s = T[..., :3], T[..., 3:7], T[..., 7:8]
@@ -150,9 +216,21 @@ def sim3_act(T: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return s * quat_rotate(q, p) + t
 
 
+def sim3_relative(Ti: torch.Tensor, Tj: torch.Tensor) -> torch.Tensor:
+    """T_ij = Ti^-1 * Tj (maps j-frame points into i's frame)."""
+    return sim3_mul(sim3_inv(Ti), Tj)
+
+
 def sim3_retract(T: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
     """Left retraction exp(xi) * T."""
     return sim3_mul(sim3_exp(xi), T)
+
+
+def point_jacobian(p: torch.Tensor) -> torch.Tensor:
+    """d(exp(xi) . p)/dxi at xi = 0 for the left perturbation, [..., 3, 7]:
+    exp(xi) . p ~ p + v + w x p + sigma p, so J = [ I | -[p]x | p ]."""
+    eye = torch.eye(3, dtype=p.dtype, device=p.device).expand(*p.shape[:-1], 3, 3)
+    return torch.cat([eye, -skew(p), p[..., None]], dim=-1)
 
 
 def sim3_matrix(T: torch.Tensor) -> torch.Tensor:

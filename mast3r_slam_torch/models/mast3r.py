@@ -175,11 +175,16 @@ class MASt3RModel:
     def create(cls, model_type: str = "mast3r_full", resolution: int = 512,
                precision: str = "bf16", seed: int = 0, head_type: str | None = None,
                device: str | torch.device | None = None,
-               cfg: MASt3RConfig | None = None, variant: str = "base") -> "MASt3RModel":
+               cfg: MASt3RConfig | None = None, variant: str = "base",
+               checkpoint: str | None = None, weight_quant: str = "none") -> "MASt3RModel":
         """Build a randomly initialized model (seeded torch.Generator) on
         `device` (default: the card; raises without CUDA). ``model_type`` is
         "mast3r_full", "dunemast3r" (of `variant` "small" or "base") or
-        "tiny"; `cfg` overrides them."""
+        "tiny"; `cfg` overrides them. With `checkpoint`, the weights are then
+        loaded strictly from that local upstream-named file (`models.io`).
+        `weight_quant` ("none" or "int8") quantizes the f32 weights before
+        they are cast to the model dtype, as JAX quantizes its f32
+        parameters (see `quantize_weights`)."""
         dev = resolve_device(device)
         if cfg is None:
             if model_type == "mast3r_full":
@@ -196,8 +201,14 @@ class MASt3RModel:
             net = MASt3RNet(cfg)
         net = net.to_empty(device=dev)
         init_weights(net, torch.Generator(device=dev).manual_seed(seed))
+        if checkpoint is not None:
+            from mast3r_slam_torch.models.io import load_checkpoint_into
+
+            load_checkpoint_into(net, checkpoint)
+        model = cls(cfg, net.eval(), _canonical_hw(resolution, cfg.patch_size), dev)
+        model.quantize_weights(weight_quant)
         apply_dtype_policy(net, cfg.dtype)
-        return cls(cfg, net.eval(), _canonical_hw(resolution, cfg.patch_size), dev)
+        return model
 
     @property
     def embed_dim(self) -> int:
@@ -245,19 +256,35 @@ class MASt3RModel:
     def num_params(self) -> int:
         return sum(p.numel() for p in self.net.parameters())
 
+    def quantize_weights(self, mode: str = "int8", min_elems: int | None = None) -> "MASt3RModel":
+        """Int8 weights (`models.quant`): the large weights are held as int8
+        with per-output-channel scales and dequantized at every call.
+        Idempotent; ``mode="none"`` does nothing; another mode raises. This
+        quantizes the weights the model holds: in a bf16 model, their bf16
+        copies, whose int8 values and scales can differ from those JAX takes
+        from its f32 parameters. `create` / `load_mast3r` with
+        ``weight_quant="int8"`` quantize the f32 weights, bit-equal to JAX's."""
+        if mode == "none" or getattr(self, "_quant_mode", None) == mode:
+            return self
+        if mode != "int8":
+            raise ValueError(f"unknown weight_quant mode {mode!r}")
+        from mast3r_slam_torch.models.quant import DEFAULT_MIN_ELEMS, quantize_module
+
+        quantize_module(self.net, self.cfg.dtype,
+                        DEFAULT_MIN_ELEMS if min_elems is None else min_elems)
+        self._quant_mode = mode
+        return self
+
 
 def load_mast3r(model_type: str = "mast3r_full", variant: str = "base", resolution: int = 512,
                 precision: str = "bf16", checkpoint: str | None = None,
-                head_type: str | None = None, seed: int = 0, device=None) -> MASt3RModel:
+                head_type: str | None = None, seed: int = 0, device=None,
+                weight_quant: str = "none") -> MASt3RModel:
     """The SLAM loop's model factory: "mast3r_full" or "dunemast3r" (`variant`
     "small" or "base") on `device` (default: the card), initialised from
     `seed`, then, with `checkpoint`, loaded strictly from that local
-    upstream-named safetensors / .npz / .pth file (`models.io`)."""
-    model = MASt3RModel.create(model_type=model_type, variant=variant, resolution=resolution,
-                               precision=precision, seed=seed, head_type=head_type,
-                               device=device)
-    if checkpoint is not None:
-        from mast3r_slam_torch.models.io import load_checkpoint_into
-
-        load_checkpoint_into(model.net, checkpoint)
-    return model
+    upstream-named safetensors / .npz / .pth file (`models.io`), and with
+    `weight_quant` "int8" quantized from those f32 weights (`MASt3RModel.create`)."""
+    return MASt3RModel.create(model_type=model_type, variant=variant, resolution=resolution,
+                              precision=precision, seed=seed, head_type=head_type,
+                              device=device, checkpoint=checkpoint, weight_quant=weight_quant)

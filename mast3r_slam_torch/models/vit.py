@@ -4,7 +4,8 @@
 Modules carry the upstream (naver CroCo-v2 / DUSt3R / MASt3R) parameter
 names, so the state dict of the port is the upstream checkpoint layout.
 Tokens are [B, S, C]; attention runs on [B, H, S, D] through
-`ops.attention.flash_attention`, the hand-written kernel on the card.
+`ops.attention.flash_attention`, the hand-written kernel on the card, whatever
+`runtime.attention_impl` says (see `config.RuntimeConfig`).
 
 Dtype policy (see `device.py`): Linear/Conv layers compute in the model
 dtype, LayerNorms in f32 (their output is f32, as in flax), residual streams
@@ -59,6 +60,13 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 class Mlp(nn.Module):
+    """fc2(gelu(fc1(x))). `runtime.gelu_barrier` (JAX: an optimization barrier
+    that makes XLA write the GELU output out instead of fusing it into fc2's
+    operand load) is accepted and has nothing to change here: in eager
+    PyTorch the GELU output is always a tensor of its own between the two
+    GEMMs, so the knob's semantics, the same math with the GELU
+    materialised, hold with it on and off."""
+
     def __init__(self, in_dim: int, hidden: int, out_dim: int):
         super().__init__()
         self.fc1 = Linear(in_dim, hidden)

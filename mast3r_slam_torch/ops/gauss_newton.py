@@ -263,7 +263,7 @@ def _stride_indices(N: int, stride: int, img_size) -> np.ndarray:
 
 
 def _edge_system(Twc, Xi_t, Xj_t, ii, jj, weight_mask, Q, mode: str, K_intr, img_size,
-                 p: GNParams):
+                 p: GNParams, bf16: bool = False):
     """Per-edge 7x7 blocks S [E,7,7], gradients b [E,7] (of pose j; pose i gets
     -b) and the cost, from the pre-gathered points Xi_t / Xj_t [E, 3, N].
 
@@ -271,7 +271,11 @@ def _edge_system(Twc, Xi_t, Xj_t, ii, jj, weight_mask, Q, mode: str, K_intr, img
     Ad(Ti^-1) is expanded analytically:
         (Jp Ad)[r, c] = Ad[r, c] + (-[P]x)[r, :] . Ad[3:6, c] + P_r Ad[6, c].
     S and b are summed over the three residual rows' [E, 7, N] blocks (the
-    JAX package's "noconcat" variant).
+    JAX package's "noconcat" variant). With `bf16` (the "+bf16" variants) the
+    square-root weights, residuals and Jacobian rows are rounded to bf16 and
+    their products formed in bf16, as JAX stores them; the products are then
+    widened to f32 before the contractions, so S and b sum in f32 as JAX's
+    `preferred_element_type=float32` does (a bf16 matmul would sum in bf16).
 
     Modes: "rays", the whitened 3D point error (P - Xi) / sigma_ray;
     "points", the same scaled by 1 / (|Xi| + 1e-6); "calib", the pixel and
@@ -335,8 +339,12 @@ def _edge_system(Twc, Xi_t, Xj_t, ii, jj, weight_mask, Q, mode: str, K_intr, img
     mask = Q * weight_mask if gate is None else Q * weight_mask * gate
     w = robust_weight(sqrt_conf * r, p) * mask[:, None, :]
     sw = torch.sqrt(w)
-    Ak = [sw[:, k:k + 1] * Jrows[k] for k in range(3)]  # [E, 7, N]
-    rk = [sw[:, k] * r[:, k] for k in range(3)]  # [E, N]
+    if bf16:
+        sw, r16, Jrows = sw.bfloat16(), r.bfloat16(), [J.bfloat16() for J in Jrows]
+    else:
+        r16 = r
+    Ak = [(sw[:, k:k + 1] * Jrows[k]).float() for k in range(3)]  # [E, 7, N]
+    rk = [(sw[:, k] * r16[:, k]).float() for k in range(3)]  # [E, N]
     S = sum(a @ a.transpose(1, 2) for a in Ak)
     b = sum((a @ v[..., None])[..., 0] for a, v in zip(Ak, rk))
     cost = 0.5 * (w * r * r).sum()
@@ -357,13 +365,13 @@ def _resolve_edge_chunk(E: int, n_pts: int, edge_chunk: int | None) -> int:
 
 
 def _edge_blocks(Twc_cur, Xi_t, Xj_t, ii, jj, weight_mask, Q, chunk: int, mode: str,
-                 K_intr, img_size, p: GNParams):
+                 K_intr, img_size, p: GNParams, bf16: bool = False):
     """S [E,7,7] and b [E,7], one `_edge_system` per chunk of edges."""
     S, b = [], []
     for c0 in range(0, ii.shape[0], chunk):
         sl = slice(c0, c0 + chunk)
         S_c, b_c, _ = _edge_system(Twc_cur, Xi_t[sl], Xj_t[sl], ii[sl], jj[sl],
-                                   weight_mask[sl], Q[sl], mode, K_intr, img_size, p)
+                                   weight_mask[sl], Q[sl], mode, K_intr, img_size, p, bf16)
         S.append(S_c)
         b.append(b_c)
     return (S[0], b[0]) if len(S) == 1 else (torch.cat(S), torch.cat(b))
@@ -404,11 +412,12 @@ def gauss_newton_graph(
     the points on their pixel rays). Pinned poses get an identity diagonal; the
     Levenberg floor is `reg` times max(max|diag H|, 1); a non-finite step is
     replaced by zero. `variant` takes the JAX package's `solve_variant`
-    names that sum in f32: "base" (one concatenated [E, 7, 3N] Jacobian)
-    and "noconcat" are the same sums, and both run the one path here."""
-    if not set(variant.split("+")) <= {"base", "noconcat"}:
-        raise NotImplementedError(
-            f"solve_variant {variant!r} is not ported yet (ROADMAP queue 1 item 5)")
+    names, read as JAX reads them: "+"-separated words, of which "bf16"
+    ("base+bf16", "noconcat+bf16") keeps the edge transients in bf16 with
+    f32 sums (`_edge_system`); the rest name the f32 sums, where "base" (one
+    concatenated [E, 7, 3N] Jacobian) and "noconcat" are the same sums and
+    run the one path here."""
+    bf16 = "bf16" in variant.split("+")
     p = params
     K, dtype = Twc.shape[0], Twc.dtype
     if point_stride < 1:
@@ -436,7 +445,7 @@ def gauss_newton_graph(
 
     def step(Twc_cur):
         S, b = _edge_blocks(Twc_cur, Xi_t, Xj_t, ii, jj, weight_mask, Q, chunk, mode, K_intr,
-                            img_size, p)
+                            img_size, p, bf16)
         H, g = _assemble_Hg(K, ii, jj, S, b, dtype)
         H = H * freeF[:, None, None, None] * freeF[None, :, None, None] + pin_diag
         g = g * freeF[:, None]

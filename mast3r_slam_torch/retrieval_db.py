@@ -19,12 +19,16 @@ until the codebook is fitted on them, and until then queries take the
 signature path; once the database holds twice as many entries as at the
 last fit, the codebook is refitted from the tokens of the keyframe arena
 (`keyframes`, wired by the SLAM loop).
+
+`select_pairs_from_retrieval` builds the pair graph of offline
+reconstruction (`offline`) from a set of signatures.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from mast3r_slam_torch.config import get_config
@@ -193,3 +197,34 @@ def load_retriever(model, backbone_dim: int | None = None) -> RetrievalDatabase:
     if backbone_dim is None:
         backbone_dim = getattr(model, "embed_dim", 1024)
     return RetrievalDatabase(model, backbone_dim=backbone_dim)
+
+
+# ---------------------------------------------------------------------------
+# Offline pair selection (the retrieval graph of `offline.OfflineReconstructor`)
+# ---------------------------------------------------------------------------
+
+
+def compute_similarity_matrix(signatures: torch.Tensor) -> torch.Tensor:
+    """[N, D] signatures -> [N, N] cosine similarities, on their device."""
+    sig = signatures / torch.clamp(torch.linalg.vector_norm(signatures, dim=-1, keepdim=True),
+                                   min=1e-8)
+    return sig @ sig.T
+
+
+def select_pairs_from_retrieval(signatures: torch.Tensor, k: int = 3, min_thresh: float = 0.0,
+                                include_consecutive: bool = True) -> list[tuple[int, int]]:
+    """The k most similar images of each image, as pairs (i, j) with i < j
+    above `min_thresh`, deduplicated, with the consecutive chain (i, i + 1)
+    when `include_consecutive`; sorted. The similarities are read to the
+    host once."""
+    n = signatures.shape[0]
+    sim = compute_similarity_matrix(signatures).cpu().numpy()
+    sim[np.arange(n), np.arange(n)] = -np.inf
+    pairs: set[tuple[int, int]] = set()
+    if include_consecutive:
+        pairs.update((i, i + 1) for i in range(n - 1))
+    for i in range(n):
+        for j in np.argsort(-sim[i])[:k]:
+            if sim[i, j] > min_thresh:
+                pairs.add((min(i, int(j)), max(i, int(j))))
+    return sorted(pairs)

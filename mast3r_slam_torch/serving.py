@@ -31,7 +31,7 @@ mask itself. Keyframe promotion is the caller's decision, from the flags
 that `resolve_stats` returns (`update_keyframes` takes any subset).
 
 Multi-card serving (JAX's ``mesh`` argument) is not ported: one card
-(ROADMAP queue 1 item 8).
+(ROADMAP queue 1 item 1).
 """
 
 from __future__ import annotations
@@ -131,7 +131,7 @@ class BatchTracker:
         size (0: one flat pass)."""
         if mesh is not None:
             raise NotImplementedError(
-                "multi-card serving (mesh) is not ported yet (ROADMAP queue 1 item 8)")
+                "multi-card serving (mesh) is not ported yet (ROADMAP queue 1 item 1)")
         cfg = get_config()
         self.model = model
         self.device = model.device

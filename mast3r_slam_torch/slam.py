@@ -45,9 +45,10 @@ eviction to `runtime.metrics_path`, summarised at the end of `run`
 the window's one stats read, so metrics add no host read; a snapshot reads
 the device state once (one wait per snapshot).
 
-Not ported yet, and raising when configured: `runtime.weight_quant` (int8
-weights, ROADMAP queue 1 item 6) and `runtime.viewer_port` (the live viewer,
-item 7).
+`runtime.weight_quant: int8` holds the model's large weights as int8
+(`models.quant`); `runtime.viewer_port` serves the live viewer (`viewer`),
+which reads the device only on the frames it publishes (a promotion, and
+every `runtime.viewer_refresh` frames).
 """
 
 from __future__ import annotations
@@ -74,10 +75,7 @@ from mast3r_slam_torch.utils.export import save_ply, save_trajectory_kitti, save
 from mast3r_slam_torch.utils.intrinsics import estimate_intrinsics
 from mast3r_slam_torch.utils.metrics import MetricsLogger, summarize
 from mast3r_slam_torch.utils.snapshot import load_snapshot, save_snapshot
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1 item {item})")
+from mast3r_slam_torch.viewer import LiveViewer
 
 
 class SLAM:
@@ -90,11 +88,6 @@ class SLAM:
         if config_path:
             load_config(config_path)
         self.config = get_config()
-        rt = self.config.runtime
-        for on, what, item in ((rt.weight_quant != "none", "runtime.weight_quant", 6),
-                               (bool(rt.viewer_port), "runtime.viewer_port", 7)):
-            if on:
-                raise _not_ported(what, item)
         if model is not None:
             self.model = model
             self.device = resolve_device(model.device if device is None else device)
@@ -105,7 +98,16 @@ class SLAM:
                 model_type=model_type, variant=model_variant, resolution=resolution,
                 precision=precision, checkpoint=self.config.model.checkpoint,
                 head_type=self.config.model.head_type, seed=seed, device=self.device,
+                weight_quant=self.config.runtime.weight_quant,
             )
+        # int8 weights (runtime.weight_quant, models.quant); idempotent, so a
+        # model quantized by the caller or by load_mast3r is fine
+        wq = self.config.runtime.weight_quant
+        if wq != "none":
+            if not hasattr(self.model, "quantize_weights"):
+                raise ValueError(f"runtime.weight_quant={wq!r} needs a MASt3RModel; "
+                                 f"got {type(self.model).__name__}")
+            self.model.quantize_weights(wq)
         self.resolution = resolution
         self.keyframes: Optional[Keyframes] = None
         self.tracker: Optional[FrameTracker] = None
@@ -115,6 +117,8 @@ class SLAM:
         self.timestamps: list[float] = []
         self.poses: list[torch.Tensor] = []
         self.metrics: Optional[MetricsLogger] = None  # with runtime.metrics_path
+        self.viewer: Optional[LiveViewer] = None  # with runtime.viewer_port
+        self._viewer_colors: dict[int, np.ndarray] = {}  # frame id -> subsampled rgb
         # What the network ran, by event (an init, a chained or synchronous
         # tracking step, a promotion, a reloc's mono decode, a symmetric
         # backend decode), and the backend's solves and evictions.
@@ -228,6 +232,8 @@ class SLAM:
                 process_batch(*upload_q.pop(0))
             drain_inflight()
             self._run_backend(budget=0)  # drain any deferred backend tasks
+            if self.viewer is not None:
+                self._publish_viewer()  # with the backend's last corrections
         print(f"Done! {len(self.keyframes)} keyframes, {len(self.poses)} poses")
         if self.metrics:
             self.metrics.close()
@@ -358,6 +364,10 @@ class SLAM:
         solves = self._run_backend()
         if self.metrics:
             self._log_frame(frame, timestamp, solves)
+        if self.viewer is not None and (
+                self._frame_events.get("new_kf", False)
+                or self._n_done % max(1, self.config.runtime.viewer_refresh) == 0):
+            self._publish_viewer()
         self._frame_events = {}
         self._n_done += 1
         if self._n_done % 10 == 0:
@@ -405,6 +415,9 @@ class SLAM:
         self.retrieval_db.keyframes = self.keyframes
         if self.config.runtime.metrics_path:
             self.metrics = MetricsLogger(self.config.runtime.metrics_path)
+        if self.config.runtime.viewer_port and self.viewer is None:
+            self.viewer = LiveViewer(self.config.runtime.viewer_port)
+            print(f"Live viewer: http://localhost:{self.viewer.port}/")
 
     # ------------------------------------------------------- checkpointing
 
@@ -523,6 +536,36 @@ class SLAM:
 
     # --------------------------------------------------------------- output
 
+    def _publish_viewer(self, stride: int = 16) -> None:
+        """Push the trajectory and every keyframe's cloud (each pointmap
+        moved by its current pose, so backend corrections show) to the live
+        viewer, and drop the clouds of evicted keyframes. Called on a
+        promotion and every `runtime.viewer_refresh` frames only: reading
+        the poses and pointmaps waits for the device."""
+        v = self.viewer
+        traj = (torch.stack(self.poses).cpu().numpy() if self.poses
+                else np.zeros((0, 8), np.float32))
+        v.publish_traj(traj, mode=self.state.mode.name)
+        cnt = len(self.keyframes)
+        if cnt == 0:
+            return
+        XW = lie.sim3_act(self.keyframes.T_WC[:cnt, None],
+                          self.keyframes.X[:cnt, ::stride]).cpu().numpy()
+        live = set()
+        for k in range(cnt):
+            fid = int(self.keyframes.frame_ids[k])
+            live.add(fid)
+            cols = self._viewer_colors.get(fid)
+            if cols is None:
+                img = self.keyframes.imgs[k].clamp(0, 1).reshape(-1, 3)[::stride]
+                cols = (img.cpu().numpy() * 255).astype(np.uint8)
+                self._viewer_colors[fid] = cols
+            # a pointmap subsampled by img_downsample has other pixels: grey
+            v.publish_keyframe(fid, XW[k], cols if len(cols) == len(XW[k]) else None, stride=1)
+        for fid in [f for f in list(v._clouds) if f not in live]:
+            v.remove_keyframe(fid)
+        self._viewer_colors = {f: c for f, c in self._viewer_colors.items() if f in live}
+
     def _get_results(self) -> dict:
         pose_mats = (lie.sim3_matrix(torch.stack(self.poses)).cpu().numpy() if self.poses
                      else np.zeros((0, 4, 4)))
@@ -581,6 +624,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--save-traj", default=None, metavar="PATH")
     ap.add_argument("--traj-format", default="tum", choices=["tum", "kitti"])
     ap.add_argument("--save-ply", default=None, metavar="PATH")
+    ap.add_argument("--viewer-port", type=int, default=None, metavar="PORT",
+                    help="serve the live map/trajectory viewer on this port")
     args = ap.parse_args(argv)
     if args.config:
         load_config(args.config)
@@ -591,6 +636,8 @@ def main(argv: list[str] | None = None) -> int:
     slam = SLAM(model_type=args.model_type, model_variant=args.variant,
                 resolution=args.resolution, precision=args.precision, device=args.device,
                 seed=args.seed)
+    if args.viewer_port is not None:
+        slam.config.runtime.viewer_port = args.viewer_port
     slam.run(args.dataset, max_frames=args.max_frames)
     if args.save_traj:
         slam.save_trajectory(args.save_traj, format=args.traj_format)

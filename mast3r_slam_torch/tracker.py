@@ -14,8 +14,15 @@ Promotion design. JAX takes the decision inside the device program
 (``lax.cond``). Here the step reads the one-element ``new_kf`` flag on the
 host once per frame and branches in Python to the mono decode: one host
 synchronisation per tracked frame (`profile_step` counts them; an image
-handed over from host memory adds its copy to the card). A speculative
-design that keeps the decision on the device is later work.
+handed over from host memory adds its copy to the card). A design that
+keeps the decision on the device is later work.
+
+The window program (`FrameTracker._window_steps`) takes JAX's knobs:
+``runtime.window_batched_encode`` encodes a window's frames in one batch
+before the chain, and ``runtime.window_spec_decode`` also decodes them
+against the window's first keyframe in chunks of
+``runtime.window_decode_microbatch``; after a promotion the rest of the
+window decodes live, so both are exact.
 
 Each stage of the step runs inside a ``torch.profiler.record_function``
 span (track.encode / decode / match / pose / fuse / promote), so a profile
@@ -225,7 +232,7 @@ def _mono_pointmap(model, feat, pos, f: int):
 def make_track_step(model, cfg, filtering_mode: str, img_downsample: int = 1,
                     use_calib: bool = False) -> Callable:
     """The per-frame chained step:
-    ``step(img [H,W,3], state, promote=True, enc=None, K=None) -> (out, state)``.
+    ``step(img [H,W,3], state, promote=True, enc=None, dec=None, K=None) -> (out, state)``.
 
     `state` holds the keys of ``_STATE``; `out` holds the per-frame results
     of ``_PER_FRAME`` (stats = [match_frac, match_frac_k, unique_frac_f,
@@ -233,8 +240,11 @@ def make_track_step(model, cfg, filtering_mode: str, img_downsample: int = 1,
     under "promoted", whether the step ran the promotion (a Python bool).
     With ``promote=False`` the step neither reads `new_kf` nor promotes (the
     chain keeps its keyframe); `enc` = (feat [S, D], pos [S, 2]) skips the
-    encode of a frame already encoded. With `use_calib` the step runs the
-    calibrated core with the intrinsics `K` [3, 3] of each call.
+    encode of a frame already encoded, and `dec` = (out_f, out_k), the
+    decoder's two output dicts with a batch of one, skips the decode against
+    the state's keyframe (the window's speculative decode). With `use_calib`
+    the step runs the calibrated core with the intrinsics `K` [3, 3] of each
+    call.
     """
     cfg_key = _calib_cfg_key(cfg) if use_calib else _rays_cfg_key(cfg)
     min_match_frac, match_frac_thresh = cfg_key[2], cfg_key[9]
@@ -245,15 +255,19 @@ def make_track_step(model, cfg, filtering_mode: str, img_downsample: int = 1,
         return a[:, ::f, ::f] if f > 1 else a
 
     @torch.no_grad()
-    def step(img_f, st, promote: bool = True, enc=None, K=None):
+    def step(img_f, st, promote: bool = True, enc=None, dec=None, K=None):
         with record_function("track.encode"):
             if enc is None:
                 img = _to_unit_image(img_f, dev)
                 feat_f, pos_f = model.encode(img[None] * 2.0 - 1.0)
             else:
                 feat_f, pos_f = enc[0][None], enc[1][None]
-        with record_function("track.decode"):
-            out_f, out_k = model.decode(feat_f, pos_f, st["kf_feat"][None], st["kf_pos"][None])
+        if dec is None:
+            with record_function("track.decode"):
+                out_f, out_k = model.decode(feat_f, pos_f, st["kf_feat"][None],
+                                            st["kf_pos"][None])
+        else:
+            out_f, out_k = dec
         Xs_f, Cs_f, Ds_f, Qs_f = (sub(out_f[k]) for k in ("pts3d", "conf", "desc", "desc_conf"))
         Xs_k, Cs_k, Ds_k, Qs_k = (sub(out_k[k]) for k in ("pts3d", "conf", "desc", "desc_conf"))
         n = Xs_f.shape[1] * Xs_f.shape[2]
@@ -419,13 +433,65 @@ class FrameTracker:
     def track_window(self, imgs) -> dict:
         if self.state is None:
             raise RuntimeError("init_keyframe() must be called before track_window()")
-        outs = []
-        for img in imgs:
-            out, self.state = self._run_step(img, self.state)
-            outs.append(out)
+        outs, self.state = self._window_steps(imgs, self.state)
         result = {k: torch.stack([o[k] for o in outs]) for k in _PER_FRAME}
         result["final"] = {k: self.state[k] for k in _STATE}
         return result
+
+    # --------------------------------------------------- the window program
+
+    def _window_steps(self, imgs, st: dict) -> tuple[list, dict]:
+        """The chained steps of one window, under the window program's knobs
+        (JAX ``_make_fused_track_chain_scan``):
+
+        * ``runtime.window_batched_encode``: the K frames are encoded in one
+          batch of K before the chain, and each step takes its features;
+        * ``runtime.window_spec_decode``: the K frames are also decoded
+          against the window's first keyframe before the chain, in chunks of
+          ``runtime.window_decode_microbatch`` (floor(K / mb) full chunks
+          and one of the rest; one pass when K <= mb or mb is 0), which turns
+          the batched encode on. Each step takes its frame's outputs until a
+          step promotes; every later step decodes live against the new
+          keyframe, which keeps the window exact. The promotion is the step's
+          host read already, so this is a Python branch (JAX: ``lax.cond``).
+
+        Calibrated mode keeps per-frame decodes, as JAX does. -> (per-frame
+        outputs, final state)."""
+        rt = get_config().runtime
+        spec = rt.window_spec_decode and not self._calib_live()
+        encs = decs = None
+        if rt.window_batched_encode or spec:
+            x = torch.stack([_to_unit_image(img, self.device) for img in imgs])
+            with record_function("track.encode"):
+                feat, pos = self.model.encode(x * 2.0 - 1.0)
+            encs = list(zip(feat, pos))
+            if spec:
+                with record_function("track.decode"):
+                    decs = self._spec_decode(feat, pos, st["kf_feat"], st["kf_pos"],
+                                             rt.window_decode_microbatch)
+        rows = []
+        for j, img in enumerate(imgs):
+            out, st = self._run_step(img, st, enc=None if encs is None else encs[j],
+                                     dec=None if decs is None else decs[j])
+            if out["promoted"]:
+                decs = None  # the chain's keyframe changed: decode live from here
+            rows.append(out)
+        return rows, st
+
+    def _spec_decode(self, feat, pos, kf_feat, kf_pos, microbatch: int) -> list:
+        """Decode frames [K, S, D] against one keyframe in chunks of
+        `microbatch` -> per frame (out_f, out_k), each a batch of one."""
+        k = feat.shape[0]
+        mb = microbatch if microbatch and k > microbatch else k
+        decs = []
+        for c0 in range(0, k, mb):
+            f, p = feat[c0:c0 + mb], pos[c0:c0 + mb]
+            b = f.shape[0]
+            outs = self.model.decode(f, p, kf_feat.expand(b, *kf_feat.shape),
+                                     kf_pos.expand(b, *kf_pos.shape))
+            decs += [tuple({key: v[j:j + 1] for key, v in o.items()} for o in outs)
+                     for j in range(b)]
+        return decs
 
     # --------------------------------------------------- chained dispatch
 
@@ -477,8 +543,8 @@ class FrameTracker:
         return torch.arange(n, device=self.device)[None]
 
     def _chain_steps(self, frames: list, imgs, T_init) -> Optional[tuple[list, dict]]:
-        """Run the chained step over `imgs` from the chain of the arena's last
-        keyframe; None when there is no keyframe yet."""
+        """Run the window program (`_window_steps`) over `imgs` from the chain
+        of the arena's last keyframe; None when there is no keyframe yet."""
         kf_idx = self.keyframes.last_index()
         if kf_idx is None:
             return None
@@ -489,10 +555,7 @@ class FrameTracker:
         st = dict(kf_feat=chain["feat"], kf_pos=chain["pos"], idx=self._warm_idx(),
                   kf_X=chain["X"], kf_C=chain["C"], kN=chain["N"], T_prev=T_WCf,
                   kf_T=chain["T"])
-        rows = []
-        for img in imgs:
-            out, st = self._run_step(img, st)
-            rows.append(out)
+        rows, st = self._window_steps(imgs, st)
         self.idx_f2k = st["idx"]
         self._chain = dict(kf_idx=chain["kf_idx"], feat=st["kf_feat"], pos=st["kf_pos"],
                            X=st["kf_X"], C=st["kf_C"], N=st["kN"], T=st["kf_T"],

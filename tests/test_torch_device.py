@@ -77,8 +77,10 @@ def test_frame_tracker_rejects_calib_and_untracked_use(monkeypatch):
 
 def test_port_imports_no_jax():
     """Run the CPU slice once in a fresh interpreter, then an ASMK fit and
-    query and an iterative match; then neither jax nor mast3r_slam_tpu may be
-    in sys.modules."""
+    query and an iterative match, then the Lie classes, the pair selection
+    of offline reconstruction and the slice again with int8 weights and the
+    speculative window decode; then neither jax nor mast3r_slam_tpu may be in
+    sys.modules."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -111,6 +113,22 @@ def test_port_imports_no_jax():
         X, D = torch.rand(1, 8, 8, 3) + 1.0, torch.rand(1, 8, 8, 4)
         idx, valid = match_iterative_proj(X, X, D, D)
         assert idx.shape == (1, 64) and valid.shape == (1, 64, 1)
+
+        from mast3r_slam_torch import offline, retrieval_db, viewer  # noqa: F401
+        from mast3r_slam_torch.lie import Sim3
+        from mast3r_slam_torch.models import quant  # noqa: F401
+
+        assert float(Sim3.exp(torch.full((1, 7), 0.1)).log().sub(0.1).abs().max()) < 1e-5
+        assert retrieval_db.select_pairs_from_retrieval(torch.eye(3)[[0, 1, 0]], k=1) == [
+            (0, 1), (0, 2), (1, 2)]
+        cfg = set_config(Config.from_dict({
+            "matching": {"method": "dense", "dense_radius": 2},
+            "runtime": {"window_spec_decode": True, "window_decode_microbatch": 1}}))
+        model.quantize_weights("int8")
+        tracker = FrameTracker(model, cfg, device="cpu")
+        tracker.init_keyframe(rng.uniform(0, 1, (48, 64, 3)).astype(np.float32))
+        out = tracker.track_window(rng.uniform(0, 1, (2, 48, 64, 3)).astype(np.float32))
+        assert bool(torch.isfinite(out["T_WCf"]).all())
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "mast3r_slam_tpu"))
         print("FOREIGN", bad)

@@ -5,9 +5,11 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 
 import jax
 import numpy as np
+import torch
 
 from mast3r_slam_tpu import config as jax_config
 from mast3r_slam_tpu.models import MASt3RConfig as JaxMASt3RConfig
@@ -16,6 +18,21 @@ from mast3r_slam_torch import config as torch_config
 from mast3r_slam_torch.models import MASt3RConfig, MASt3RModel
 from mast3r_slam_torch.models.io import params_from_flax
 from mast3r_slam_torch.workload import BENCH_SETTINGS  # noqa: F401  (bench.py's settings)
+
+
+def cap_torch_threads() -> None:
+    """Share the host's cores among pytest-xdist's workers: each worker's
+    torch takes cpu_count // workers intra-op threads (at least one) instead
+    of one per core, which oversubscribes the host `workers` times over (six
+    workers at eight threads each ran the port's tests 2.5x slower). Runs
+    when a worker collects this module, which every worker does; without
+    xdist torch keeps its default."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "0") or 0)
+    if workers > 1:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
+
+
+cap_torch_threads()
 
 
 @contextlib.contextmanager
