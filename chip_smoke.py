@@ -164,6 +164,29 @@ Phases, in order; any failure exits non-zero before the result line:
                bit-equal, device ms per solve of each; one edge pass's bf16
                blocks on the card within 1e-5 of the CPU's and not equal to
                the f32 ones.
+ 16. parallel - `parallel/` (ranks spawned by the script, one process each):
+               attention held to its plain version and timed at the shapes
+               the parallel paths add (per-rank heads at tp 2 and 4, the sp q
+               shards of 384 and 192 rows against 768 keys, training's batch
+               of 2 pairs) and its gradient (the autograd.Function: the
+               kernel forward, the plain backward) held to f32 autograd
+               within 2e-2 of each gradient's largest, forward + backward
+               timed beside SDPA's; a world-1 NCCL rank: BatchTracker and the
+               graph solve through a (1, 1) mesh (the reference of the next
+               group), pp = sp = 1 torch.equal to the unsharded encode, the
+               multihost layer, 3 AdamW steps of mast3r_full at 512x384
+               (bf16 compute, f32 master weights, 2 pairs, m 16) through
+               train_loop (ms/step, peak memory, launches), step 3 resumed
+               from that run's step-2 file (JAX's layout, uncompressed) within
+               1e-5, and one step at 2 + 2 blocks of mast3r_full's widths with
+               its gradients card vs CPU; then 2 gloo ranks on the one card
+               (NCCL refuses two ranks on one device): BatchTracker at B 8,
+               microbatch 4, at (dp, tp) = (2, 1) and (1, 2) against world 1
+               (statistics within 0.02, flags equal, launches per rank as
+               predicted), the world graph solve with its edges over dp 2
+               within 1e-4 of the unsharded one, and sp 2 within 5e-2 of
+               max |tokens|. The pipeline at pp > 1 (send/recv, which gloo
+               cannot do with CUDA tensors) runs only in the CPU tests.
 Then it prints the kernels JSON line, the card line, and last
 {"ok": true, "device": {...}}.
 """
@@ -175,6 +198,7 @@ import collections
 import dataclasses
 import itertools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -2771,6 +2795,537 @@ def solve_bf16_phase() -> dict:
 # -- another checkout's kernels (--parent) -----------------------------------
 
 
+# -- phase 16 --------------------------------------------------------------
+
+PAR_B, PAR_MB, PAR_STEPS = 8, 4, 2  # parallel serving: streams, microbatch, feature-fed steps
+TRAIN_PAIRS, TRAIN_M, TRAIN_STEPS = 2, 16, 3  # full-width training: pairs, correspondences
+GRAD_REL = 2e-2  # attention gradient vs f32, of max|grad| (tests/test_torch_train.py's bf16 band)
+RESUME_RTOL = 1e-5  # step 3's loss resumed from the straight run's step-2 file vs straight
+# (and the restored parameters and AdamW state bit-equal to that run's own step-2 state)
+CARD_CPU_HW = (192, 256)  # images of the 2 + 2 block gradient check
+CARD_CPU_GRAD_REL = 0.05  # its gradients card vs CPU: |dg| / |g| over all, max |dg| / max |g|
+SP_REL = 0.05  # sp 2 tokens vs unsharded, of max |tokens| (pp 1 at M 2 moves them as much)
+SOLVE_DP_ATOL = 1e-4  # sharded vs unsharded graph solve (__graft_entry__.py's dryrun band)
+
+
+def parallel_attention_cases(c) -> list:
+    """(name, B, H, Sq, Skv, fused) of the attention calls the parallel
+    paths add at 768 tokens: per-rank heads at tp 2 and 4 (the image-fed
+    encoder at B 8, the decoder at the microbatch of 4), the q shards of
+    sequence parallelism at sp 2 and 4 against every key, and training at 2
+    pairs (each view encoded on its own)."""
+    s = 768
+    cases = []
+    for tp in (2, 4):
+        cases.append((f"tp {tp} encoder (B {PAR_B})", PAR_B, c.enc_num_heads // tp, s, s, True))
+        for kind in ("self", "cross"):
+            cases.append((f"tp {tp} decoder {kind} (microbatch {PAR_MB})", PAR_MB,
+                          c.dec_num_heads // tp, s, s, kind == "self"))
+    for sp in (2, 4):
+        cases.append((f"sp {sp} encoder q shard", 1, c.enc_num_heads, s // sp, s, False))
+    cases += [("training encoder", TRAIN_PAIRS, c.enc_num_heads, s, s, True),
+              ("training decoder self", TRAIN_PAIRS, c.dec_num_heads, s, s, True),
+              ("training decoder cross", TRAIN_PAIRS, c.dec_num_heads, s, s, False)]
+    return cases
+
+
+def attention_grad_row(name, b, h, s, fused, gen, iters: int = 10) -> dict:
+    """The kernel's autograd.Function (forward: the kernel; backward:
+    `attention_backward`) held to autograd through `attention_reference` on
+    f32 copies, within GRAD_REL of each gradient's largest magnitude; then
+    forward + backward timed with CUDA events over an eager chain, beside
+    SDPA's forward + backward and the bound (q, k, v, dO read and o, dq, dk,
+    dv written once; the backward's 2.5x the forward's flops)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mast3r_slam_torch.ops.attention import (_BF16_FLOPS_PER_S, _HBM_BYTES_PER_S,
+                                                 attention_reference, flash_attention)
+
+    q, k, v = (t.detach().requires_grad_(True) for t in attention_inputs(b, h, s, s, fused, gen))
+    do = torch.randn(b, h, s, 64, device="cuda", dtype=torch.bfloat16, generator=gen)
+    flash_attention(q, k, v).backward(do)
+    ref = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    attention_reference(*ref).backward(do.float())
+    gaps = [((t.grad.float() - r.grad).abs().max() / r.grad.abs().max()).item()
+            for t, r in zip((q, k, v), ref)]
+    check(all(torch.isfinite(t.grad).all() for t in (q, k, v)), f"{name}: non-finite gradient")
+    check(max(gaps) <= GRAD_REL, f"{name}: gradient gap {gaps} > {GRAD_REL} of max|grad|")
+
+    def fwd_bwd(fn) -> float:
+        for _ in range(3):
+            fn(q, k, v).backward(do)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn(q, k, v).backward(do)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+
+    with torch.no_grad():
+        t_fwd = time_eager(lambda x: flash_attention(x, k, v), q.detach())
+    t_ours = fwd_bwd(flash_attention)
+    t_sdpa = fwd_bwd(F.scaled_dot_product_attention)
+    flops = 3.5 * 4.0 * b * h * s * s * 64
+    nbytes = 2 * 8 * b * h * s * 64
+    bound = 1e3 * max(flops / _BF16_FLOPS_PER_S, nbytes / _HBM_BYTES_PER_S)
+    print(f"[parallel] attention gradient {name} {[b, h, s, s, 64]}: max |grad - f32| / max|grad| "
+          f"q {gaps[0]:.3e} k {gaps[1]:.3e} v {gaps[2]:.3e} (band {GRAD_REL}); fwd+bwd ms: kernel + "
+          f"plain backward {t_ours:.4f}, sdpa {t_sdpa:.4f}, bound {bound:.4f} (operations), "
+          f"{bound / t_ours:.1%} of bound; eager forward alone {t_fwd:.4f}", flush=True)
+    return dict(case=name, shape=[b, h, s, s, 64], grad_rel_err=gaps, fwd_bwd_ms=t_ours,
+                sdpa_fwd_bwd_ms=t_sdpa, bound_ms=bound, bound_by="operations",
+                eager_fwd_ms=t_fwd)
+
+
+def parallel_settings() -> dict:
+    from mast3r_slam_torch.workload import BENCH_SETTINGS
+
+    settings = {k: dict(v) for k, v in BENCH_SETTINGS.items()}
+    for key, value in SERVING_SETTINGS.items():
+        settings.setdefault(key, {}).update(value)
+    return settings
+
+
+def parallel_serving_inputs(model) -> dict:
+    """B streams' keyframes and PAR_STEPS frames of features, and one frame
+    of uint8 images, each stream its own image drifting 2 px a frame (CPU
+    tensors: every rank gets the same global batch)."""
+    import numpy as np
+    import torch
+
+    from mast3r_slam_torch.workload import drift_frames
+
+    h, w = model.out_hw
+    rng = np.random.default_rng(16)
+    bases = rng.uniform(0, 1, (PAR_B, h, w, 3)).astype(np.float32)
+    frames = np.stack([drift_frames(bases[s], PAR_STEPS + 1, rng) for s in range(PAR_B)], 1)
+    u8 = torch.from_numpy((frames * 255).astype(np.uint8)).cuda()
+    kf_u8 = torch.from_numpy((bases * 255).astype(np.uint8)).cuda()
+
+    def encode(x):
+        return model.encode(x.float() / 255.0 * 2.0 - 1.0)
+
+    kf_feat, kf_pos = encode(kf_u8)
+    monos = [model.mono(kf_feat[s], kf_pos[s]) for s in range(PAR_B)]
+    out = dict(kf_feat=kf_feat, kf_pos=kf_pos, kf_X=torch.stack([m[0] for m in monos]),
+               kf_C=torch.stack([m[1] for m in monos]), imgs=u8[PAR_STEPS])
+    for t in range(PAR_STEPS):
+        out[f"feat{t}"] = encode(u8[t])[0]
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def parallel_serving_run(model, mesh, inputs: dict) -> dict:
+    """BatchTracker(mesh=) at PAR_B streams, microbatch PAR_MB: PAR_STEPS
+    feature-fed steps and one image-fed step, every rank passed the global
+    batch -> the global statistics, flags and poses of each step, and the
+    attention launches of this rank."""
+    import torch
+
+    from mast3r_slam_torch.ops.attention import flash_attention
+    from mast3r_slam_torch.serving import BatchTracker
+
+    x = {k: v.cuda() for k, v in inputs.items()}
+    bt = BatchTracker(model, mesh=mesh, microbatch=PAR_MB)
+    bt.init_from_keyframes(x["kf_feat"], x["kf_pos"], x["kf_X"], x["kf_C"])
+    flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats, tracked, poses = [], [], []
+    for t in range(PAR_STEPS + 1):
+        handle = (bt.step_async(x[f"feat{t}"], x["kf_pos"]) if t < PAR_STEPS
+                  else bt.step_images_async(x["imgs"]))
+        r = bt.resolve_stats(handle)
+        stats.append(torch.from_numpy(r["match_frac"]))
+        tracked.append(torch.from_numpy(r["tracked"]))
+        poses.append(r["poses"].cpu())
+    seconds = time.perf_counter() - t0
+    return dict(stats=torch.stack(stats), tracked=torch.stack(tracked), poses=torch.stack(poses),
+                launches=flash_attention.launches, seconds=seconds,
+                enc_heads=model.net.enc_blocks[0].attn.num_heads,
+                dec_heads=model.net.dec_blocks[0].attn.num_heads)
+
+
+def world_solve(mesh=None) -> tuple:
+    """Phase 7's well-posed full-width world problem through the graph solve
+    (edge axis over the mesh's dp) -> (poses, device ms)."""
+    import torch
+
+    from mast3r_slam_torch.ops.gauss_newton import gauss_newton_graph
+
+    hw = (384, 512)
+    prob = world_graph_problem(*hw, 7, seed=5, device="cuda")
+    gauss_newton_graph(*prob["args"], img_size=hw, mesh=mesh)  # warm-up (cuSOLVER handles)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    T, _ = gauss_newton_graph(*prob["args"], img_size=hw, mesh=mesh)
+    end.record()
+    torch.cuda.synchronize()
+    return T.cpu(), start.elapsed_time(end), 2 * prob["edges"]
+
+
+def _world1_rank(rank: int, workdir: str) -> dict:
+    """Phase 16's rank of the world-1 NCCL group: serving and the graph
+    solve through a (1, 1) mesh (the reference of the 2-rank runs), pp = sp
+    = 1 and the multihost layer against the unsharded encode, then
+    full-width training through train_loop, resumed from its step-2 file,
+    and one 2 + 2 block step's gradients card against CPU."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.optim.optimizer import register_optimizer_step_post_hook
+
+    from mast3r_slam_torch.config import Config, set_config
+    from mast3r_slam_torch.models import MASt3RConfig, MASt3RModel
+    from mast3r_slam_torch.ops.attention import flash_attention
+    from mast3r_slam_torch.parallel import multihost
+    from mast3r_slam_torch.parallel.mesh import make_mesh
+    from mast3r_slam_torch.parallel.pipeline import make_pipeline_mesh, pipelined_encode
+    from mast3r_slam_torch.parallel.sequence import sequence_parallel_encode
+    from mast3r_slam_torch.parallel.train import adamw, make_train_step, mast3r_loss
+    from mast3r_slam_torch.parallel.trainer import (load_train_ckpt, synthetic_pair_batch,
+                                                    train_loop, trainer_model)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = dict(world=dist.get_world_size(), backend=dist.get_backend())
+    set_config(Config.from_dict(parallel_settings()))
+    model = MASt3RModel.create(model_type="mast3r_full", resolution=512, device="cuda")
+    mesh = make_mesh()
+    res["inputs"] = parallel_serving_inputs(model)
+    res["serving"] = parallel_serving_run(model, mesh, res["inputs"])
+    res["solve"] = world_solve(make_mesh(tp=1))
+    res["solve_plain"] = world_solve(None)
+
+    # pp = sp = 1 and the multihost layer at world 1
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    imgs = torch.rand(2, 384, 512, 3, device="cuda", generator=gen) * 2 - 1
+    ref = model.encode(imgs)[0]
+    enc = dict(pp=pipelined_encode(model.cfg, model, imgs, make_pipeline_mesh(1), 1)[0],
+               pp_m2=pipelined_encode(model.cfg, model, imgs, make_pipeline_mesh(1), 2)[0],
+               sp=sequence_parallel_encode(model.cfg, model, imgs,
+                                           make_mesh(1, tp=1, axis_names=("dp", "sp")))[0])
+    res["encode_equal"] = {k: bool(torch.equal(v, ref)) for k, v in enc.items()}
+    res["encode_gap"] = {k: (v.float() - ref.float()).abs().max().item() for k, v in enc.items()}
+    gmesh = multihost.make_global_mesh()
+    x = torch.arange(6.0, device="cuda").reshape(2, 3)
+    g = multihost.host_local_batch_to_global(x, gmesh)
+    res["multihost"] = dict(
+        mesh=dict(zip(gmesh.mesh_dim_names, gmesh.mesh.shape)),
+        round_trip=bool(torch.equal(multihost.global_array_to_host_local(g, gmesh), x)),
+        broadcast=float(multihost.broadcast_from_host0(np.float32(3.0))))
+    multihost.sync()
+    del model, ref, enc
+    torch.cuda.empty_cache()
+
+    # full-width training
+    tmodel = trainer_model(512, device="cuda")
+    h, w = tmodel.out_hw
+
+    def batch(i):
+        return synthetic_pair_batch(np.random.default_rng(160 + i), TRAIN_PAIRS, h, w, TRAIN_M)
+
+    stamps = []
+
+    def stamp(line):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    _, timed = train_loop(tmodel, mesh, TRAIN_STEPS, batch, log=stamp)
+    res["train"] = dict(timed_losses=timed, step_s=np.diff([t0] + stamps).tolist(),
+                        launches=flash_attention.launches,
+                        max_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    # The same steps again, writing the step-2 file; after step 3 the file is
+    # kept aside (the end of the loop overwrites it) and step 3 resumed from it.
+    # An optimizer hook keeps the straight run's own step-2 state (parameters,
+    # Adam's mu, nu and count, on the card) for the restore to be held to.
+    ckpt, step2 = os.path.join(workdir, "train.npz"), os.path.join(workdir, "step2.npz")
+    kept = []
+
+    def keep_state(opt, args, kwargs):
+        params = opt.param_groups[0]["params"]
+        if int(opt.state[params[0]]["step"]) == TRAIN_STEPS - 1:
+            kept.extend((p.detach().clone(), {k: v.clone() for k, v in opt.state[p].items()})
+                        for p in params)
+
+    def keep_step2(line):
+        if line.startswith(f"[train] step {TRAIN_STEPS - 1} "):
+            os.replace(ckpt, step2)
+
+    hook = register_optimizer_step_post_hook(keep_state)
+    try:
+        net, straight = train_loop(tmodel, mesh, TRAIN_STEPS, batch, ckpt_path=ckpt,
+                                   save_every=TRAIN_STEPS - 1, log=keep_step2)
+    finally:
+        hook.remove()
+    res["train"].update(losses=straight, params=sum(p.numel() for p in net.parameters()),
+                        file_gb=os.path.getsize(step2) / 1e9)
+    # Step 3 from the file: what train_loop resumes with, without its final save.
+    t0 = time.perf_counter()
+    resumed_net = copy.deepcopy(tmodel.net)
+    opt = adamw(resumed_net.parameters())
+    start = load_train_ckpt(step2, resumed_net, opt, mesh)
+    restored = [(p, opt.state[p]) for p in opt.param_groups[0]["params"]]
+    unequal = {}
+    for (name, _), (p, st), (p0, st0) in zip(resumed_net.named_parameters(), restored, kept):
+        for key, a, b in [("param", p, p0)] + [(k, st.get(k), v) for k, v in st0.items()]:
+            if a is None or not torch.equal(torch.as_tensor(a).to(b.device), b):
+                unequal.setdefault(key, []).append(name)
+    loss, _ = make_train_step(resumed_net, opt, mesh)(batch(start))
+    res["train"]["resume"] = dict(start=start, losses=[loss.item()],
+                                  seconds=time.perf_counter() - t0,
+                                  kept=len(kept), restored=len(restored),
+                                  state_keys=sorted(kept[0][1]) if kept else [],
+                                  unequal={k: v[:3] + [len(v)] for k, v in unequal.items()},
+                                  param_gap=max((a - b).abs().max().item() for a, b in zip(
+                                      net.parameters(), resumed_net.parameters())))
+    del net, resumed_net, opt, tmodel, kept, restored
+    torch.cuda.empty_cache()
+
+    # one step at 2 + 2 blocks and mast3r_full's widths: card against CPU
+    cfg22 = dataclasses.replace(MASt3RConfig.mast3r_full(), enc_depth=2, dec_depth=2)
+    card = MASt3RModel.create(cfg=cfg22, resolution=CARD_CPU_HW[1], device="cuda",
+                              master_weights=True)
+    cpu = MASt3RModel.create(cfg=cfg22, resolution=CARD_CPU_HW[1], device="cpu",
+                             master_weights=True)
+    cpu.net.load_state_dict({k: v.cpu() for k, v in card.net.state_dict().items()})
+    b22 = synthetic_pair_batch(np.random.default_rng(22), TRAIN_PAIRS, *CARD_CPU_HW, TRAIN_M)
+    t0 = time.perf_counter()
+    losses = {}
+    for name, m in (("card", card), ("cpu", cpu)):
+        dev = next(m.net.parameters()).device
+        loss, _ = mast3r_loss(m.net, {k: v.to(dev) for k, v in b22.items()})
+        loss.backward()
+        losses[name] = loss.item()
+    g_card = [p.grad.cpu() for p in card.net.parameters()]
+    g_cpu = [p.grad for p in cpu.net.parameters()]
+    names = [n for n, _ in card.net.named_parameters()]
+    top = max(g.abs().max().item() for g in g_cpu)
+    own = {n: ((a - b).abs().max() / b.abs().max()).item() for n, a, b in zip(names, g_card, g_cpu)}
+    abs_gap = {n: (a - b).abs().max().item() / top for n, a, b in zip(names, g_card, g_cpu)}
+    flat_card, flat_cpu = torch.cat([g.reshape(-1) for g in g_card]), torch.cat(
+        [g.reshape(-1) for g in g_cpu])
+    worst = max(abs_gap, key=abs_gap.get)
+    res["card_cpu"] = dict(
+        losses=losses, rel_l2=((flat_card - flat_cpu).norm() / flat_cpu.norm()).item(),
+        worst=worst, worst_gap=abs_gap[worst], worst_own=max(own, key=own.get),
+        worst_own_gap=max(own.values()), median_own_gap=float(np.median(list(own.values()))),
+        zero_card=[n for n, g in zip(names, g_card) if g.abs().max().item() == 0],
+        params=len(names), seconds=time.perf_counter() - t0)
+    return res
+
+
+def _world2_rank(rank: int, inputs: dict) -> dict:
+    """Phase 16's ranks of the 2-rank group on one card (gloo, CUDA
+    tensors): BatchTracker at (dp, tp) = (2, 1), then (1, 2) (the model
+    split in place), and the graph solve with its edges over dp 2."""
+    import torch
+    import torch.distributed as dist
+
+    from mast3r_slam_torch.config import Config, set_config
+    from mast3r_slam_torch.models import MASt3RModel
+    from mast3r_slam_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = dict(world=dist.get_world_size(), backend=dist.get_backend())
+    set_config(Config.from_dict(parallel_settings()))
+    model = MASt3RModel.create(model_type="mast3r_full", resolution=512, device="cuda")
+    res["solve"] = world_solve(make_mesh(tp=1))
+    # sequence parallel at sp 2 (gloo's all_gather of CUDA tensors), before tp splits the model
+    from mast3r_slam_torch.parallel.sequence import sequence_parallel_encode
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    imgs = torch.rand(2, 384, 512, 3, device="cuda", generator=gen) * 2 - 1
+    ref = model.encode(imgs)[0]
+    sp = sequence_parallel_encode(model.cfg, model, imgs, make_mesh(tp=2, axis_names=("dp", "sp")),
+                                  batch_axis=None)[0]
+    res["sp2"] = dict(gap=(sp.float() - ref.float()).abs().max().item(),
+                      scale=ref.float().abs().max().item(), equal=bool(torch.equal(sp, ref)))
+    res["dp2"] = parallel_serving_run(model, make_mesh(tp=1), inputs)
+    res["tp2"] = parallel_serving_run(model, make_mesh(tp=2), inputs)
+    return res
+
+
+def predicted_parallel_launches(c) -> int:
+    """Attention launches of `parallel_serving_run` on one rank: every
+    feature-fed step decodes PAR_B / PAR_MB chunks (each 2 decoders x depth
+    x self and cross), the image-fed step adds one batched encode (depth);
+    dp and tp leave the count as it is (dp: B / dp streams in chunks of
+    PAR_MB / dp; tp: H / tp heads a launch)."""
+    decode = (PAR_B // PAR_MB) * 2 * c.dec_depth * 2
+    return PAR_STEPS * decode + c.enc_depth + decode
+
+
+def parallel_phase() -> dict:
+    """Phase 16: `parallel/` on the card. Attention at the new shapes and
+    its gradient in this process; then a world-1 NCCL rank (serving and the
+    solve through a mesh, pp / sp / multihost, training) and a 2-rank gloo
+    group on the one card (dp and tp serving, the edge-sharded solve), each
+    rank a process of its own, held to each other."""
+    import tempfile
+
+    import torch
+
+    from mast3r_slam_torch.models import MASt3RConfig
+    from mast3r_slam_torch.parallel.mesh import spawn
+
+    t0 = time.perf_counter()
+    card = card_line()
+    c = MASt3RConfig.mast3r_full()
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    attention = [attention_row(*case, gen) for case in parallel_attention_cases(c)]
+    grads = [attention_grad_row(name, TRAIN_PAIRS, h, 768, fused, gen)
+             for name, h, fused in (("training encoder", c.enc_num_heads, True),
+                                    ("training decoder self", c.dec_num_heads, True),
+                                    ("training decoder cross", c.dec_num_heads, False))]
+    torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix="parallel-")
+    t1 = time.perf_counter()
+    (one,) = spawn(_world1_rank, 1, (workdir,), backend="nccl", device="cuda", threads=0,
+                   workdir=os.path.join(workdir, "one"))
+    t_one = time.perf_counter() - t1
+    print(f"[parallel] world 1 over {one['backend']} ({t_one:.1f} s with the process's start; "
+          f"{card})", flush=True)
+    t1 = time.perf_counter()
+    two = spawn(_world2_rank, 2, (one["inputs"],), backend="gloo", device="cuda", threads=0,
+                workdir=os.path.join(workdir, "two"))
+    t_two = time.perf_counter() - t1
+    print(f"[parallel] world {two[0]['world']} over {two[0]['backend']}, both ranks on one card "
+          f"(NCCL refuses two ranks on one device) ({t_two:.1f} s; {card})", flush=True)
+    import shutil
+
+    shutil.rmtree(workdir, ignore_errors=True)
+
+    # serving: dp 2 and tp 2 against world 1
+    want = one["serving"]
+    predicted = predicted_parallel_launches(c)
+    check(want["launches"] == predicted,
+          f"world-1 serving: {want['launches']} attention launches, predicted {predicted}")
+    serving = {}
+    for key, label in (("dp2", "(dp, tp) = (2, 1)"), ("tp2", "(dp, tp) = (1, 2)")):
+        for rank, r in enumerate(two):
+            got = r[key]
+            gap = (got["stats"] - want["stats"]).abs().max().item()
+            pose_gap = (got["poses"] - want["poses"]).abs().max().item()
+            check(gap <= TRACK_STATS_ATOL, f"serving {label} rank {rank}: stats {gap:.3e} from "
+                                           f"world 1 > {TRACK_STATS_ATOL}")
+            check(torch.equal(got["tracked"], want["tracked"]),
+                  f"serving {label} rank {rank}: tracked flags differ from world 1")
+            check(got["launches"] == predicted, f"serving {label} rank {rank}: "
+                                                f"{got['launches']} launches, predicted {predicted}")
+            heads = (c.enc_num_heads // 2, c.dec_num_heads // 2) if key == "tp2" else (
+                c.enc_num_heads, c.dec_num_heads)
+            check((got["enc_heads"], got["dec_heads"]) == heads,
+                  f"serving {label}: heads per rank {got['enc_heads']}/{got['dec_heads']}")
+            serving[f"{key}_rank{rank}"] = dict(stats_gap=gap, pose_gap=pose_gap,
+                                                launches=got["launches"], heads=heads,
+                                                seconds=got["seconds"])
+        print(f"[parallel] serving {label} at B {PAR_B}, microbatch {PAR_MB}, 2 ranks: stats "
+              f"within {max(serving[f'{key}_rank{i}']['stats_gap'] for i in range(2)):.3e} of "
+              f"world 1 (band {TRACK_STATS_ATOL}), tracked flags equal ({int(want['tracked'].sum())}"
+              f" of {want['tracked'].numel()} tracked), poses within "
+              f"{max(serving[f'{key}_rank{i}']['pose_gap'] for i in range(2)):.3e}; attention "
+              f"launches per rank {two[0][key]['launches']} as predicted, heads per rank "
+              f"{serving[f'{key}_rank0']['heads']}; {two[0][key]['seconds']:.1f} s for "
+              f"{PAR_STEPS + 1} steps ({card})", flush=True)
+    check(one["serving"]["tracked"].any(), "world-1 serving tracked no stream")
+
+    # the edge-sharded graph solve
+    T_plain, ms_plain, edges = one["solve_plain"]
+    solve = {}
+    for label, (T, ms, _) in (("dp 1 (NCCL)", one["solve"]), ("dp 2 rank 0 (gloo)", two[0]["solve"]),
+                              ("dp 2 rank 1 (gloo)", two[1]["solve"])):
+        gap = (T - T_plain).abs().max().item()
+        check(bool(torch.isfinite(T).all()) and gap <= SOLVE_DP_ATOL,
+              f"graph solve {label}: {gap:.3e} from the unsharded solve")
+        solve[label] = dict(gap=gap, ms=ms)
+    print(f"[parallel] world graph solve 7 x 196608 points, {edges} two-way edges: sharded vs "
+          f"unsharded max |dT| " + ", ".join(f"{k} {v['gap']:.3e}" for k, v in solve.items())
+          + f" (band {SOLVE_DP_ATOL}); device ms unsharded {ms_plain:.1f}, "
+          + ", ".join(f"{k} {v['ms']:.1f}" for k, v in solve.items()) + f" ({card})", flush=True)
+
+    # pp, sp, multihost at world 1
+    check(all(one["encode_equal"][k] for k in ("pp", "sp")),
+          f"pp = sp = 1 encodes differ from the unsharded encode: {one['encode_gap']}")
+    mh = one["multihost"]
+    check(mh["round_trip"] and mh["broadcast"] == 3.0 and mh["mesh"] == {"dp": 1, "tp": 1},
+          f"multihost at world 1: {mh}")
+    print(f"[parallel] pipelined_encode (pp 1, M 1) and sequence_parallel_encode (sp 1) "
+          f"torch.equal to the unsharded encode at 2 x 384x512; pp 1 at M 2 within "
+          f"{one['encode_gap']['pp_m2']:.3e}; multihost at world 1: {mh}", flush=True)
+    sp2 = two[0]["sp2"]
+    check(all(r["sp2"]["gap"] <= SP_REL * r["sp2"]["scale"] for r in two),
+          f"sp 2 encode: {[r['sp2'] for r in two]} (band {SP_REL} of max |tokens|)")
+    print(f"[parallel] sequence_parallel_encode at sp 2 over gloo (all_gather of CUDA tensors), "
+          f"2 x 384x512, q shards of 384 against 768 keys: max |sp 2 - unsharded| {sp2['gap']:.3e} "
+          f"of max |tokens| {sp2['scale']:.3e} (band {SP_REL} of it; equal: {sp2['equal']})",
+          flush=True)
+    print("[parallel] not run on the card: the pipeline at pp > 1 (point-to-point send/recv, "
+          "which gloo does not document for CUDA tensors and NCCL cannot run with two ranks on "
+          "one card); its multi-rank numerics are tests/test_torch_parallel_encode.py's, on CPU "
+          "process groups", flush=True)
+
+    # training
+    tr = one["train"]
+    losses, resumed = tr["losses"], tr["resume"]["losses"]
+    for run in (tr["timed_losses"], losses):
+        check(len(run) == TRAIN_STEPS and all(map(math.isfinite, run)), f"training losses {run}")
+        check(len(set(run)) == TRAIN_STEPS, f"training losses do not change: {run}")
+    per_step = 2 * c.enc_depth + 2 * 2 * c.dec_depth
+    check(tr["launches"] == TRAIN_STEPS * per_step,
+          f"training: {tr['launches']} attention launches, predicted {TRAIN_STEPS * per_step}")
+    rs = tr["resume"]
+    check(rs["start"] == TRAIN_STEPS - 1, f"resume: {rs}")
+    check(rs["kept"] == rs["restored"] > 0 and set(rs["state_keys"]) >= {
+        "step", "exp_avg", "exp_avg_sq"} and not rs["unequal"],
+          f"resume: the restored parameters and AdamW state differ from the straight run's "
+          f"step-2 state (kept {rs['kept']}, restored {rs['restored']}, keys "
+          f"{rs['state_keys']}, unequal {rs['unequal']})")
+    rgap = abs(resumed[0] - losses[-1]) / abs(losses[-1])
+    check(rgap <= RESUME_RTOL, f"resumed step 3 loss {resumed[0]} vs straight {losses[-1]}")
+    print(f"[parallel] training mast3r_full 512x384 bf16 compute, f32 master weights "
+          f"({tr['params']} parameters), {TRAIN_PAIRS} pairs, m {TRAIN_M}, AdamW, world 1 over "
+          f"NCCL: losses {tr['timed_losses']}; s/step {[round(s, 3) for s in tr['step_s']]} "
+          f"(the first with warm-up); max_memory_allocated {tr['max_memory_gb']:.2f} GB; "
+          f"attention launches {tr['launches']} as predicted; the same 3 steps again (the "
+          f"backward's atomics: not bit-equal) {losses}, resumed from that run's step-2 file "
+          f"({tr['file_gb']:.2f} GB, JAX's layout): parameters and AdamW {rs['state_keys']} of "
+          f"all {rs['restored']} tensors bit-equal to the straight run's step-2 state; step 3 "
+          f"loss {resumed[0]} vs {losses[-1]} (rel "
+          f"{rgap:.2e}, band {RESUME_RTOL}), params after it within "
+          f"{tr['resume']['param_gap']:.3e}; load + step {tr['resume']['seconds']:.1f} s "
+          f"({card})", flush=True)
+    cc = one["card_cpu"]
+    check(not cc["zero_card"], f"zero gradients on the card: {cc['zero_card'][:5]}")
+    check(cc["rel_l2"] <= CARD_CPU_GRAD_REL and cc["worst_gap"] <= CARD_CPU_GRAD_REL,
+          f"card vs CPU gradients: |dg|/|g| {cc['rel_l2']:.3e}, max |dg| of {cc['worst']} "
+          f"{cc['worst_gap']:.3e} of the largest gradient > {CARD_CPU_GRAD_REL}")
+    print(f"[parallel] one step at 2 + 2 blocks, mast3r_full widths, {CARD_CPU_HW}, bf16 compute "
+          f"on both: loss card {cc['losses']['card']:.6f} CPU {cc['losses']['cpu']:.6f}; "
+          f"{cc['params']} gradients card vs CPU: |dg| / |g| {cc['rel_l2']:.3e}, max |dg| "
+          f"{cc['worst_gap']:.3e} of the model's largest gradient ({cc['worst']}; band "
+          f"{CARD_CPU_GRAD_REL} for both); of each parameter's own largest, median "
+          f"{cc['median_own_gap']:.3e}, worst {cc['worst_own_gap']:.3e} ({cc['worst_own']}, "
+          f"reported); {cc['seconds']:.1f} s", flush=True)
+    seconds = time.perf_counter() - t0
+    print(f"[parallel] phase {seconds:.1f} s ({card})", flush=True)
+    return dict(attention=attention, gradient=grads, serving=serving, solve=solve,
+                encode_gap=one["encode_gap"], sp2=[r["sp2"] for r in two], multihost=mh,
+                train={k: v for k, v in tr.items()}, card_cpu=cc,
+                launches=dict(world1=want["launches"], dp2=two[0]["dp2"]["launches"],
+                              tp2=two[0]["tp2"]["launches"], training=tr["launches"]),
+                seconds=seconds)
+
+
 def other_kernel_times(root: str) -> dict:
     """Device ms of the kernels of the checkout at `root`, imported in place
     of this one's, at the kernel and probe phases' shapes, with this script's
@@ -2904,6 +3459,7 @@ def main(argv=None) -> int:
         offline = offline_phase(model)
         quant = quant_phase(model)  # quantizes the model: the last phase that runs it
         solve_bf16 = solve_bf16_phase()
+        parallel = parallel_phase()
     except SmokeFailure as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
         return 1
@@ -2918,6 +3474,7 @@ def main(argv=None) -> int:
     print(f"[chip_smoke] offline: {json.dumps(offline)}", flush=True)
     print(f"[chip_smoke] quant: {json.dumps(quant)}", flush=True)
     print(f"[chip_smoke] solve_bf16: {json.dumps(solve_bf16)}", flush=True)
+    print(f"[chip_smoke] parallel: {json.dumps(parallel)}", flush=True)
     enc = kern["rows"][0]
     kernels = [dict(
         name="flash_attention",
@@ -2937,10 +3494,12 @@ def main(argv=None) -> int:
                                  for b, r in serving["by_b"].items()},
                               **{f"window_{k.replace(' ', '_')}": r["launches"]
                                  for k, r in window.items()},
-                              offline=offline["launches"], slam_int8=quant["launches"]),
+                              offline=offline["launches"], slam_int8=quant["launches"],
+                              **{f"parallel_{k}": v for k, v in parallel["launches"].items()}),
         max_abs_err=max([kern["max_err"]] + [r["max_abs_err"] for r in
                                              calib["attention"] + configs["attention"]
-                                             + serving["attention"] + offline["attention"]]),
+                                             + serving["attention"] + offline["attention"]
+                                             + parallel["attention"]]),
         ms=enc["ms"],
         prev_ms=enc["prev_ms"],
         plain_ms=enc["plain_ms"],
@@ -2949,7 +3508,8 @@ def main(argv=None) -> int:
         library_ms=enc["library_ms"],
         shape=enc["shape"],
         by_shape=(kern["rows"] + calib["attention"] + configs["attention"] + serving["attention"]
-                  + offline["attention"]),
+                  + offline["attention"] + parallel["attention"]),
+        gradient=parallel["gradient"],
     )]
     for name, row in probe.items():
         kernels.append(dict(

@@ -10,7 +10,10 @@ model), LayerNorms in f32, the pts3d regression conv of the DPT head and the
 linear pts3d head in f32, and everything downstream of the network (matcher
 costs, Gauss-Newton, Lie groups, fusion) in f32. `apply_dtype_policy` casts
 the parameters once; each layer casts its input to its weight's dtype, which
-is what flax's ``dtype=`` does on every call.
+is what flax's ``dtype=`` does on every call. With ``master_weights=True``
+(training) the parameters stay f32 and each layer casts its weight and bias
+to its compute dtype at every call instead, as flax computes in ``dtype``
+from f32 parameters.
 """
 
 from __future__ import annotations
@@ -60,9 +63,13 @@ class _LayerWeight:
 
     def layer_weight(self) -> torch.Tensor:
         if self.quant_dtype is None:
-            return self.weight
+            return self.weight if self.compute_dtype is None else self.weight.to(self.compute_dtype)
         w = self.weight_q.float() * self.weight_scale
         return w.to(self.quant_dtype).to(self.compute_dtype)
+
+    def layer_bias(self) -> torch.Tensor | None:
+        b = self.bias
+        return b if b is None or self.compute_dtype is None else b.to(self.compute_dtype)
 
 
 class Linear(_LayerWeight, nn.Linear):
@@ -70,19 +77,19 @@ class Linear(_LayerWeight, nn.Linear):
 
     def forward(self, x):
         w = self.layer_weight()
-        return nn.functional.linear(x.to(w.dtype), w, self.bias)
+        return nn.functional.linear(x.to(w.dtype), w, self.layer_bias())
 
 
 class Conv2d(_LayerWeight, nn.Conv2d):
     def forward(self, x):
         w = self.layer_weight()
-        return self._conv_forward(x.to(w.dtype), w, self.bias)
+        return self._conv_forward(x.to(w.dtype), w, self.layer_bias())
 
 
 class ConvTranspose2d(_LayerWeight, nn.ConvTranspose2d):
     def forward(self, x):
         w = self.layer_weight()
-        return nn.functional.conv_transpose2d(x.to(w.dtype), w, self.bias, self.stride,
+        return nn.functional.conv_transpose2d(x.to(w.dtype), w, self.layer_bias(), self.stride,
                                               self.padding, self.output_padding, self.groups,
                                               self.dilation)
 
@@ -105,13 +112,23 @@ def keep_f32(layer: nn.Module) -> nn.Module:
     return layer
 
 
-def apply_dtype_policy(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+def apply_dtype_policy(model: nn.Module, dtype: torch.dtype,
+                       master_weights: bool = False) -> nn.Module:
     """Cast every compute layer's parameters to `dtype`; LayerNorms and the
     layers marked by `keep_f32` stay f32. A layer quantized before (int8
-    values, f32 scales) keeps them and computes in the layer's dtype."""
+    values, f32 scales) keeps them and computes in the layer's dtype. With
+    `master_weights` every parameter stays f32 and each layer computes in
+    its dtype from casts made at every call (the f32 master weights of
+    training)."""
     for m in model.modules():
         if isinstance(m, (Linear, Conv2d, ConvTranspose2d)):
             layer_dtype = torch.float32 if m.keep_f32 else dtype
+            if master_weights:
+                if m.quant_dtype is not None:
+                    raise ValueError("master weights of an int8-quantized layer")
+                m.to(torch.float32)
+                m.compute_dtype = layer_dtype
+                continue
             if m.quant_dtype is None:
                 m.to(layer_dtype)
                 continue

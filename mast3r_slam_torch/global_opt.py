@@ -16,6 +16,10 @@ nothing, and the Levenberg floor takes max(max|diag H|, 1), which a pinned
 pose's identity diagonal already reaches (tests/test_torch_graph_gn.py holds
 the exact solve to JAX's padded one).
 
+With a mesh (`parallel.make_mesh`), the solve shards its edges over the dp
+ranks (`gauss_newton_graph(mesh=)`), the two-way edges padded with masked
+ones to a multiple of dp.
+
 Three solves: `solve_GN_rays`, `solve_GN_points` (scale-invariant 3D
 points) and `solve_GN_calib`, which puts the keyframes' points on their pixel
 rays through the intrinsics `K` before the pixel + log-depth solve (the
@@ -32,13 +36,18 @@ from mast3r_slam_torch.frame import Keyframes
 from mast3r_slam_torch.geometry import constrain_points_to_ray
 from mast3r_slam_torch.inference import mast3r_match_symmetric
 from mast3r_slam_torch.ops.gauss_newton import GNParams, gauss_newton_graph
+from mast3r_slam_torch.parallel.mesh import axis_size
 
 
 class FactorGraph:
-    def __init__(self, model, frames: Keyframes, K=None):
+    def __init__(self, model, frames: Keyframes, K=None, mesh=None):
+        """With `mesh` (a `DeviceMesh` with a "dp" axis), the graph solve
+        shards its edge axis over the dp ranks (`gauss_newton_graph`), the
+        two-way edge count padded with masked edges to a multiple of dp."""
         self.model = model
         self.frames = frames
         self.K = K  # [3, 3] intrinsics of the calibrated solve
+        self.mesh = mesh
         self.cfg = get_config().local_opt
         self.device = frames.device
         n = frames.h * frames.w
@@ -182,18 +191,25 @@ class FactorGraph:
         frames = self.frames
         free = torch.zeros(unique.size, dtype=torch.bool, device=dev)
         free[pin:] = True
+        # Under a mesh the edge axis shards over dp: pad it with masked edges
+        # (JAX rounds its bucket up to a multiple of dp the same way).
+        dp = axis_size(self.mesh, "dp")
+        pad = -(2 * e) % dp
+        n = self.n_points
         return dict(
             unique=unique,
             pin=pin,
             Twc=frames.T_WC[sel],
             Xs=frames.X[sel],
             Cs=(frames.C[sel] / torch.clamp(frames.N[sel], min=1.0))[..., 0],
-            ii=torch.as_tensor(ii2, device=dev),
-            jj=torch.as_tensor(jj2, device=dev),
-            idx=torch.cat([self.idx_ii2jj[:e], self.idx_jj2ii[:e]]),
-            valid=torch.cat([self.valid_match_j[:e], self.valid_match_i[:e]]),
-            Q=torch.cat([self.Q_ii2jj[:e], self.Q_jj2ii[:e]]),
-            edge_mask=torch.ones(2 * e, dtype=torch.bool, device=dev),
+            ii=torch.as_tensor(np.pad(ii2, (0, pad)), device=dev),
+            jj=torch.as_tensor(np.pad(jj2, (0, pad)), device=dev),
+            idx=torch.cat([self.idx_ii2jj[:e], self.idx_jj2ii[:e],
+                           self.idx_ii2jj.new_zeros(pad, n)]),
+            valid=torch.cat([self.valid_match_j[:e], self.valid_match_i[:e],
+                             self.valid_match_j.new_zeros(pad, n)]),
+            Q=torch.cat([self.Q_ii2jj[:e], self.Q_jj2ii[:e], self.Q_ii2jj.new_zeros(pad, n)]),
+            edge_mask=torch.arange(2 * e + pad, device=dev) < 2 * e,
             free_mask=free,
         )
 
@@ -222,7 +238,7 @@ class FactorGraph:
             prep["valid"], prep["Q"], prep["edge_mask"], prep["free_mask"], mode=mode,
             K_intr=self.K if mode == "calib" else None, img_size=img_size,
             params=self._params(), variant=self.cfg.solve_variant,
-            point_stride=self.cfg.point_stride,
+            point_stride=self.cfg.point_stride, mesh=self.mesh,
         )
         unique, pin = prep["unique"], prep["pin"]
         self.frames.update_T_WCs(Twc_new[pin:], unique[pin:])

@@ -110,6 +110,72 @@ def params_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
     return out
 
 
+# The weight map backwards (torch -> flax), for files in JAX's own layout
+# (`parallel.trainer`'s checkpoints): each rule undoes one of `_RULES`.
+_INVERSE_RULES: list[tuple[str, object]] = [
+    (r"^patch_embed\.proj\.(.*)$", r"encoder/patch_embed/proj/\1"),
+    (r"^enc_blocks\.(\d+)\.(.*)$", r"encoder/blocks_\1/\2"),
+    (r"^enc_norm\.(.*)$", r"encoder/norm/\1"),
+    (r"^decoder_embed\.(.*)$", r"decoder_embed/\1"),
+    (r"^dec_blocks\.(\d+)\.(.*)$", r"dec_blocks_\1/\2"),
+    (r"^dec_blocks2\.(\d+)\.(.*)$", r"dec_blocks2_\1/\2"),
+    (r"^dec_norm\.(.*)$", r"dec_norm/\1"),
+    (r"^downstream_head([12])\.dpt\.act_postprocess\.(\d+)\.0\.(.*)$",
+     r"head\1/act_postprocess_\2/\3"),
+    (r"^downstream_head([12])\.dpt\.act_postprocess\.(\d+)\.1\.(.*)$", r"head\1/resample_\2/\3"),
+    (r"^downstream_head([12])\.dpt\.scratch\.layer(\d)_rn\.(.*)$",
+     lambda m: f"head{m.group(1)}/layer_rn_{int(m.group(2)) - 1}/{m.group(3)}"),
+    (r"^downstream_head([12])\.dpt\.scratch\.refinenet(\d)\.resConfUnit1\.(.*)$",
+     r"head\1/refine\2/rcu_skip/\3"),
+    (r"^downstream_head([12])\.dpt\.scratch\.refinenet(\d)\.resConfUnit2\.(.*)$",
+     r"head\1/refine\2/rcu_out/\3"),
+    (r"^downstream_head([12])\.dpt\.scratch\.refinenet(\d)\.out_conv\.(.*)$",
+     r"head\1/refine\2/out_conv/\3"),
+    (r"^downstream_head([12])\.dpt\.head\.0\.(.*)$", r"head\1/head_conv1/\2"),
+    (r"^downstream_head([12])\.dpt\.head\.2\.(.*)$", r"head\1/head_conv2/\2"),
+    (r"^downstream_head([12])\.dpt\.head\.4\.(.*)$", r"head\1/head_conv3/\2"),
+    (r"^downstream_head([12])\.proj\.(.*)$", r"head\1/proj/\2"),
+    (r"^downstream_head([12])\.head_local_features\.(.*)$", r"local_head\1/\2"),
+]
+
+
+def flax_path_of(torch_name: str, layer_norm: bool) -> tuple[str, ...]:
+    """The flax parameter path (without "params") of a port parameter:
+    `params_from_flax`'s name map undone. `layer_norm` says whether the
+    owner is a LayerNorm (its weight is flax's ``scale``, else ``kernel``)."""
+    owner, _, leaf = torch_name.rpartition(".")
+    leaf = {"weight": "scale" if layer_norm else "kernel"}.get(leaf, leaf)
+    for pat, repl in _INVERSE_RULES:
+        new, n = re.subn(pat, repl, f"{owner}.{leaf}")
+        if n:
+            head, _, rest = new.rpartition("/")
+            return tuple(head.split("/")) + tuple(rest.split("."))
+    raise KeyError(f"no flax path for {torch_name!r}")
+
+
+def to_flax_layout(torch_name: str, value: np.ndarray) -> np.ndarray:
+    """`_to_torch_layout` undone: a port weight in its flax kernel's layout."""
+    if not torch_name.endswith("weight"):
+        return value
+    if _DENSE_AS_CONV1X1.search(torch_name):
+        return value[..., 0, 0].T
+    if value.ndim == 2:
+        return value.T
+    if value.ndim == 4:
+        return value.transpose(2, 3, 1, 0)
+    return value
+
+
+def flax_order(net: nn.Module) -> list[tuple[str, tuple[str, ...]]]:
+    """(parameter name, flax path) of every parameter of `net`, in the order
+    in which JAX flattens its flax parameter tree (keys sorted at every
+    level), so position i is the leaf JAX calls number i."""
+    norms = {name for name, m in net.named_modules() if isinstance(m, nn.LayerNorm)}
+    pairs = [(name, ("params",) + flax_path_of(name, name.rpartition(".")[0] in norms))
+             for name, _ in net.named_parameters()]
+    return sorted(pairs, key=lambda pair: pair[1])
+
+
 def load_state_dict(net: nn.Module, state: Mapping[str, torch.Tensor], strict: bool = True):
     """Copy `state` into `net`'s parameters (each keeps its device and dtype).
 

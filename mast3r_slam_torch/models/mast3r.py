@@ -121,6 +121,13 @@ class MASt3RNet(MASt3RBackbone):
         d = self.cfg.dec_depth
         return [hooks[i] for i in (0, d * 2 // 4, d * 3 // 4, d)]
 
+    def forward(self, img1, img2):
+        """The two-view forward (JAX ``MASt3RNet.__call__``): each view
+        encoded on its own, then decoded at the images' size -> (out1, out2)."""
+        f1, pos1 = self.encode(img1)
+        f2, pos2 = self.encode(img2)
+        return self.decode(f1, pos1, f2, pos2, tuple(img1.shape[1:3]))
+
     def decode(self, f1, pos1, f2, pos2, out_hw, views=(1, 2)):
         """Cached-feature two-view decode -> one output dict per requested
         view (pts3d [B,H,W,3], conf [B,H,W], desc [B,H,W,24], desc_conf).
@@ -176,7 +183,8 @@ class MASt3RModel:
                precision: str = "bf16", seed: int = 0, head_type: str | None = None,
                device: str | torch.device | None = None,
                cfg: MASt3RConfig | None = None, variant: str = "base",
-               checkpoint: str | None = None, weight_quant: str = "none") -> "MASt3RModel":
+               checkpoint: str | None = None, weight_quant: str = "none",
+               master_weights: bool = False) -> "MASt3RModel":
         """Build a randomly initialized model (seeded torch.Generator) on
         `device` (default: the card; raises without CUDA). ``model_type`` is
         "mast3r_full", "dunemast3r" (of `variant` "small" or "base") or
@@ -184,7 +192,9 @@ class MASt3RModel:
         loaded strictly from that local upstream-named file (`models.io`).
         `weight_quant` ("none" or "int8") quantizes the f32 weights before
         they are cast to the model dtype, as JAX quantizes its f32
-        parameters (see `quantize_weights`)."""
+        parameters (see `quantize_weights`). `master_weights` keeps every
+        parameter f32 and computes in the model dtype from casts at each call
+        (training, `parallel.train`)."""
         dev = resolve_device(device)
         if cfg is None:
             if model_type == "mast3r_full":
@@ -207,7 +217,7 @@ class MASt3RModel:
             load_checkpoint_into(net, checkpoint)
         model = cls(cfg, net.eval(), _canonical_hw(resolution, cfg.patch_size), dev)
         model.quantize_weights(weight_quant)
-        apply_dtype_policy(net, cfg.dtype)
+        apply_dtype_policy(net, cfg.dtype, master_weights)
         return model
 
     @property

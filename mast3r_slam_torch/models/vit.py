@@ -96,8 +96,10 @@ class Attention(nn.Module):
         self.proj = Linear(dim, dim)
 
     def forward(self, x, rope=None):
-        b, s, c = x.shape
-        qkv = self.qkv(x).view(b, s, 3, self.num_heads, c // self.num_heads)
+        b, s, _ = x.shape
+        # The head dim follows from the projection's width, which is this
+        # rank's share of the heads under tensor parallelism (parallel/sharding.py).
+        qkv = self.qkv(x).view(b, s, 3, self.num_heads, -1)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)  # each [B, H, S, hd], no copy
         if rope is not None:
             q = apply_rope(q, *rope).to(v.dtype)

@@ -19,6 +19,14 @@ grid and cluster that follow.
 `flash_attention.launches` counts kernel launches (and nothing else), so a
 run can show that the model went through the kernel; only `_launch` raises
 it, just after a launch that succeeded.
+
+Gradient (training, `parallel.train`). On the card a call that records a
+gradient goes through `_FlashAttention`, a `torch.autograd.Function` whose
+forward is the kernel and whose backward is `attention_backward`: dq, dk and
+dv in plain torch ops, S and P recomputed from q and k in f32. That is the
+counterpart of XLA's VJP of JAX's ``attention_xla``, the route JAX training
+takes (its ViT's key length is below ``FLASH_MIN_KV``, and the Pallas kernel
+has no VJP). A CPU tensor takes `attention_reference` under autograd.
 """
 
 from __future__ import annotations
@@ -45,6 +53,24 @@ def attention_reference(q, k, v, scale: float | None = None) -> torch.Tensor:
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
     p = torch.softmax(s * scale, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def attention_backward(q, k, v, grad_out, scale: float | None = None):
+    """dq, dk, dv of softmax(q kᵀ·scale) v for the cotangent `grad_out`, in
+    plain torch ops: S and P recomputed from q and k in f32, P rounded to q's
+    dtype for the dv product and the cotangent of P rounded to it too, as
+    the forward rounds P (XLA's VJP of ``attention_xla``); the softmax VJP in
+    f32; each gradient rounded once to its input's dtype."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    qf, kf, vf, go = q.float(), k.float(), v.float(), grad_out.float()
+    p = torch.softmax(torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale, dim=-1)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(q.dtype).float(), go)
+    dp = torch.einsum("bhqd,bhkd->bhqk", go, vf).to(q.dtype).float()
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True)) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def roofline(b: int, h: int, sq: int, skv: int, d: int = _HEAD_DIM, itemsize: int = 2):
@@ -137,11 +163,29 @@ def flash_attention(q, k, v, scale: float | None = None) -> torch.Tensor:
     CUDA tensors: the hand-written kernel (bf16, D = 64) with
     `attention_schedule`'s launch, or an error. CPU tensors:
     `attention_reference`. The output of the kernel is laid out [B, Sq, H, D]
-    in memory, so merging the heads after it is a view.
+    in memory, so merging the heads after it is a view. Differentiable: on
+    the card through `_FlashAttention`, on the CPU through autograd.
     """
     if q.device.type == "cpu":
         return attention_reference(q, k, v, scale)
-    return _launch(q, k, v, scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, scale)
+    return _launch(q, k, v, scale)  # no graph to record: the same launch, without autograd
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the kernel (`_launch`). Backward: `attention_backward`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return _launch(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = ctx.saved_tensors
+        return (*attention_backward(q, k, v, grad_out, ctx.scale), None)
 
 
 def _launch(q, k, v, scale: float | None = None, schedule: Schedule | None = None

@@ -405,6 +405,7 @@ def gauss_newton_graph(
     edge_chunk: int | None = None,
     variant: str = "noconcat",
     point_stride: int = 1,
+    mesh=None,
 ):
     """Global Sim(3) pose-graph GN over dense correspondences -> (Twc_new
     [K, 8], final step norm []), in `mode` "rays", "points" or "calib" (the
@@ -416,12 +417,31 @@ def gauss_newton_graph(
     ("base+bf16", "noconcat+bf16") keeps the edge transients in bf16 with
     f32 sums (`_edge_system`); the rest name the f32 sums, where "base" (one
     concatenated [E, 7, 3N] Jacobian) and "noconcat" are the same sums and
-    run the one path here."""
+    run the one path here.
+
+    With `mesh` (a `DeviceMesh` with a "dp" axis; every rank passes the same
+    arguments) the edge axis shards over the dp ranks: each builds the edge
+    blocks of its E/dp edges and assembles its own [K, K, 7, 7] H and [K, 7]
+    g, an all-reduce (sum) over dp gives every rank the whole system, and
+    the pinning, damping and Cholesky run on every rank, as JAX's shard_map
+    does. E must be a multiple of dp (`FactorGraph` pads it)."""
     bf16 = "bf16" in variant.split("+")
     p = params
     K, dtype = Twc.shape[0], Twc.dtype
     if point_stride < 1:
         raise ValueError(f"point_stride must be >= 1, got {point_stride}")
+    group = None
+    if mesh is not None:
+        from mast3r_slam_torch.parallel.mesh import axis_rank, axis_size
+
+        n_dp, r = axis_size(mesh, "dp"), axis_rank(mesh, "dp")
+        E = ii.shape[0]
+        if E % n_dp:
+            raise ValueError(f"edge count {E} not divisible by dp axis {n_dp}")
+        mine = slice(r * (E // n_dp), (r + 1) * (E // n_dp))
+        ii, jj, idx_ii2jj, valid_match, Q, edge_mask = (
+            t[mine] for t in (ii, jj, idx_ii2jj, valid_match, Q, edge_mask))
+        group = mesh.get_group("dp")
     ii, jj, idx_ii2jj = ii.long(), jj.long(), idx_ii2jj.long()
     sub = None
     if point_stride > 1:
@@ -447,6 +467,9 @@ def gauss_newton_graph(
         S, b = _edge_blocks(Twc_cur, Xi_t, Xj_t, ii, jj, weight_mask, Q, chunk, mode, K_intr,
                             img_size, p, bf16)
         H, g = _assemble_Hg(K, ii, jj, S, b, dtype)
+        if group is not None:
+            torch.distributed.all_reduce(H, group=group)
+            torch.distributed.all_reduce(g, group=group)
         H = H * freeF[:, None, None, None] * freeF[None, :, None, None] + pin_diag
         g = g * freeF[:, None]
         H_flat = H.permute(0, 2, 1, 3).reshape(7 * K, 7 * K)

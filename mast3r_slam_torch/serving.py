@@ -30,8 +30,15 @@ takes), and the tracking core gathers the payload and scatters the hit
 mask itself. Keyframe promotion is the caller's decision, from the flags
 that `resolve_stats` returns (`update_keyframes` takes any subset).
 
-Multi-card serving (JAX's ``mesh`` argument) is not ported: one card
-(ROADMAP queue 1 item 1).
+Multi-card serving (``mesh``, a ("dp", "tp") `DeviceMesh` of
+`parallel.make_mesh`). As in JAX, the caller passes the global batch to every
+rank and every rank gets the global results back. Each dp group tracks its
+B/dp streams (rows [r·B/dp, (r+1)·B/dp) of every state tensor, `state`), and
+each step gathers the statistics and poses of every stream over dp (an
+all-gather, `parallel.mesh.all_gather`: no host read). With tp > 1 the model's weights are split Megatron-style over the tp
+group, in place (`parallel.sharding.shard_params`), and every tp rank runs
+the same step on its share of the heads. `global_state` gathers the whole
+state.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from mast3r_slam_torch.config import get_config
 from mast3r_slam_torch.frame import fuse_pointmap_masked
 from mast3r_slam_torch.lie import core as lie
 from mast3r_slam_torch.matching import match
+from mast3r_slam_torch.parallel.mesh import all_gather, axis_rank, axis_size
 from mast3r_slam_torch.tracker import _rays_cfg_key, _to_unit_image, _track_core_rays
 
 
@@ -126,21 +134,42 @@ class BatchTracker:
     the CPU with a model created there."""
 
     def __init__(self, model, mesh=None, microbatch: Optional[int] = None):
-        """`microbatch` (default `runtime.serving_microbatch`) bounds the
+        """With `mesh` (a `DeviceMesh` with a "dp" axis, and optionally
+        "tp"), the streams shard over the dp ranks, B/dp each, and B must be
+        a multiple of dp; a tp axis > 1 splits the model's weights in place
+        over the tp ranks (1/tp of the ViT per rank, one all-reduce after
+        every row-parallel layer). Every rank of the mesh makes the same
+        calls with the same global arguments.
+
+        `microbatch` (default `runtime.serving_microbatch`) bounds the
         activation working set: the batch runs as a loop over chunks of this
-        size (0: one flat pass)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-card serving (mesh) is not ported yet (ROADMAP queue 1 item 1)")
+        size (0: one flat pass). Under a mesh it counts global streams, as in
+        JAX: each rank's chunk is microbatch/dp, and a microbatch that dp
+        does not divide raises where the caller passed it and runs flat where
+        it is the config's default."""
         cfg = get_config()
         self.model = model
         self.device = model.device
         self.cfg = cfg.tracking
-        self.mesh = None
-        self.microbatch = cfg.runtime.serving_microbatch if microbatch is None else microbatch
+        self.mesh = mesh
+        self.dp = axis_size(mesh, "dp")
+        explicit = microbatch is not None
+        microbatch = cfg.runtime.serving_microbatch if microbatch is None else microbatch
+        if mesh is not None and microbatch and microbatch % self.dp:
+            if explicit:
+                raise ValueError(f"serving microbatch {microbatch} not divisible by dp axis "
+                                 f"{self.dp}")
+            microbatch = 0  # the config's default does not tile the mesh: run flat
+        self.microbatch = microbatch
         self.scan_unroll = cfg.runtime.serving_scan_unroll  # no effect in eager PyTorch
+        if axis_size(mesh, "tp") > 1:
+            from mast3r_slam_torch.parallel.sharding import shard_params
+
+            shard_params(model.net, mesh)
         self._step = make_batch_step(model, self.cfg, self.cfg.filtering_mode)
-        self.state: Optional[BatchState] = None
+        self.state: Optional[BatchState] = None  # this rank's rows
+        self.rows = slice(0, 0)  # the global rows of `state`
+        self.poses: Optional[torch.Tensor] = None  # [B, 8] every stream's current pose
         # Which slots hold live streams. Inactive slots still ride the batch
         # (a lockstep batch cannot skip lanes); their flags are masked out
         # and `open_slot` re-initialises them.
@@ -154,10 +183,32 @@ class BatchTracker:
     def _dev(self, x) -> torch.Tensor:
         return torch.as_tensor(x).to(self.device)
 
+    def _local(self, x) -> torch.Tensor:
+        """This rank's rows of a global [B, ...] argument, on the device."""
+        return self._dev(x[self.rows] if self.dp > 1 else x)
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, ...] from every dp rank's rows (a no-op without dp)."""
+        if self.dp == 1:
+            return x
+        return all_gather(x, self.mesh.get_group("dp"))
+
+    def global_state(self) -> BatchState:
+        """The state of every stream, gathered over dp (collective)."""
+        s = self._require_state("global_state")
+        return BatchState(**{f.name: self._gather(getattr(s, f.name))
+                             for f in dataclasses.fields(BatchState)})
+
     def init_from_keyframes(self, feats, poss, Xs, Cs) -> None:
         """Start B streams from their first keyframes: feats [B, S, D], poss
         [B, S, 2], Xs [B, N, 3], Cs [B, N, 1] (mono pointmaps)."""
-        feats, poss, Xs, Cs = (self._dev(a) for a in (feats, poss, Xs, Cs))
+        B = feats.shape[0]
+        if B % self.dp:
+            raise ValueError(f"batch {B} not divisible by dp axis {self.dp}")
+        bl = B // self.dp
+        lo = axis_rank(self.mesh, "dp") * bl
+        self.rows = slice(lo, lo + bl)
+        feats, poss, Xs, Cs = (self._local(a) for a in (feats, poss, Xs, Cs))
         b, n = feats.shape[0], Xs.shape[1]
         ident = lie.sim3_identity((b,), device=self.device)
         zeros = dict(dtype=torch.float32, device=self.device)
@@ -166,13 +217,14 @@ class BatchTracker:
             kf_T=ident, fr_X=torch.zeros(b, n, 3, **zeros), fr_C=torch.zeros(b, n, 1, **zeros),
             fr_N=torch.zeros(b, **zeros), T_WC=ident.clone(),
         )
-        self.active = np.ones((b,), bool)
+        self.poses = lie.sim3_identity((B,), device=self.device)
+        self.active = np.ones((B,), bool)
 
     def _run(self, feats: torch.Tensor, poss: torch.Tensor) -> torch.Tensor:
         """The batch step over the chunks of `runtime.serving_microbatch`, in
         order; updates the state and returns the stats [B, 5] on the device."""
         s = self.state
-        b, mb = feats.shape[0], self.microbatch
+        b, mb = feats.shape[0], self.microbatch // self.dp
         args = (feats, poss, s.kf_feat, s.kf_pos, s.kf_X, s.kf_C, s.kf_N, s.T_WC, s.kf_T)
         if mb <= 0 or mb >= b or b % mb:
             with record_function("serving.chunk"):
@@ -184,7 +236,12 @@ class BatchTracker:
                     chunks.append(self._step(*(a[c0:c0 + mb] for a in args)))
             out = {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}
         self.state = dataclasses.replace(s, **{k: out[k] for k in _STEP_STATE})
-        return out["stats"]
+        if self.dp == 1:
+            self.poses = out["T_WC"]
+            return out["stats"]
+        both = self._gather(torch.cat([out["stats"], out["T_WC"]], dim=-1))
+        self.poses = both[:, 5:]
+        return both[:, :5]
 
     def step_async(self, feats, poss) -> torch.Tensor:
         """Track one new frame per stream from its encoder tokens (feats [B,
@@ -192,7 +249,7 @@ class BatchTracker:
         stats [B, 5] on the device, for `resolve_stats` whenever the caller
         likes (after later steps they still describe their own frame)."""
         self._require_state("step_async")
-        return self._run(self._dev(feats), self._dev(poss))
+        return self._run(self._local(feats), self._local(poss))
 
     def step_images_async(self, imgs) -> torch.Tensor:
         """`step_async` from raw images [B, H, W, 3] (uint8, or float in [0,
@@ -201,7 +258,7 @@ class BatchTracker:
         need the microbatch bound)."""
         self._require_state("step_images_async")
         with record_function("serving.encode"):
-            x = _to_unit_image(imgs, self.device)
+            x = _to_unit_image(imgs[self.rows] if self.dp > 1 else imgs, self.device)
             feats, poss = self.model.encode(x * 2.0 - 1.0)
         return self._run(feats, poss)
 
@@ -217,7 +274,7 @@ class BatchTracker:
         new_kf = tracked & (np.minimum(stats[:, 1], stats[:, 2]) < self.cfg.match_frac_thresh)
         tracked &= self.active
         new_kf &= self.active
-        return dict(poses=self.state.T_WC, match_frac=match_frac, new_kf=new_kf,
+        return dict(poses=self.poses, match_frac=match_frac, new_kf=new_kf,
                     tracked=tracked, active=self.active.copy())
 
     def step(self, feats, poss) -> dict:
@@ -230,15 +287,19 @@ class BatchTracker:
         lanes, so a join leaves the other streams' results as they were."""
         s = self._require_state("open_slot")
         ident = lie.sim3_identity(device=self.device)
-        self.state = BatchState(
-            kf_feat=_set_rows(s.kf_feat, i, self._dev(feat)),
-            kf_pos=_set_rows(s.kf_pos, i, self._dev(pos)),
-            kf_X=_set_rows(s.kf_X, i, self._dev(X)), kf_C=_set_rows(s.kf_C, i, self._dev(C)),
-            kf_N=_set_rows(s.kf_N, i, 1.0), kf_T=_set_rows(s.kf_T, i, ident),
-            fr_X=_set_rows(s.fr_X, i, 0.0), fr_C=_set_rows(s.fr_C, i, 0.0),
-            fr_N=_set_rows(s.fr_N, i, 0.0), T_WC=_set_rows(s.T_WC, i, ident),
-        )
+        self.poses = _set_rows(self.poses, i, ident)
         self.active[i] = True
+        if not self.rows.start <= i < self.rows.stop:
+            return  # another dp rank holds the stream
+        j = i - self.rows.start
+        self.state = BatchState(
+            kf_feat=_set_rows(s.kf_feat, j, self._dev(feat)),
+            kf_pos=_set_rows(s.kf_pos, j, self._dev(pos)),
+            kf_X=_set_rows(s.kf_X, j, self._dev(X)), kf_C=_set_rows(s.kf_C, j, self._dev(C)),
+            kf_N=_set_rows(s.kf_N, j, 1.0), kf_T=_set_rows(s.kf_T, j, ident),
+            fr_X=_set_rows(s.fr_X, j, 0.0), fr_C=_set_rows(s.fr_C, j, 0.0),
+            fr_N=_set_rows(s.fr_N, j, 0.0), T_WC=_set_rows(s.T_WC, j, ident),
+        )
 
     def close_slot(self, i: int) -> np.ndarray:
         """Retire the stream in slot `i` and return its final Sim(3) pose [8].
@@ -246,14 +307,20 @@ class BatchTracker:
         it."""
         self._require_state("close_slot")
         self.active[i] = False
-        return self.state.T_WC[i].cpu().numpy()
+        return self.poses[i].cpu().numpy()
 
     def update_keyframes(self, seq_ids, feats, poss, Xs, Cs) -> None:
         """Promote the current frames of streams `seq_ids` (a list of slot
         indices) to keyframes, from the new keyframes' [K, ...] tokens,
         positions and mono pointmaps."""
         s = self._require_state("update_keyframes")
-        ids = torch.as_tensor(np.asarray(seq_ids), dtype=torch.int64, device=self.device)
+        seq_ids = np.asarray(seq_ids, np.int64)
+        mine = (seq_ids >= self.rows.start) & (seq_ids < self.rows.stop)
+        if not mine.any():
+            return  # every promoted stream is another dp rank's
+        if not mine.all():
+            feats, poss, Xs, Cs = (a[np.flatnonzero(mine)] for a in (feats, poss, Xs, Cs))
+        ids = torch.as_tensor(seq_ids[mine] - self.rows.start, device=self.device)
         self.state = dataclasses.replace(
             s,
             kf_feat=_set_rows(s.kf_feat, ids, self._dev(feats)),

@@ -56,6 +56,21 @@ def test_slam_and_probe_cases_without_device_raise(no_cuda):
             case()
 
 
+def test_parallel_entry_points_without_device_raise(no_cuda, tmp_path):
+    import torch.distributed as dist
+
+    from mast3r_slam_torch.parallel import multihost
+    from mast3r_slam_torch.parallel.mesh import init_distributed, spawn
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_distributed(0, 1, f"file://{tmp_path / 'a'}")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        multihost.initialize(f"file://{tmp_path / 'b'}", 1, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        spawn(print, 1, workdir=str(tmp_path / "ranks"))
+    assert not dist.is_initialized()
+
+
 def test_frame_tracker_rejects_calib_and_untracked_use(monkeypatch):
     """A calibrated tracker builds on the CPU when asked for it (its
     calibrated step waits for intrinsics in an arena) and, like any tracker,
@@ -79,7 +94,8 @@ def test_port_imports_no_jax():
     """Run the CPU slice once in a fresh interpreter, then an ASMK fit and
     query and an iterative match, then the Lie classes, the pair selection
     of offline reconstruction and the slice again with int8 weights and the
-    speculative window decode; then neither jax nor mast3r_slam_tpu may be in
+    speculative window decode, then a training loss and its gradient through
+    `parallel` and its trainer; then neither jax nor mast3r_slam_tpu may be in
     sys.modules."""
     code = textwrap.dedent("""
         import sys
@@ -129,6 +145,15 @@ def test_port_imports_no_jax():
         tracker.init_keyframe(rng.uniform(0, 1, (48, 64, 3)).astype(np.float32))
         out = tracker.track_window(rng.uniform(0, 1, (2, 48, 64, 3)).astype(np.float32))
         assert bool(torch.isfinite(out["T_WCf"]).all())
+
+        import mast3r_slam_torch.parallel
+        from mast3r_slam_torch.parallel import multihost, pipeline, sequence, sharding  # noqa
+        from mast3r_slam_torch.parallel import train, trainer
+        batch = trainer.synthetic_pair_batch(rng, 1, 48, 64, 4)
+        tiny = trainer.trainer_model(0, device="cpu")
+        loss, _ = train.mast3r_loss(tiny.net, batch)
+        loss.backward()
+        assert bool(torch.isfinite(loss)) and tiny.net.enc_blocks[0].attn.qkv.weight.grad is not None
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "mast3r_slam_tpu"))
         print("FOREIGN", bad)

@@ -275,36 +275,36 @@ def test_serving_and_run_utils_import_no_jax(tmp_path):
     assert "FOREIGN []" in proc.stdout
 
 
-def _queue1_items() -> dict[int, str]:
-    text = open(os.path.join(REPO, "ROADMAP.md")).read()
-    queue = text[text.index("### Queue 1"):text.index("### Queue 2")]
-    parts = re.split(r"^(\d+)\. ", queue, flags=re.M)
-    return {int(parts[i]): parts[i + 1] for i in range(1, len(parts) - 1, 2)}
+def test_not_ported_messages_name_current_roadmap_items(tmp_path):
+    """The port has no `NotImplementedError` that names a ROADMAP item (the
+    last, `BatchTracker(mesh=...)`'s, went with `parallel/`): the mesh
+    constructs, on a 1-rank gloo mesh on the CPU. `SLAM` raises on no config
+    value: it constructs with `runtime.weight_quant: int8` (and quantizes its
+    model) and with `runtime.viewer_port` set, which raised until they were
+    ported."""
+    import torch.distributed as dist
 
-
-def test_not_ported_messages_name_current_roadmap_items():
-    """Every "ROADMAP queue 1 item N" in the port names an item of queue 1
-    as ROADMAP.md numbers it now, and the raise that remains,
-    `BatchTracker(mesh=...)`, names the item of what it raises on
-    (`parallel/`). `SLAM` raises on no config value: it constructs with
-    `runtime.weight_quant: int8` (and quantizes its model) and with
-    `runtime.viewer_port` set, which raised until they were ported."""
     from mast3r_slam_torch import config as torch_config
     from mast3r_slam_torch.models import MASt3RModel
+    from mast3r_slam_torch.parallel.mesh import init_distributed, make_mesh
     from mast3r_slam_torch.serving import BatchTracker
     from mast3r_slam_torch.slam import SLAM
 
-    items = _queue1_items()
-    assert sorted(items) == list(range(1, len(items) + 1))
-    cited = set()
     for root, _dirs, files in os.walk(os.path.join(REPO, "mast3r_slam_torch")):
         for name in files:
             if name.endswith(".py"):
                 src = open(os.path.join(root, name)).read()
-                cited |= {int(n) for n in re.findall(r"queue 1 item (\d+)", src)}
-    assert cited and cited <= set(items)
+                raises = re.findall(r"raise NotImplementedError\((.*?)\)\s*$", src, re.S | re.M)
+                assert not re.findall(r"ROADMAP|queue \d", " ".join(raises)), (name, raises)
+                assert not re.findall(r"queue 1 item \d", src), name
 
     model = MASt3RModel.create(model_type="tiny", resolution=64, device="cpu")
+    init_distributed(0, 1, f"file://{tmp_path / 'init'}", device="cpu")
+    try:
+        bt = BatchTracker(model, mesh=make_mesh())
+        assert bt.dp == 1 and bt.mesh.mesh_dim_names == ("dp", "tp")
+    finally:
+        dist.destroy_process_group()
     for key, value in (("weight_quant", "int8"), ("viewer_port", _free_port())):
         torch_config.set_config(torch_config.Config.from_dict({"runtime": {key: value}}))
         try:
@@ -313,7 +313,3 @@ def test_not_ported_messages_name_current_roadmap_items():
             torch_config.reset_config()
         assert slam.model is model
     assert model._quant_mode == "int8"
-    with pytest.raises(NotImplementedError) as e:
-        BatchTracker(model, mesh=object())
-    n = int(re.search(r"ROADMAP queue 1 item (\d+)", str(e.value)).group(1))
-    assert "parallel/" in items[n], (str(e.value), items[n][:80])
