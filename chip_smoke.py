@@ -7,12 +7,16 @@ With --parent, DIR is a checkout of another commit of this repository (for
 example the parent commit, unpacked with `git archive` into a directory that
 .gitignore lists): its attention and roll kernels are built from DIR's
 sources and timed by this script's code, in a process of their own, once
-before phase 3 and once after phase 4; the mean of the two is printed as
-`prev_ms` beside this checkout's `ms` (null without --parent).
+before phase 3 and once after phase 4 (attention at the path shapes of 768,
+640 and 432 tokens and phase 16's sp q shards, where the split rule
+decides the launch); the mean of the two is printed as `prev_ms` beside
+this checkout's `ms` (null without --parent). This checkout's kernels are
+timed the same way in between (parent, this, this, parent), as `ab_ms`.
 
 Phases, in order; any failure exits non-zero before the result line:
   1. card    - needs CUDA; prints the card's name and power limit (nvidia-smi).
-  2. build   - builds every kernel in mast3r_slam_torch/csrc with nvcc and the
+  2. build   - builds every kernel in mast3r_slam_torch/csrc (the attention
+               forward and backward, the lane shifts) with nvcc and the
                host preprocessing library with g++, one process per source,
                all at once.
   3. kernels - holds the attention kernel against its plain PyTorch version at
@@ -23,7 +27,10 @@ Phases, in order; any failure exits non-zero before the result line:
                with CUDA events over a dependent chain of launches; then at
                the edges of its schedule (Sq {1, 65, 200} x Skv {1, 77, 129,
                768} at every launch the kernel takes, B*H = 72 on fused-qkv
-               strides), and bit-equal to itself when a call is repeated.
+               strides; each forced launch again with the row statistics
+               lse that training's forward writes: output torch.equal, lse
+               within 1e-5 of the plain log-sum-exp), and bit-equal to
+               itself when a call is repeated.
   4. probe   - the probe entry point (mast3r_slam_torch.probe_shift): each of
                its six cases once on the card with the script's inputs, the
                launch counts by kernel symbol set to 0 just before the case
@@ -169,14 +176,20 @@ Phases, in order; any failure exits non-zero before the result line:
                the parallel paths add (per-rank heads at tp 2 and 4, the sp q
                shards of 384 and 192 rows against 768 keys, training's batch
                of 2 pairs) and its gradient (the autograd.Function: the
-               kernel forward, the plain backward) held to f32 autograd
-               within 2e-2 of each gradient's largest, forward + backward
-               timed beside SDPA's; a world-1 NCCL rank: BatchTracker and the
+               kernel forward with lse, the backward kernels of
+               csrc/flash_attention_bwd.cu) at training's three shapes and
+               two ragged ones (432 tokens; cross 640 x 432): lse within
+               1e-5 of the plain log-sum-exp, dq/dk/dv within 1e-2 of the
+               plain attention_backward and 2e-2 of f32 autograd (of each
+               gradient's largest), a repeated backward bit-equal; the
+               backward, the plain backward, SDPA's backward and both
+               forward + backward timed (CUDA graphs); a world-1 NCCL rank: BatchTracker and the
                graph solve through a (1, 1) mesh (the reference of the next
                group), pp = sp = 1 torch.equal to the unsharded encode, the
                multihost layer, 3 AdamW steps of mast3r_full at 512x384
                (bf16 compute, f32 master weights, 2 pairs, m 16) through
-               train_loop (ms/step, peak memory, launches), step 3 resumed
+               train_loop (ms/step, peak memory, forward launches and the
+               backward's dq and dk/dv launches, 96 each a step), step 3 resumed
                from that run's step-2 file (JAX's layout, uncompressed) within
                1e-5, and one step at 2 + 2 blocks of mast3r_full's widths with
                its gradients card vs CPU; then 2 gloo ranks on the one card
@@ -211,6 +224,7 @@ sys.path.insert(0, REPO)
 WINDOW = 8
 PROMOTION_FRAMES = 4
 ATTN_ATOL = 3e-2  # bf16 in/out, P rounded to bf16: ~2^-8 relative on |o| <~ 3
+LSE_ATOL = 1e-5  # the forward's lse vs attention_lse_reference: ~10 f32 ulps at |lse| ~ 10
 SLAM_FRAMES = (16, 6)  # runs (i) and (ii) of the slam phase
 SLAM_CAPACITY = 8  # the keyframe arena of run (i)
 BACKEND_PAIRS = 3  # SLAM._run_backend matches a new keyframe with up to three before it
@@ -314,6 +328,23 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def _replay_ms(graph, calls: int, reps: int) -> float:
+    """Device ms per call of a captured graph of `calls` calls, replayed
+    `reps` times between CUDA events (after one replay not timed)."""
+    import torch
+
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * calls)
+
+
 def time_graph(fn, x, iters: int = 20, reps: int = 10) -> float:
     """Device ms per call of x -> fn(x), each call consuming the previous
     output: `iters` chained calls captured in one CUDA graph and replayed
@@ -331,16 +362,25 @@ def time_graph(fn, x, iters: int = 20, reps: int = 10) -> float:
         y = x
         for _ in range(iters):
             y = fn(y)
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / (reps * iters)
+    return _replay_ms(graph, iters, reps)
+
+
+def time_graph_calls(fn, iters: int = 10, reps: int = 5) -> float:
+    """Device ms per call of fn() (autograd's backward included, where fn
+    runs one), captured and replayed as in `time_graph`, unchained."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    return _replay_ms(graph, iters, reps)
 
 
 def time_cold(fn, xs, reps: int = 10) -> float:
@@ -359,17 +399,9 @@ def time_cold(fn, xs, reps: int = 10) -> float:
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         outs = [fn(x) for x in xs]  # kept alive: every call has its own output
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    end.synchronize()
+    ms = _replay_ms(graph, len(xs), reps)
     del outs
-    return start.elapsed_time(end) / (reps * len(xs))
+    return ms
 
 
 def time_eager(fn, x, iters: int = 50) -> float:
@@ -465,13 +497,20 @@ def attention_edge_checks(gen) -> dict:
     own launch; and the decoder's self-attention call under its own launch
     and at the most splits of each ring, each repeated three times and
     torch.equal to its first result (the merge of a split key range must not
-    depend on scheduling)."""
+    depend on scheduling). Every forced launch is made again with the row
+    statistics (training's forward): the output torch.equal to the launch
+    without them, lse within LSE_ATOL of `attention_lse_reference` (rank 0's
+    merged statistics under a split, each CTA's own unsplit)."""
     import torch
 
-    from mast3r_slam_torch.ops.attention import (BLOCK_K, RINGS, _launch, attention_reference,
-                                                 attention_schedule, make_schedule)
+    from mast3r_slam_torch.ops.attention import (BLOCK_K, RINGS, _launch, attention_lse_reference,
+                                                 attention_reference, attention_schedule,
+                                                 make_schedule)
+
+    lse_worst = 0.0
 
     def held(q, k, v, schedule, what) -> float:
+        nonlocal lse_worst
         out = _launch(q, k, v, schedule=schedule)
         torch.cuda.synchronize()
         ref = attention_reference(q.float(), k.float(), v.float())
@@ -479,6 +518,12 @@ def attention_edge_checks(gen) -> dict:
               f"{what}: shape {tuple(out.shape)} or non-finite output")
         err = (out.float() - ref).abs().max().item()
         check(err <= ATTN_ATOL, f"{what}: max |kernel - plain| = {err:.3e} > {ATTN_ATOL}")
+        if schedule is not None:
+            out_lse, lse = _launch(q, k, v, schedule=schedule, return_lse=True)
+            lse_err = (lse - attention_lse_reference(q, k)).abs().max().item()
+            check(torch.equal(out_lse, out), f"{what}: the output differs when lse is written")
+            check(lse_err <= LSE_ATOL, f"{what}: max |lse - plain| = {lse_err:.3e} > {LSE_ATOL}")
+            lse_worst = max(lse_worst, lse_err)
         return err
 
     worst, calls = 0.0, 0
@@ -504,9 +549,10 @@ def attention_edge_checks(gen) -> dict:
                   f"decoder self {schedule}: a repeated call differs")
     launches = [(sc.splits, sc.stages) for sc in repeated]
     print(f"[kernel] flash_attention edges: {calls} calls within {ATTN_ATOL} of the plain "
-          f"version (max_abs_err {worst:.3e}); (splits, stages) {launches} bit-equal when "
+          f"version (max_abs_err {worst:.3e}); with lse written, outputs torch.equal and lse "
+          f"within {lse_worst:.3e} (band {LSE_ATOL}); (splits, stages) {launches} bit-equal when "
           f"repeated", flush=True)
-    return dict(calls=calls, max_abs_err=worst, repeated=launches)
+    return dict(calls=calls, max_abs_err=worst, lse_err=lse_worst, repeated=launches)
 
 
 def kernel_phase(model_cfg) -> dict:
@@ -2800,6 +2846,18 @@ def solve_bf16_phase() -> dict:
 PAR_B, PAR_MB, PAR_STEPS = 8, 4, 2  # parallel serving: streams, microbatch, feature-fed steps
 TRAIN_PAIRS, TRAIN_M, TRAIN_STEPS = 2, 16, 3  # full-width training: pairs, correspondences
 GRAD_REL = 2e-2  # attention gradient vs f32, of max|grad| (tests/test_torch_train.py's bf16 band)
+# The backward kernels against the plain `attention_backward`, of max|grad|: the same function,
+# with f32 sums in another order and ex2.approx, so a bf16 rounding of P, dP or dS (2^-8
+# relative) can land on the other side: a few bf16 ulps of the largest gradient.
+BWD_PLAIN_REL = 1e-2
+GRAD_CASES = [  # (name, B, Sq, Skv, fused qkv, the encoder's heads or the decoder's): training's
+    # three shapes, then ragged key and q tails (432, 640 tokens) and cross attention, Sq != Skv
+    ("training encoder", TRAIN_PAIRS, 768, 768, True, True),
+    ("training decoder self", TRAIN_PAIRS, 768, 768, True, False),
+    ("training decoder cross", TRAIN_PAIRS, 768, 768, False, False),
+    ("ragged self 432", TRAIN_PAIRS, 432, 432, True, False),
+    ("ragged cross 640 x 432", TRAIN_PAIRS, 640, 432, False, False),
+]
 RESUME_RTOL = 1e-5  # step 3's loss resumed from the straight run's step-2 file vs straight
 # (and the restored parameters and AdamW state bit-equal to that run's own step-2 state)
 CARD_CPU_HW = (192, 256)  # images of the 2 + 2 block gradient check
@@ -2829,55 +2887,90 @@ def parallel_attention_cases(c) -> list:
     return cases
 
 
-def attention_grad_row(name, b, h, s, fused, gen, iters: int = 10) -> dict:
-    """The kernel's autograd.Function (forward: the kernel; backward:
-    `attention_backward`) held to autograd through `attention_reference` on
-    f32 copies, within GRAD_REL of each gradient's largest magnitude; then
-    forward + backward timed with CUDA events over an eager chain, beside
-    SDPA's forward + backward and the bound (q, k, v, dO read and o, dq, dk,
-    dv written once; the backward's 2.5x the forward's flops)."""
+def sdpa_backward_call(q, k, v, do):
+    """One PyTorch call that computes SDPA's backward alone (FlashAttention-2's
+    backward, the op SDPA's autograd calls) on the outputs of its forward op,
+    as a yardstick for the backward kernels; the port never calls it."""
+    import torch
+
+    fwd = torch.ops.aten._scaled_dot_product_flash_attention(q, k, v)
+    out, lse, cum_q, cum_k, max_q, max_k, seed, offset = fwd[:8]
+    bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
+    return lambda: bwd(do, q, k, v, out, lse, cum_q, cum_k, max_q, max_k, 0.0, False, seed, offset)
+
+
+def attention_grad_row(name, b, h, sq, skv, fused, gen, iters: int = 10) -> dict:
+    """The kernel's autograd.Function (forward: the kernel with its row
+    statistics; backward: the kernels of csrc/flash_attention_bwd.cu) at one
+    shape: lse within LSE_ATOL of `attention_lse_reference`; the backward
+    kernels' dq, dk, dv finite, within BWD_PLAIN_REL of the plain
+    `attention_backward` on the same q, k, v, o, lse and dO, within GRAD_REL
+    of autograd through `attention_reference` on f32 copies (each of the
+    gradient's largest magnitude), and bit-equal when the backward is
+    repeated. Then device times from CUDA graphs between CUDA events: the
+    backward kernels alone, the plain backward, SDPA's backward alone,
+    forward + backward through autograd of both; the bounds of the backward
+    and of forward + backward (3.5x the forward's flops; q, k, v, dO read
+    and o, dq, dk, dv written once). `launch_key` is the key under which
+    `flash_attention_backward.launches_by_shape` counts this shape's
+    launches."""
     import torch
     import torch.nn.functional as F
 
-    from mast3r_slam_torch.ops.attention import (_BF16_FLOPS_PER_S, _HBM_BYTES_PER_S,
-                                                 attention_reference, flash_attention)
+    from mast3r_slam_torch.ops.attention import (BACKWARD_WORK, _launch, attention_backward,
+                                                 attention_lse_reference, attention_reference,
+                                                 backward_launch_key, flash_attention,
+                                                 flash_attention_backward, roofline)
 
-    q, k, v = (t.detach().requires_grad_(True) for t in attention_inputs(b, h, s, s, fused, gen))
-    do = torch.randn(b, h, s, 64, device="cuda", dtype=torch.bfloat16, generator=gen)
-    flash_attention(q, k, v).backward(do)
-    ref = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    q, k, v = (t.detach().requires_grad_(True) for t in attention_inputs(b, h, sq, skv, fused, gen))
+    do = torch.randn(b, sq, h, 64, device="cuda", dtype=torch.bfloat16, generator=gen).transpose(1, 2)
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    o, lse = _launch(qd, kd, vd, return_lse=True)
+    lse_err = (lse - attention_lse_reference(qd, kd)).abs().max().item()
+    check(lse_err <= LSE_ATOL, f"{name}: max |lse - plain| {lse_err:.3e} > {LSE_ATOL}")
+    got = flash_attention_backward(qd, kd, vd, o, lse, do)
+    again = flash_attention_backward(qd, kd, vd, o, lse, do)
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(g).all()) for g in got), f"{name}: non-finite gradient")
+    check(all(torch.equal(a, c) for a, c in zip(got, again)), f"{name}: a repeated backward differs")
+    plain = attention_backward(qd, kd, vd, o, lse, do)
+    ref = [t.float().requires_grad_(True) for t in (qd, kd, vd)]
     attention_reference(*ref).backward(do.float())
-    gaps = [((t.grad.float() - r.grad).abs().max() / r.grad.abs().max()).item()
-            for t, r in zip((q, k, v), ref)]
-    check(all(torch.isfinite(t.grad).all() for t in (q, k, v)), f"{name}: non-finite gradient")
+
+    def rel(a, want):
+        return ((a.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+    plain_gaps = [rel(g, p) for g, p in zip(got, plain)]
+    max_err = max((g.float() - p.float()).abs().max().item() for g, p in zip(got, plain))
+    gaps = [rel(g, r.grad) for g, r in zip(got, ref)]
+    check(max(plain_gaps) <= BWD_PLAIN_REL,
+          f"{name}: backward kernels vs plain {plain_gaps} > {BWD_PLAIN_REL} of max|grad|")
     check(max(gaps) <= GRAD_REL, f"{name}: gradient gap {gaps} > {GRAD_REL} of max|grad|")
+    flash_attention(q, k, v).backward(do)  # through autograd, as training takes it
+    auto_gaps = [rel(t.grad, r.grad) for t, r in zip((q, k, v), ref)]
+    check(max(auto_gaps) <= GRAD_REL, f"{name}: autograd gradient gap {auto_gaps} > {GRAD_REL}")
 
-    def fwd_bwd(fn) -> float:
-        for _ in range(3):
-            fn(q, k, v).backward(do)
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn(q, k, v).backward(do)
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / iters
-
-    with torch.no_grad():
-        t_fwd = time_eager(lambda x: flash_attention(x, k, v), q.detach())
-    t_ours = fwd_bwd(flash_attention)
-    t_sdpa = fwd_bwd(F.scaled_dot_product_attention)
-    flops = 3.5 * 4.0 * b * h * s * s * 64
-    nbytes = 2 * 8 * b * h * s * 64
-    bound = 1e3 * max(flops / _BF16_FLOPS_PER_S, nbytes / _HBM_BYTES_PER_S)
-    print(f"[parallel] attention gradient {name} {[b, h, s, s, 64]}: max |grad - f32| / max|grad| "
-          f"q {gaps[0]:.3e} k {gaps[1]:.3e} v {gaps[2]:.3e} (band {GRAD_REL}); fwd+bwd ms: kernel + "
-          f"plain backward {t_ours:.4f}, sdpa {t_sdpa:.4f}, bound {bound:.4f} (operations), "
-          f"{bound / t_ours:.1%} of bound; eager forward alone {t_fwd:.4f}", flush=True)
-    return dict(case=name, shape=[b, h, s, s, 64], grad_rel_err=gaps, fwd_bwd_ms=t_ours,
-                sdpa_fwd_bwd_ms=t_sdpa, bound_ms=bound, bound_by="operations",
-                eager_fwd_ms=t_fwd)
+    t_bwd = time_graph(lambda x: flash_attention_backward(qd, kd, vd, o, lse, x)[0], do)
+    t_plain = time_graph(lambda x: attention_backward(qd, kd, vd, o, lse, x)[0], do)
+    t_lib = time_graph_calls(sdpa_backward_call(qd, kd, vd, do))
+    t_fb = time_graph_calls(lambda: torch.autograd.grad(flash_attention(q, k, v), (q, k, v), do))
+    t_fb_lib = time_graph_calls(
+        lambda: torch.autograd.grad(F.scaled_dot_product_attention(q, k, v), (q, k, v), do))
+    bound, bound_by = roofline(b, h, sq, skv, **BACKWARD_WORK)
+    fb_bound, _ = roofline(b, h, sq, skv, flops=3.5, tensors=(4, 4))
+    print(f"[parallel] attention gradient {name} {[b, h, sq, skv, 64]}: lse within {lse_err:.3e} "
+          f"(band {LSE_ATOL}); backward kernels vs plain backward max |d| / max|g| q "
+          f"{plain_gaps[0]:.3e} k {plain_gaps[1]:.3e} v {plain_gaps[2]:.3e} (band {BWD_PLAIN_REL}); "
+          f"vs f32 q {gaps[0]:.3e} k {gaps[1]:.3e} v {gaps[2]:.3e}, through autograd "
+          f"{max(auto_gaps):.3e} (band {GRAD_REL}); repeated backward bit-equal; device ms: "
+          f"backward kernels {t_bwd:.5f}, plain {t_plain:.5f}, SDPA's backward {t_lib:.5f}, bound "
+          f"{bound:.5f} ({bound_by}), {bound / t_bwd:.1%} of it; forward + backward kernels "
+          f"{t_fb:.5f}, SDPA {t_fb_lib:.5f}, bound {fb_bound:.5f}", flush=True)
+    return dict(case=name, shape=[b, h, sq, skv, 64], launch_key=backward_launch_key(qd, kd, vd),
+                lse_err=lse_err, max_abs_err=max_err,
+                plain_rel_err=plain_gaps, grad_rel_err=gaps, autograd_rel_err=auto_gaps, ms=t_bwd,
+                plain_ms=t_plain, library_ms=t_lib, bound_ms=bound, bound_by=bound_by,
+                fwd_bwd_ms=t_fb, library_fwd_bwd_ms=t_fb_lib, fwd_bwd_bound_ms=fb_bound)
 
 
 def parallel_settings() -> dict:
@@ -2982,7 +3075,7 @@ def _world1_rank(rank: int, workdir: str) -> dict:
 
     from mast3r_slam_torch.config import Config, set_config
     from mast3r_slam_torch.models import MASt3RConfig, MASt3RModel
-    from mast3r_slam_torch.ops.attention import flash_attention
+    from mast3r_slam_torch.ops.attention import flash_attention, flash_attention_backward
     from mast3r_slam_torch.parallel import multihost
     from mast3r_slam_torch.parallel.mesh import make_mesh
     from mast3r_slam_torch.parallel.pipeline import make_pipeline_mesh, pipelined_encode
@@ -3038,10 +3131,15 @@ def _world1_rank(rank: int, workdir: str) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     flash_attention.launches = 0
+    bwd_launches = flash_attention_backward.launches
+    bwd_launches.update(dict.fromkeys(bwd_launches, 0))
+    flash_attention_backward.launches_by_shape.clear()
     t0 = time.perf_counter()
     _, timed = train_loop(tmodel, mesh, TRAIN_STEPS, batch, log=stamp)
     res["train"] = dict(timed_losses=timed, step_s=np.diff([t0] + stamps).tolist(),
-                        launches=flash_attention.launches,
+                        launches=flash_attention.launches, backward_launches=dict(bwd_launches),
+                        backward_by_shape={key: dict(n) for key, n in
+                                           flash_attention_backward.launches_by_shape.items()},
                         max_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
     # The same steps again, writing the step-2 file; after step 3 the file is
     # kept aside (the end of the loop overwrites it) and step 3 resumed from it.
@@ -3176,6 +3274,7 @@ def parallel_phase() -> dict:
     import torch
 
     from mast3r_slam_torch.models import MASt3RConfig
+    from mast3r_slam_torch.ops.attention import BACKWARD_SYMBOLS
     from mast3r_slam_torch.parallel.mesh import spawn
 
     t0 = time.perf_counter()
@@ -3183,10 +3282,9 @@ def parallel_phase() -> dict:
     c = MASt3RConfig.mast3r_full()
     gen = torch.Generator(device="cuda").manual_seed(16)
     attention = [attention_row(*case, gen) for case in parallel_attention_cases(c)]
-    grads = [attention_grad_row(name, TRAIN_PAIRS, h, 768, fused, gen)
-             for name, h, fused in (("training encoder", c.enc_num_heads, True),
-                                    ("training decoder self", c.dec_num_heads, True),
-                                    ("training decoder cross", c.dec_num_heads, False))]
+    grads = [attention_grad_row(name, b, c.enc_num_heads if enc else c.dec_num_heads, sq, skv,
+                                fused, gen)
+             for name, b, sq, skv, fused, enc in GRAD_CASES]
     torch.cuda.empty_cache()
     workdir = tempfile.mkdtemp(prefix="parallel-")
     t1 = time.perf_counter()
@@ -3283,6 +3381,27 @@ def parallel_phase() -> dict:
     per_step = 2 * c.enc_depth + 2 * 2 * c.dec_depth
     check(tr["launches"] == TRAIN_STEPS * per_step,
           f"training: {tr['launches']} attention launches, predicted {TRAIN_STEPS * per_step}")
+    # Every attention call of a step records a gradient of q, k and v: one dq
+    # and one dk/dv launch each, and no call to the plain backward.
+    want_bwd = dict.fromkeys(BACKWARD_SYMBOLS, TRAIN_STEPS * per_step)
+    check(tr["backward_launches"] == want_bwd,
+          f"training: backward launches {tr['backward_launches']}, predicted {want_bwd}")
+    # The same count by shape and layout (`backward_launch_key`), predicted
+    # per step from the model's depths: each gradient row's launches are the
+    # run's count at its key; the ragged rows' shapes are not training's.
+    calls = {"training encoder": 2 * c.enc_depth, "training decoder self": 2 * c.dec_depth,
+             "training decoder cross": 2 * c.dec_depth}
+    by_shape = tr["backward_by_shape"]
+    for row in grads:
+        row["launches_by_kernel"] = by_shape.get(row["launch_key"],
+                                                 dict.fromkeys(BACKWARD_SYMBOLS, 0))
+        row["launches"] = sum(row["launches_by_kernel"].values())
+        want_row = dict.fromkeys(BACKWARD_SYMBOLS, TRAIN_STEPS * calls.get(row["case"], 0))
+        check(row["launches_by_kernel"] == want_row,
+              f"training: backward launches at {row['case']} (key {row['launch_key']}) "
+              f"{row['launches_by_kernel']}, predicted {want_row}; by key {by_shape}")
+    check(set(by_shape) <= {row["launch_key"] for row in grads},
+          f"training: backward launches at keys of no gradient row: {by_shape}")
     rs = tr["resume"]
     check(rs["start"] == TRAIN_STEPS - 1, f"resume: {rs}")
     check(rs["kept"] == rs["restored"] > 0 and set(rs["state_keys"]) >= {
@@ -3296,8 +3415,9 @@ def parallel_phase() -> dict:
           f"({tr['params']} parameters), {TRAIN_PAIRS} pairs, m {TRAIN_M}, AdamW, world 1 over "
           f"NCCL: losses {tr['timed_losses']}; s/step {[round(s, 3) for s in tr['step_s']]} "
           f"(the first with warm-up); max_memory_allocated {tr['max_memory_gb']:.2f} GB; "
-          f"attention launches {tr['launches']} as predicted; the same 3 steps again (the "
-          f"backward's atomics: not bit-equal) {losses}, resumed from that run's step-2 file "
+          f"attention launches {tr['launches']} and backward launches "
+          f"{tr['backward_launches']} as predicted; the same 3 steps again (atomics in the "
+          f"backward of gathers and index ops: not bit-equal) {losses}, resumed from that run's step-2 file "
           f"({tr['file_gb']:.2f} GB, JAX's layout): parameters and AdamW {rs['state_keys']} of "
           f"all {rs['restored']} tensors bit-equal to the straight run's step-2 state; step 3 "
           f"loss {resumed[0]} vs {losses[-1]} (rel "
@@ -3326,18 +3446,29 @@ def parallel_phase() -> dict:
                 seconds=seconds)
 
 
+def parent_attention_cases() -> list:
+    """The attention calls timed in both checkouts: the five path shapes at
+    768 tokens (phase 3), 640 (phase 8) and 432 (phase 9), and the sp q
+    shards of phase 16: the shapes whose launch the split rule decides."""
+    from mast3r_slam_torch.models import MASt3RConfig
+
+    c = MASt3RConfig.mast3r_full()
+    return (attention_cases(c) + attention_cases(c, EUROC_CROP, "640 tokens ")
+            + attention_cases(MASt3RConfig.dunemast3r("base"), DUNE_HW, "432 tokens ")
+            + [case for case in parallel_attention_cases(c) if case[0].startswith("sp ")])
+
+
 def other_kernel_times(root: str) -> dict:
     """Device ms of the kernels of the checkout at `root`, imported in place
     of this one's, at the kernel and probe phases' shapes, with this script's
     inputs and timing code and only the checkout's public entry points:
-    attention at the five path shapes (graph and eager wall), the five roll
-    cases, the matcher-plane roll warm and cold."""
+    attention at `parent_attention_cases` (graph and eager wall), the five
+    roll cases, the matcher-plane roll warm and cold."""
     import numpy as np
     import torch
 
     sys.path.insert(0, root)
     import mast3r_slam_torch
-    from mast3r_slam_torch.models import MASt3RConfig
     from mast3r_slam_torch.ops import build
     from mast3r_slam_torch.ops.attention import flash_attention
     from mast3r_slam_torch.ops.lane_shift import roll_last_axis
@@ -3347,7 +3478,7 @@ def other_kernel_times(root: str) -> dict:
     build.build_all()
     gen = torch.Generator(device="cuda").manual_seed(0)
     attention = {}
-    for name, b, h, sq, skv, fused in attention_cases(MASt3RConfig.mast3r_full()):
+    for name, b, h, sq, skv, fused in parent_attention_cases():
         q, k, v = attention_inputs(b, h, sq, skv, fused, gen)
         attention[name] = dict(ms=time_graph(lambda x: flash_attention(x, k, v), q),
                                eager_wall_ms=time_eager(lambda x: flash_attention(x, k, v), q))
@@ -3377,20 +3508,27 @@ def time_other(root: str) -> dict:
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
-def add_prev(kern: dict, probe: dict, runs: list) -> None:
-    """Set each row's prev_ms (and the matcher-plane roll's prev_cold_ms) to
-    the mean over `runs` of the other checkout's time for the same case."""
-    def mean(key, group, case):
-        return sum(r[group][case][key] for r in runs) / len(runs)
+def add_prev(rows: list, probe: dict, runs: list, own: list) -> None:
+    """Set each attention row's prev_ms (and the matcher-plane roll's
+    prev_cold_ms) to the mean over `runs` of the other checkout's time for
+    the same case, and its ab_ms to the mean over `own` of this checkout's
+    time taken the same way (`time_other` of this checkout, between the
+    other's two runs: parent, this, this, parent)."""
+    def mean(key, group, case, over=runs):
+        return sum(r[group][case][key] for r in over) / len(over)
 
-    for row in kern["rows"]:
-        if row["case"] in runs[0]["attention"]:
-            row["prev_ms"] = mean("ms", "attention", row["case"])
-            row["prev_eager_wall_ms"] = mean("eager_wall_ms", "attention", row["case"])
-            print(f"[parent] flash_attention {row['case']}: device ms "
-                  f"{[r['attention'][row['case']]['ms'] for r in runs]} (this checkout "
-                  f"{row['ms']:.5f}); eager wall ms "
-                  f"{[r['attention'][row['case']]['eager_wall_ms'] for r in runs]}", flush=True)
+    for row in rows:
+        case = row["case"]
+        if case in runs[0]["attention"]:
+            row["prev_ms"] = mean("ms", "attention", case)
+            row["ab_ms"] = mean("ms", "attention", case, own)
+            row["prev_eager_wall_ms"] = mean("eager_wall_ms", "attention", case)
+            turns = [runs[0], *own, runs[1]]
+            print(f"[parent] flash_attention {case}: device ms parent, this, this, parent "
+                  f"{[round(r['attention'][case]['ms'], 5) for r in turns]}: "
+                  f"{row['ab_ms'] / row['prev_ms']:.3f}x (this checkout's phase row "
+                  f"{row['ms']:.5f} at {row['splits']} splits); eager wall ms "
+                  f"{[r['attention'][case]['eager_wall_ms'] for r in runs]}", flush=True)
     for case, row in probe.items():
         if case in runs[0]["rolls"]:
             row["prev_ms"] = mean("ms", "rolls", case)
@@ -3441,11 +3579,13 @@ def main(argv=None) -> int:
             print(f"[build] {name}: {log}", flush=True)
         parent = os.path.abspath(args.parent) if args.parent else None
         runs = [time_other(parent)] if parent else []
+        own = [time_other(REPO)] if parent else []
         kern = kernel_phase(MASt3RConfig.mast3r_full())
         probe = probe_phase()
         if parent:
+            own.append(time_other(REPO))
             runs.append(time_other(parent))
-            add_prev(kern, probe, runs)
+            add_prev(kern["rows"], probe, runs, own)
         cfg = set_config(Config.from_dict(BENCH_SETTINGS))
         reference_phase(cfg)
         main = main_path_phase(cfg)
@@ -3460,6 +3600,9 @@ def main(argv=None) -> int:
         quant = quant_phase(model)  # quantizes the model: the last phase that runs it
         solve_bf16 = solve_bf16_phase()
         parallel = parallel_phase()
+        if parent:
+            add_prev(calib["attention"] + configs["attention"] + parallel["attention"], {}, runs,
+                     own)
     except SmokeFailure as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
         return 1
@@ -3511,6 +3654,25 @@ def main(argv=None) -> int:
                   + offline["attention"] + parallel["attention"]),
         gradient=parallel["gradient"],
     )]
+    grad = parallel["gradient"][0]  # training's encoder shape
+    kernels.append(dict(
+        name="flash_attention_backward",
+        route="cuda",
+        source="mast3r_slam_torch/csrc/flash_attention_bwd.cu",
+        replaces="mast3r_slam_tpu/ops/attention.py:137",
+        replaces_note="XLA's VJP of attention_xla, JAX training's attention gradient (the Pallas "
+                      "_flash_kernel at :37 has no VJP)",
+        launches=sum(parallel["train"]["backward_launches"].values()),
+        launches_by_kernel=parallel["train"]["backward_launches"],
+        max_abs_err=max(r["max_abs_err"] for r in parallel["gradient"]),
+        ms=grad["ms"],
+        plain_ms=grad["plain_ms"],
+        bound_ms=grad["bound_ms"],
+        bound_by=grad["bound_by"],
+        library_ms=grad["library_ms"],
+        shape=grad["shape"],
+        by_shape=parallel["gradient"],
+    ))
     for name, row in probe.items():
         kernels.append(dict(
             name=name,

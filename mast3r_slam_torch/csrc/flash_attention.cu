@@ -49,8 +49,10 @@
 //  * The schedule fills 132 SMs in one launch (ops/attention.py
 //    `attention_schedule`, which the tests cover): while the q tiles leave
 //    SMs idle (B=1: 144 or 192 tiles), a q tile's key range is split over a
-//    thread-block cluster of `splits` CTAs (2 at B=1), as many as stay
-//    resident at once. Each CTA runs its part of the key tiles to a partial
+//    thread-block cluster of `splits` CTAs (2 at B=1 and 768 tokens), as
+//    many as stay resident at once while each keeps at least 6 key tiles
+//    (below that the merge costs more than the idle SMs give: 640 and 432
+//    tokens run unsplit). Each CTA runs its part of the key tiles to a partial
 //    (m, l, O); the CTAs of ranks >= 1 write theirs into rank 0's shared
 //    memory (distributed shared memory, st.shared::cluster) and rank 0
 //    merges them in rank order and stores the output: a fixed order, so a
@@ -61,6 +63,20 @@
 //    (2-stage, 4 per SM, 92 registers under a cap of 102; ptxas serialises
 //    its wgmmas for lack of registers, C7512, and it is still the faster
 //    variant at B=6).
+//
+// Row statistics for the backward (training). With a non-null `lse` the
+// kernel also writes, for every stored row, lse = ln Σ_j exp(scale · q·k_j),
+// f32 [B * H, Sq] (row stride 1, stride `lss` between (b, h) rows), in
+// natural-log units: the kernel keeps m (the row's largest scaled score) and
+// l = Σ exp2(S · scale · log2 e − m) in the log2 domain, and stores (m +
+// log2 l) · ln 2. Under a cluster split, rank 0 writes it from the merged (m,
+// l) after its rank-ordered merge; unsplit (either ring), every CTA writes
+// its own rows. Whether lse is written is a template parameter of the
+// kernel, so a launch with a null `lse` (every inference call) runs the code
+// it ran before. `lse` and its stride are the kernel's last parameters, so
+// the others keep their offsets: with them placed after `o`, the same SASS
+// (up to parameter offsets) took 1.0-1.7% longer at 768 tokens, batch 1, in
+// a same-process A/B against the previous build on the H100.
 //
 // Layout: q/k/v are [B, H, S, 64] with arbitrary B/H/S strides (in elements;
 // multiples of 8) and a contiguous last dim, so the head split of a fused
@@ -249,13 +265,13 @@ __device__ __forceinline__ float ex2(float x) {
 // consumer warpgroup owns, as in every m64nN wgmma accumulator, rows 16 w + g
 // and 16 w + g + 8 (w = warp, g = lane / 4) and columns 8 j + 2 (lane % 4) +
 // {0, 1}, j = 0..7.
-template <int kStages, int kMinBlocks>
+template <int kStages, int kMinBlocks, bool kLse>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
                  const __grid_constant__ CUtensorMap k_map,
                  const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o, int H, int Sq,
                  int Skv, long long osb, long long osh, long long oss, float scale_log2,
-                 int splits) {
+                 int splits, float* __restrict__ lse, long long lss) {
   __shared__ __align__(8) uint64_t full_bar[kStages];
   __shared__ __align__(8) uint64_t empty_bar[kStages];
   extern __shared__ __align__(16) uint8_t smem_raw[];
@@ -399,6 +415,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   // Merge the partials of a split key range in rank 0 (all 160 threads of
   // every CTA of the cluster take part in both cluster barriers).
   const int tid = threadIdx.x;
+  float m_fin[2] = {m_run[0], m_run[1]};  // the rows' largest scaled scores (for lse)
   if (kStages == 4 && splits > 1) {
     cluster_sync();  // every CTA's loop done: rank 0's ring is free for the partials
     if (warp < kConsumers / 32 && split != 0) {
@@ -428,6 +445,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
         l_run[r] *= f;
         m_run[r] = f;  // own factor
         mm[r] = msub;
+        m_fin[r] = msub;
       }
 #pragma unroll
       for (int i = 0; i < 32; ++i) acc[i] *= m_run[(i >> 1) & 1];
@@ -466,6 +484,16 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
     for (int j = 0; j < 8; ++j) {
       *reinterpret_cast<uint32_t*>(orow + 8 * j) =
           pack_bf16(acc[4 * j + 2 * r] * inv[r], acc[4 * j + 2 * r + 1] * inv[r]);
+    }
+  }
+  if constexpr (kLse) {
+    const float kLn2 = 0.6931471805599453f;
+    if (tq == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        if (row < Sq) lse[blockIdx.y * lss + row] = (m_fin[r] + log2f(l_run[r])) * kLn2;
+      }
     }
   }
 }
@@ -512,14 +540,16 @@ bool encode_map(CUtensorMap* map, const void* ptr, int B, int H, int S, long lon
 // splits: CTAs per q tile (a cluster along x), 1 <= splits <= min(4, key tiles);
 // stages: the K/V ring depth, 4 (3 CTAs per SM) or 2 (4 CTAs per SM, one
 // split); ops/attention.py `attention_schedule` chooses both. Strides in elements,
-// multiples of 8 and nonzero; q/k/v 16-byte aligned.
+// multiples of 8 and nonzero; q/k/v 16-byte aligned. lse: null, or f32 rows of
+// Sq with stride lss (elements) between (b, h) rows.
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* o,
-                                        int B, int H, int Sq, int Skv, long long qsb,
-                                        long long qsh, long long qss, long long ksb,
-                                        long long ksh, long long kss, long long vsb,
-                                        long long vsh, long long vss, long long osb,
-                                        long long osh, long long oss, float scale, int splits,
-                                        int stages, void* stream) {
+                                        void* lse, int B, int H, int Sq, int Skv,
+                                        long long qsb, long long qsh, long long qss,
+                                        long long ksb, long long ksh, long long kss,
+                                        long long vsb, long long vsh, long long vss,
+                                        long long osb, long long osh, long long oss,
+                                        long long lss, float scale, int splits, int stages,
+                                        void* stream) {
   const int nkv = (Skv + kBlockK - 1) / kBlockK;
   if ((stages != 2 && stages != 4) || splits < 1 || splits > (stages == 4 ? kMaxSplits : 1) ||
       splits > nkv) {
@@ -532,12 +562,14 @@ extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void
       !encode_map(&v_map, v, B, H, Skv, vsb, vsh, vss)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto kernel = stages == 4 ? flash_fwd_kernel<4, 3> : flash_fwd_kernel<2, 4>;
+  const bool with_lse = lse != nullptr;
+  auto kernel = stages == 4 ? (with_lse ? flash_fwd_kernel<4, 3, true> : flash_fwd_kernel<4, 3, false>)
+                            : (with_lse ? flash_fwd_kernel<2, 4, true> : flash_fwd_kernel<2, 4, false>);
   const int smem = smem_bytes(stages);
-  static bool smem_set[2][64] = {};
+  static bool smem_set[4][64] = {};
   int dev = 0;
   cudaGetDevice(&dev);
-  bool* set = dev >= 0 && dev < 64 ? &smem_set[stages == 4][dev] : nullptr;
+  bool* set = dev >= 0 && dev < 64 ? &smem_set[2 * (stages == 4) + with_lse][dev] : nullptr;
   if (set == nullptr || !*set) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -558,6 +590,6 @@ extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   cudaLaunchKernelEx(&cfg, kernel, q_map, k_map, v_map, static_cast<bf16*>(o), H, Sq, Skv, osb,
-                     osh, oss, scale * kLog2e, splits);
+                     osh, oss, scale * kLog2e, splits, static_cast<float*>(lse), lss);
   return static_cast<int>(cudaGetLastError());
 }

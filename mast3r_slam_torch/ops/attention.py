@@ -21,12 +21,19 @@ run can show that the model went through the kernel; only `_launch` raises
 it, just after a launch that succeeded.
 
 Gradient (training, `parallel.train`). On the card a call that records a
-gradient goes through `_FlashAttention`, a `torch.autograd.Function` whose
-forward is the kernel and whose backward is `attention_backward`: dq, dk and
-dv in plain torch ops, S and P recomputed from q and k in f32. That is the
-counterpart of XLA's VJP of JAX's ``attention_xla``, the route JAX training
-takes (its ViT's key length is below ``FLASH_MIN_KV``, and the Pallas kernel
-has no VJP). A CPU tensor takes `attention_reference` under autograd.
+gradient goes through `_FlashAttention`, a `torch.autograd.Function`: its
+forward is the kernel, launched so that it also writes each row's
+log-sum-exp (`lse`), and its backward is `flash_attention_backward`, the
+two hand-written kernels of ``csrc/flash_attention_bwd.cu`` (dq with δ, then
+dk and dv), which recompute P from q, k and lse and keep no [S, S] tensor in
+device memory. They replace XLA's VJP of JAX's ``attention_xla``, the route
+JAX training takes (its ViT's key length is below ``FLASH_MIN_KV``, and the
+Pallas kernel has no VJP). `attention_backward` is their plain version and
+`attention_lse_reference` the forward's row statistics in plain ops; the
+backward's least time is `roofline(..., **BACKWARD_WORK)`.
+`flash_attention_backward.launches` counts its launches by kernel symbol,
+and `flash_attention_backward.launches_by_shape` by `backward_launch_key`
+too. A CPU tensor takes `attention_reference` under autograd.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ _BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 BLOCK_Q = BLOCK_K = 64  # q rows per CTA, key rows per ring stage (csrc/flash_attention.cu)
 THREADS = 160  # one consumer warpgroup and one producer warp
 MAX_SPLITS = 4  # CTAs of a cluster sharing one q tile's key range
+MIN_SPLIT_KV_TILES = 6  # key tiles each part of a split key range keeps at least
 _SMS = 132  # H100 SXM
 
 
@@ -55,31 +63,57 @@ def attention_reference(q, k, v, scale: float | None = None) -> torch.Tensor:
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 
-def attention_backward(q, k, v, grad_out, scale: float | None = None):
-    """dq, dk, dv of softmax(q kᵀ·scale) v for the cotangent `grad_out`, in
-    plain torch ops: S and P recomputed from q and k in f32, P rounded to q's
-    dtype for the dv product and the cotangent of P rounded to it too, as
-    the forward rounds P (XLA's VJP of ``attention_xla``); the softmax VJP in
-    f32; each gradient rounded once to its input's dtype."""
+def attention_lse_reference(q, k, scale: float | None = None) -> torch.Tensor:
+    """f32 [B, H, Sq]: the natural-log log-sum-exp over the keys of each
+    row's scaled scores, log Σ_j exp(scale · q_i·k_j), what the kernel's
+    forward writes as `lse`."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return torch.logsumexp(torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale, -1)
+
+
+def attention_backward(q, k, v, o, lse, grad_out, scale: float | None = None):
+    """dq, dk, dv of o = softmax(q kᵀ·scale) v for the cotangent `grad_out`,
+    in plain torch ops, the function the backward kernels compute: P =
+    exp(S·scale − lse) from q, k and the forward's `lse` (f32 [B, H, Sq]);
+    dv = Pᵀ dO with P rounded to q's dtype, as the forward rounds it; dP =
+    dO vᵀ rounded to q's dtype (XLA's VJP of ``attention_xla`` rounds the
+    cotangent of P so); δ = rowsum(dO ∘ o) in f32 (equal to rowsum(dP ∘ P)
+    up to rounding); dS = P ∘ (dP − δ)·scale, rounded to q's dtype for the
+    two products that follow, as the kernel feeds them to its tensor cores;
+    each gradient rounded once to its input's dtype."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     qf, kf, vf, go = q.float(), k.float(), v.float(), grad_out.float()
-    p = torch.softmax(torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale, dim=-1)
+    p = torch.exp(torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale - lse[..., None])
     dv = torch.einsum("bhqk,bhqd->bhkd", p.to(q.dtype).float(), go)
     dp = torch.einsum("bhqd,bhkd->bhqk", go, vf).to(q.dtype).float()
-    ds = p * (dp - (dp * p).sum(-1, keepdim=True)) * scale
+    delta = (go * o.float()).sum(-1, keepdim=True)
+    ds = (p * (dp - delta) * scale).to(q.dtype).float()
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def roofline(b: int, h: int, sq: int, skv: int, d: int = _HEAD_DIM, itemsize: int = 2):
+def roofline(b: int, h: int, sq: int, skv: int, d: int = _HEAD_DIM, itemsize: int = 2,
+             flops: float = 1.0, tensors: tuple[int, int] = (2, 2), row_stats: int = 0):
     """Least time of one call on an H100 SXM -> (ms, "bytes" | "operations"):
-    the larger of bytes over the HBM rate (q/k/v read once, o written once)
-    and flops over the bf16 tensor-core peak."""
-    t_bytes = itemsize * b * h * d * (2 * sq + 2 * skv) / _HBM_BYTES_PER_S
-    t_ops = 4.0 * b * h * sq * skv * d / _BF16_FLOPS_PER_S
+    the larger of the bytes moved over the HBM rate and `flops` times the
+    forward's flops (4·B·H·Sq·Skv·D) over the bf16 tensor-core peak. The
+    bytes: `tensors` = (q-side, key-side) counts of [B, H, Sq, D] and
+    [B, H, Skv, D] tensors of `itemsize` bytes each read or written once,
+    and `row_stats` f32 [B, H, Sq] ones. The defaults are the forward's: q,
+    o and k, v once."""
+    n_q, n_kv = tensors
+    t_bytes = (itemsize * b * h * d * (n_q * sq + n_kv * skv)
+               + 4 * row_stats * b * h * sq) / _HBM_BYTES_PER_S
+    t_ops = flops * 4.0 * b * h * sq * skv * d / _BF16_FLOPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+# `roofline`'s work of one backward: 2.5x the forward's flops (dv, dP, dq,
+# dk, and S once); q, o, dO, dq and k, v, dk, dv once, and lse.
+BACKWARD_WORK = dict(flops=2.5, tensors=(4, 4), row_stats=1)
 
 
 class Schedule(NamedTuple):
@@ -115,16 +149,20 @@ def make_schedule(b: int, h: int, sq: int, skv: int, splits: int, stages: int) -
 def attention_schedule(b: int, h: int, sq: int, skv: int) -> Schedule:
     """While the q tiles leave SMs idle (at most 396 of them, three per SM
     with the 4-stage ring), split each tile's key range into the most parts
-    (up to MAX_SPLITS and the key tiles) for which every CTA is still
-    resident at once. When the q tiles alone fill the card, do not split,
-    and take the 2-stage ring: four CTAs per SM shorten the last wave.
-    (Measured on the H100 at the main-path shapes, see PERF.md.)"""
+    (up to MAX_SPLITS) for which every CTA is still resident at once and
+    every part keeps at least MIN_SPLIT_KV_TILES key tiles. When the q tiles
+    alone fill the card, do not split, and take the 2-stage ring: four CTAs
+    per SM shorten the last wave. (Measured on the H100, see PERF.md: at 768
+    tokens 2 splits of 6 key tiles beat 1; at 640 and 432 tokens, parts of
+    5, 4, 3 or 2 tiles lose to the unsplit launch, the merge costing more
+    than the idle SMs.)"""
     q_tiles, kv_tiles = -(-sq // BLOCK_Q), -(-skv // BLOCK_K)
     tiles = b * h * q_tiles
     resident = _SMS * RINGS[4][0]
     if tiles > resident:
         return make_schedule(b, h, sq, skv, 1, 2)
-    splits = max(s for s in range(1, min(MAX_SPLITS, kv_tiles) + 1) if tiles * s <= resident)
+    most = max(1, min(MAX_SPLITS, kv_tiles // MIN_SPLIT_KV_TILES))
+    splits = max(s for s in range(1, most + 1) if tiles * s <= resident)
     return make_schedule(b, h, sq, skv, splits, 4)
 
 
@@ -135,13 +173,28 @@ def _kernel():
     fn = lib.flash_attention_fwd_bf16
     if fn.argtypes is None:
         fn.argtypes = (
-            [ctypes.c_void_p] * 4
+            [ctypes.c_void_p] * 5
             + [ctypes.c_int] * 4
-            + [ctypes.c_longlong] * 12
+            + [ctypes.c_longlong] * 13
             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
     return fn
+
+
+def _backward_kernels():
+    """(dq, dkdv) entry points of csrc/flash_attention_bwd.cu: 8 pointers,
+    B, H, Sq, Skv, 18 strides and the stride of lse / δ, scale, stream."""
+    from mast3r_slam_torch.ops import build
+
+    lib = build.load("flash_attention_bwd")
+    fns = lib.flash_attention_bwd_dq_bf16, lib.flash_attention_bwd_dkdv_bf16
+    for fn in fns:
+        if fn.argtypes is None:
+            fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 19
+                           + [ctypes.c_float, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+    return fns
 
 
 def _kernel_layout(x: torch.Tensor) -> torch.Tensor:
@@ -174,26 +227,32 @@ def flash_attention(q, k, v, scale: float | None = None) -> torch.Tensor:
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Forward: the kernel (`_launch`). Backward: `attention_backward`."""
+    """Forward: the kernel (`_launch`), writing the row statistics `lse`.
+    Backward: `flash_attention_backward`'s kernels on q, k, v, o and lse."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
-        ctx.save_for_backward(q, k, v)
+        out, lse = _launch(q, k, v, scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.scale = scale
-        return _launch(q, k, v, scale)
+        return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        q, k, v = ctx.saved_tensors
-        return (*attention_backward(q, k, v, grad_out, ctx.scale), None)
+        q, k, v, out, lse = ctx.saved_tensors
+        grads = flash_attention_backward(q, k, v, out, lse, grad_out, ctx.scale)
+        return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)), None)
 
 
-def _launch(q, k, v, scale: float | None = None, schedule: Schedule | None = None
-            ) -> torch.Tensor:
+def _launch(q, k, v, scale: float | None = None, schedule: Schedule | None = None,
+            return_lse: bool = False):
     """Check q/k/v, launch the kernel on the current stream and count the
     launch. `schedule` (from `make_schedule`) replaces `attention_schedule`'s
     launch; only chip_smoke.py passes one, to check every launch the kernel
-    takes at the edges of its schedule."""
+    takes at the edges of its schedule. With `return_lse` the kernel also
+    writes f32 [B, H, Sq] `lse` (natural log, as `attention_lse_reference`)
+    and the call returns (out, lse); without it the kernel is launched with
+    a null `lse` and writes nothing more than the output."""
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention: q/k/v on {q.device}/{k.device}/{v.device}")
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
@@ -215,19 +274,116 @@ def _launch(q, k, v, scale: float | None = None, schedule: Schedule | None = Non
         scale = d**-0.5
     q, k, v = _kernel_layout(q), _kernel_layout(k), _kernel_layout(v)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if return_lse else None
     if sq == 0 or b * h == 0:
-        return out
+        return (out, lse) if return_lse else out
     err = _kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if return_lse else None,
         b, h, sq, skv,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], sq,
         float(scale), schedule.splits, schedule.stages,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
     flash_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_backward(q, k, v, o, lse, grad_out, scale: float | None = None):
+    """dq, dk, dv of o = `flash_attention`(q, k, v) for the cotangent
+    `grad_out`, from the forward's output o and row statistics lse.
+
+    CUDA tensors: the kernels of ``csrc/flash_attention_bwd.cu``
+    (`_launch_backward`), or an error. CPU tensors: `attention_backward`,
+    the plain version."""
+    if q.device.type == "cpu":
+        return attention_backward(q, k, v, o, lse, grad_out, scale)
+    return _launch_backward(q, k, v, o, lse, grad_out, scale)
+
+
+def backward_launch_key(q, k, v) -> str:
+    """"B,H,Sq,Skv,v's row stride": the key of `launches_by_shape`. v's row
+    stride tells a self attention's head split of a fused qkv projection
+    (3·H·D) from a cross attention's separate projection (H·D) at one shape."""
+    b, h, sq, _ = q.shape
+    return f"{b},{h},{sq},{k.shape[2]},{v.stride(2)}"
+
+
+# Launches counted only by `_launch_backward`, just after a launch that
+# succeeded: by kernel symbol, and by `backward_launch_key` and symbol. The
+# dq kernel also computes δ = rowsum(dO ∘ o) for the dk/dv kernel, which
+# reads it.
+BACKWARD_SYMBOLS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkdv")
+flash_attention_backward.launches = dict.fromkeys(BACKWARD_SYMBOLS, 0)
+flash_attention_backward.launches_by_shape = {}
+
+
+def _count_backward(symbol: str, key: str) -> None:
+    flash_attention_backward.launches[symbol] += 1
+    by_key = flash_attention_backward.launches_by_shape.setdefault(
+        key, dict.fromkeys(BACKWARD_SYMBOLS, 0))
+    by_key[symbol] += 1
+
+
+def _launch_backward(q, k, v, o, lse, grad_out, scale: float | None = None):
+    """Check the forward's tensors and the cotangent, launch the dq kernel
+    (δ and dq) and then the dk/dv kernel on the current stream, and count
+    each launch."""
+    if any(t.device != q.device for t in (k, v, o, lse, grad_out)) or q.device.type != "cuda":
+        raise ValueError("flash_attention_backward: q/k/v/o/lse/grad_out on "
+                         f"{[str(t.device) for t in (q, k, v, o, lse, grad_out)]}, not one card")
+    if any(t.dtype != torch.bfloat16 for t in (q, k, v, o, grad_out)) or lse.dtype != torch.float32:
+        raise TypeError("flash_attention_backward: the CUDA kernels take bf16 q/k/v/o/grad_out "
+                        f"and f32 lse, got {[str(t.dtype) for t in (q, k, v, o, grad_out, lse)]}")
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    if (d != _HEAD_DIM or k.shape != (b, h, skv, d) or v.shape != k.shape
+            or o.shape != q.shape or grad_out.shape != q.shape or lse.shape != (b, h, sq)):
+        raise ValueError(
+            f"flash_attention_backward: shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+            f"v{tuple(v.shape)} o{tuple(o.shape)} grad_out{tuple(grad_out.shape)} "
+            f"lse{tuple(lse.shape)}; the kernels take [B, H, S, {_HEAD_DIM}] and lse [B, H, Sq]")
+    if skv == 0 or b * h > 65535:
+        raise ValueError(f"flash_attention_backward: unsupported Skv={skv} or B*H={b * h}")
+    if not lse.is_contiguous():
+        raise ValueError(f"flash_attention_backward: lse strides {lse.stride()}, not contiguous")
+    if scale is None:
+        scale = d**-0.5
+
+    def grad_like(n):  # laid out [B, S, H, D] in memory, as the forward's output
+        return torch.empty((b, n, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+
+    dq, dk, dv = grad_like(sq), grad_like(skv), grad_like(skv)
+    if sq == 0 or b * h == 0:  # no q row: dk and dv are 0
+        return dq, dk.zero_(), dv.zero_()
+    key = backward_launch_key(q, k, v)
+    q, k, v, o, grad_out = (_kernel_layout(t) for t in (q, k, v, o, grad_out))
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    dq_kernel, dkdv_kernel = _backward_kernels()
+    err = dq_kernel(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), grad_out.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        b, h, sq, skv,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+        *grad_out.stride()[:3], *dq.stride()[:3], sq,
+        float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd_dq kernel launch failed: cudaError {err}")
+    _count_backward("flash_attention_bwd_dq", key)
+    err = dkdv_kernel(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), grad_out.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, h, sq, skv,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *grad_out.stride()[:3],
+        *dk.stride()[:3], *dv.stride()[:3], sq,
+        float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd_dkdv kernel launch failed: cudaError {err}")
+    _count_backward("flash_attention_bwd_dkdv", key)
+    return dq, dk, dv

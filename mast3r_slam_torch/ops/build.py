@@ -38,7 +38,7 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 GXX_FLAGS = ["-O3", "-fopenmp", "-shared", "-fPIC"]
-KERNEL_SOURCES = ("flash_attention", "lane_shift")
+KERNEL_SOURCES = ("flash_attention", "flash_attention_bwd", "lane_shift")
 NATIVE_SOURCES = ("preprocess",)
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -19,8 +19,8 @@ computed on the host and passed in, so it is tested here:
 import numpy as np
 import pytest
 
-from mast3r_slam_torch.ops.attention import (BLOCK_K, BLOCK_Q, MAX_SPLITS, RINGS, THREADS,
-                                             attention_schedule, make_schedule)
+from mast3r_slam_torch.ops.attention import (BLOCK_K, BLOCK_Q, MAX_SPLITS, MIN_SPLIT_KV_TILES,
+                                             RINGS, THREADS, attention_schedule, make_schedule)
 from mast3r_slam_torch.ops.lane_shift import (DIRECT, ROLL_THREADS, WARP, WARP_MAX_VECTORS,
                                               _items_per_row, direct_geometry, roll_geometry,
                                               row_items, warp_geometry)
@@ -29,6 +29,9 @@ MAIN_PATH = [  # (b, h, sq, skv): encoder, decoder (self and cross), backend bat
     (1, 16, 768, 768), (1, 12, 768, 768), (6, 12, 768, 768)]
 CALIB_PATH = [  # the same calls at EuRoC's 752x480 frames, cropped to 512x320: 640 tokens
     (1, 16, 640, 640), (1, 12, 640, 640), (6, 12, 640, 640)]
+DUNE_PATH = [  # dunemast3r-base at 336x252, patch 14: 432 tokens (12 heads in both)
+    (1, 12, 432, 432), (6, 12, 432, 432)]
+SP_SHARDS = [(1, 16, 384, 768), (1, 16, 192, 768)]  # sequence parallel's q shards at sp 2, 4
 RAGGED = [(2, 3, sq, skv) for sq in (1, 65, 200) for skv in (1, 77, 129, 768)] + [
     (6, 12, 200, 200), (1, 2, 256, 256), (2, 2, 77, 77), (1, 2, 128, 384)]
 
@@ -50,7 +53,7 @@ def _coverage(b, h, sq, skv, splits, grid, cluster):
     return count
 
 
-@pytest.mark.parametrize("b,h,sq,skv", MAIN_PATH + CALIB_PATH + RAGGED)
+@pytest.mark.parametrize("b,h,sq,skv", MAIN_PATH + CALIB_PATH + DUNE_PATH + SP_SHARDS + RAGGED)
 def test_attention_schedule_covers_every_score_once(b, h, sq, skv):
     sched = attention_schedule(b, h, sq, skv)
     kv_tiles = -(-skv // BLOCK_K)
@@ -77,26 +80,44 @@ def test_every_launch_covers_every_score_once(skv, stages):
 
 
 def test_schedule_splits_only_into_idle_slots():
-    """The q tiles of the batch-1 calls (192 and 144) leave SMs idle, so their
-    key range is split in two (384 and 288 CTAs, all resident at three per
-    SM); the backend's 864 fill the card alone: no split, the 2-stage ring."""
+    """The q tiles of the batch-1 calls at 768 tokens (192 and 144) leave SMs
+    idle, so their key range of 12 tiles is split in two (384 and 288 CTAs,
+    all resident at three per SM, 6 key tiles each); the backend's 864 fill
+    the card alone: no split, the 2-stage ring. A split CTA is always
+    resident at once with the others and keeps at least MIN_SPLIT_KV_TILES
+    key tiles."""
     got = {(b, h): (sc.splits, sc.stages) for b, h, sq, skv in MAIN_PATH
            for sc in [attention_schedule(b, h, sq, skv)]}
     assert got == {(1, 16): (2, 4), (1, 12): (2, 4), (6, 12): (1, 2)}
-    for b, h, sq, skv in MAIN_PATH + RAGGED:
+    for b, h, sq, skv in MAIN_PATH + CALIB_PATH + DUNE_PATH + SP_SHARDS + RAGGED:
         sc = attention_schedule(b, h, sq, skv)
         ctas = sc.grid[0] * sc.grid[1]
         assert sc.splits == 1 or ctas <= 132 * RINGS[sc.stages][0]
+        assert sc.splits == 1 or -(-skv // BLOCK_K) // sc.splits >= MIN_SPLIT_KV_TILES
 
 
 def test_schedule_at_640_tokens():
-    """At 640 tokens the encoder's 160 q tiles split in two (320 CTAs), the
-    decoder's 120 in three (360), all resident at three per SM; the backend's
-    720 fill the card alone. chip_smoke.py times each against the other
-    split counts."""
+    """At 640 tokens (10 key tiles) no call splits: two parts of 5 key tiles
+    lost to the unsplit launch on the H100 (the encoder's 160 q tiles 11.5
+    against 10.8 us; the decoder's 120 at 2 and 3 splits 9.6 and 10.9
+    against 8.8), so the encoder and decoder run 160 and 120 unsplit CTAs on
+    the 4-stage ring; the backend's 720 fill the card alone. chip_smoke.py
+    times each against the other split counts."""
     got = {(b, h): (sc.splits, sc.stages) for b, h, sq, skv in CALIB_PATH
            for sc in [attention_schedule(b, h, sq, skv)]}
-    assert got == {(1, 16): (2, 4), (1, 12): (3, 4), (6, 12): (1, 2)}
+    assert got == {(1, 16): (1, 4), (1, 12): (1, 4), (6, 12): (1, 2)}
+
+
+def test_schedule_at_432_tokens_and_the_sp_shards():
+    """At 432 tokens (7 key tiles) batch 1 runs unsplit (2 to 4 splits took
+    8.6-11.0 us against 7.0 on the H100); the backend's batch of 6 (504 q
+    tiles) fills the card: the 2-stage ring. The sp q shards keep 768 keys:
+    2 splits of 6 key tiles (96 and 48 q tiles), not the 4 their idle SMs
+    would allow."""
+    got = {(b, h, sq): (sc.splits, sc.stages) for b, h, sq, skv in DUNE_PATH + SP_SHARDS
+           for sc in [attention_schedule(b, h, sq, skv)]}
+    assert got == {(1, 12, 432): (1, 4), (6, 12, 432): (1, 2), (1, 16, 384): (2, 4),
+                   (1, 16, 192): (2, 4)}
 
 
 def _simulate_roll(rows, c, itemsize, g):

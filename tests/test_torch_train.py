@@ -10,8 +10,9 @@ the same flax weights (`params_from_flax`), on the batch of
   is ~1e-6 of the model's largest gradient; relative to a parameter's own it
   reaches 3.7e-4 on the smallest ones (last decoder block's norm2, 1.3e-5 in
   magnitude), where the sums cancel.
-* Attention's backward (`ops.attention.attention_backward`, the card's
-  backward, and autograd through `attention_reference`, the CPU's) against
+* Attention's backward (`ops.attention.attention_backward`, the plain
+  version of the card's backward kernels, from the forward's output and
+  log-sum-exp, and autograd through `attention_reference`, the CPU's) against
   `jax.vjp` of `attention_xla`: f32 within 1e-5, bf16 within 2e-2 of the
   largest gradient (P and its cotangent rounded to bf16 on both sides, sums
   in other orders).
@@ -39,7 +40,8 @@ from mast3r_slam_tpu.models.mast3r import MASt3RNet as JaxMASt3RNet
 from mast3r_slam_tpu.ops.attention import attention_xla
 from mast3r_slam_tpu.parallel import train as jtrain
 from mast3r_slam_torch.models.io import params_from_flax
-from mast3r_slam_torch.ops.attention import attention_backward, attention_reference
+from mast3r_slam_torch.ops.attention import (attention_backward, attention_lse_reference,
+                                             attention_reference)
 from mast3r_slam_torch.parallel import train
 from mast3r_slam_torch.parallel.mesh import spawn
 from mast3r_slam_torch.parallel.trainer import synthetic_pair_batch
@@ -142,11 +144,24 @@ def test_mast3r_loss_and_every_gradient_match_jax(pair, jax_loss, ragged):
     _assert_grads(grads, jgrads)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_attention_backward_matches_jax_vjp(dtype):
+# (dtype, Sq, Skv): Sq != Skv as cross attention has it, and ragged lengths
+# (40 and 56 tokens, not multiples of the kernels' 64-row tiles).
+ATTENTION_GRAD_CASES = [pytest.param(d, 40, 56, id=d) for d in ("float32", "bfloat16")] + [
+    pytest.param(d, sq, skv, id=f"{d}-{sq}x{skv}")
+    for d in ("float32", "bfloat16") for sq, skv in ((40, 40), (56, 56), (56, 40))]
+
+
+@pytest.mark.parametrize("dtype,sq,skv", ATTENTION_GRAD_CASES)
+def test_attention_backward_matches_jax_vjp(dtype, sq, skv):
+    """The plain `attention_backward` (P from q, k and the forward's
+    log-sum-exp, δ = rowsum(dO ∘ o)) and autograd through
+    `attention_reference` against `jax.vjp` of JAX's `attention_xla`: f32
+    within 1e-5 and bf16 within 2e-2 of each gradient's largest magnitude
+    (in bf16, P, dP and dS are rounded at the same places on both sides, but
+    o and δ come from the rounded output here, and sums run in other orders)."""
     rng = np.random.default_rng(1)
     q, k, v, do = (rng.normal(size=(2, 3, s, 64)).astype(np.float32)
-                   for s in (40, 56, 56, 40))
+                   for s in (sq, skv, skv, sq))
     jd = jnp.dtype(dtype)
     jq, jk, jv, jdo = (jnp.asarray(a, jd) for a in (q, k, v, do))
     _, vjp = jax.vjp(attention_xla, jq, jk, jv)
@@ -154,7 +169,8 @@ def test_attention_backward_matches_jax_vjp(dtype):
     td = getattr(torch, dtype)
     tq, tk, tv, tdo = (torch.from_numpy(np.array(a.astype(jnp.float32))).to(td)
                        for a in (jq, jk, jv, jdo))
-    got = attention_backward(tq, tk, tv, tdo)
+    got = attention_backward(tq, tk, tv, attention_reference(tq, tk, tv),
+                             attention_lse_reference(tq, tk), tdo)
     leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
     attention_reference(*leaves).backward(tdo)
     band = 1e-5 if dtype == "float32" else 2e-2
