@@ -9,7 +9,9 @@ example the parent commit, unpacked with `git archive` into a directory that
 sources and timed by this script's code, in a process of their own, once
 before phase 3 and once after phase 4 (attention at the path shapes of 768,
 640 and 432 tokens and phase 16's sp q shards, where the split rule
-decides the launch); the mean of the two is printed as `prev_ms` beside
+decides the launch, and the attention backward at phase 16's five
+gradient shapes through DIR's `flash_attention_backward`, each of its two
+kernels also alone); the mean of the two is printed as `prev_ms` beside
 this checkout's `ms` (null without --parent). This checkout's kernels are
 timed the same way in between (parent, this, this, parent), as `ab_ms`.
 
@@ -182,8 +184,15 @@ Phases, in order; any failure exits non-zero before the result line:
                1e-5 of the plain log-sum-exp, dq/dk/dv within 1e-2 of the
                plain attention_backward and 2e-2 of f32 autograd (of each
                gradient's largest), a repeated backward bit-equal; the
-               backward, the plain backward, SDPA's backward and both
-               forward + backward timed (CUDA graphs); a world-1 NCCL rank: BatchTracker and the
+               backward, the plain backward, SDPA's backward (its flash op
+               and, where the card's PyTorch has it, its cuDNN op) and both
+               forward + backward timed (CUDA graphs), each backward kernel
+               alone (its launches' device time in a torch.profiler trace),
+               and the kernels SDPA's autograd runs named from one trace;
+               ptxas's registers and spills of the backward kernels and the
+               CTAs per SM the runtime gives them held to
+               ops/attention.py's BWD_REGISTERS and BWD_CTAS_PER_SM (the
+               source note's); a world-1 NCCL rank: BatchTracker and the
                graph solve through a (1, 1) mesh (the reference of the next
                group), pp = sp = 1 torch.equal to the unsharded encode, the
                multihost layer, 3 AdamW steps of mast3r_full at 512x384
@@ -2899,6 +2908,106 @@ def sdpa_backward_call(q, k, v, do):
     return lambda: bwd(do, q, k, v, out, lse, cum_q, cum_k, max_q, max_k, 0.0, False, seed, offset)
 
 
+def cudnn_backward_call(q, k, v, do):
+    """(call, None), one PyTorch call of SDPA's cuDNN backward op on the
+    outputs of its cuDNN forward op, a second yardstick; or (None, why) where
+    this PyTorch has no such op or it refuses the shape. The port never
+    calls it."""
+    import torch
+
+    fwd_op = getattr(torch.ops.aten, "_scaled_dot_product_cudnn_attention", None)
+    bwd_op = getattr(torch.ops.aten, "_scaled_dot_product_cudnn_attention_backward", None)
+    if fwd_op is None or bwd_op is None:
+        return None, "no aten._scaled_dot_product_cudnn_attention(_backward) in this PyTorch"
+    try:
+        out, lse, cum_q, cum_k, max_q, max_k, seed, offset = fwd_op(q, k, v, None, True)[:8]
+
+        def call():
+            return bwd_op(do, q, k, v, out, lse, seed, offset, None, cum_q, cum_k, max_q, max_k,
+                          0.0, False)
+
+        call()
+        torch.cuda.synchronize()
+        return call, None
+    except Exception as e:  # a yardstick only: a refusal is reported, not fatal
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+
+
+def kernel_device_ms(fn, calls: int = 10) -> dict:
+    """{kernel name: mean device ms per launch} over `calls` eager calls of
+    fn() under torch.profiler (CUPTI's kernel records; after a warm-up)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    path = os.path.join(REPO, "build", "profile", f"kernels_{os.getpid()}.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(path)
+    durations = collections.defaultdict(list)
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            durations[e["name"]].append(e["dur"] * 1e-3)
+    return {name: sum(d) / len(d) for name, d in durations.items()}
+
+
+def backward_kernel_ms(call) -> dict:
+    """Device ms per launch of each of the two backward kernels (dq, dk/dv)
+    of `call` (one backward), from `kernel_device_ms`; whichever checkout's
+    kernels `call` runs, their symbols hold these names. A kernel the trace
+    lost is None (a measurement, not a check: it is reported)."""
+    per = kernel_device_ms(call)
+    out = {}
+    for key, symbol in (("dq_ms", "flash_bwd_dq_kernel"), ("dkdv_ms", "flash_bwd_dkdv_kernel")):
+        found = [ms for name, ms in per.items() if symbol in name]
+        out[key] = found[0] if len(found) == 1 else None
+        if out[key] is None:
+            print(f"[chip_smoke] no single {symbol} in the trace: {sorted(per)[:8]}", flush=True)
+    return out
+
+
+def backward_build_check() -> dict:
+    """ptxas's report on the backward kernels in this run's build (registers
+    and spill stores of each entry function) and the CTAs per SM that the
+    runtime gives them, held to ops/attention.py's BWD_REGISTERS and
+    BWD_CTAS_PER_SM, the figures of the source's note."""
+    import re
+
+    from mast3r_slam_torch.ops import build
+    from mast3r_slam_torch.ops.attention import (BWD_CTAS_PER_SM, BWD_REGISTERS,
+                                                 backward_occupancy)
+
+    occupancy = backward_occupancy()
+    check(occupancy == dict.fromkeys(BWD_REGISTERS, BWD_CTAS_PER_SM),
+          f"backward kernels: {occupancy} CTAs per SM, the source note says {BWD_CTAS_PER_SM}")
+    log = build.build_logs.get("flash_attention_bwd")
+    report = dict(ctas_per_sm=occupancy, registers=None, spill_stores=None)
+    if log is None:
+        print("[parallel] flash_attention_bwd was not compiled in this run: no ptxas report",
+              flush=True)
+        return report
+    regs, spills = {}, {}
+    for chunk in log.split("Compiling entry function")[1:]:
+        name = chunk.split("'")[1]
+        key = "dq" if "flash_bwd_dq_kernel" in name else "dkdv" if "flash_bwd_dkdv" in name else None
+        if key is None:
+            continue
+        regs[key] = int(re.search(r"Used (\d+) registers", chunk).group(1))
+        spills[key] = int(re.search(r"(\d+) bytes spill stores", chunk).group(1))
+    check(regs == BWD_REGISTERS and not any(spills.values()),
+          f"ptxas: backward registers {regs}, spill stores {spills}; the source note says "
+          f"{BWD_REGISTERS} and no spills")
+    report.update(registers=regs, spill_stores=spills)
+    return report
+
+
 def attention_grad_row(name, b, h, sq, skv, fused, gen, iters: int = 10) -> dict:
     """The kernel's autograd.Function (forward: the kernel with its row
     statistics; backward: the kernels of csrc/flash_attention_bwd.cu) at one
@@ -2908,12 +3017,14 @@ def attention_grad_row(name, b, h, sq, skv, fused, gen, iters: int = 10) -> dict
     of autograd through `attention_reference` on f32 copies (each of the
     gradient's largest magnitude), and bit-equal when the backward is
     repeated. Then device times from CUDA graphs between CUDA events: the
-    backward kernels alone, the plain backward, SDPA's backward alone,
+    backward kernels alone, the plain backward, SDPA's backward ops alone
+    (flash; cuDNN where this PyTorch runs it: `library_ms` is the faster),
     forward + backward through autograd of both; the bounds of the backward
     and of forward + backward (3.5x the forward's flops; q, k, v, dO read
     and o, dq, dk, dv written once). `launch_key` is the key under which
     `flash_attention_backward.launches_by_shape` counts this shape's
-    launches."""
+    launches. (Each kernel's own time and the kernels SDPA's autograd runs
+    come from a trace in a process of its own: `gradient_times`.)"""
     import torch
     import torch.nn.functional as F
 
@@ -2952,24 +3063,36 @@ def attention_grad_row(name, b, h, sq, skv, fused, gen, iters: int = 10) -> dict
 
     t_bwd = time_graph(lambda x: flash_attention_backward(qd, kd, vd, o, lse, x)[0], do)
     t_plain = time_graph(lambda x: attention_backward(qd, kd, vd, o, lse, x)[0], do)
-    t_lib = time_graph_calls(sdpa_backward_call(qd, kd, vd, do))
+    t_flash = time_graph_calls(sdpa_backward_call(qd, kd, vd, do))
+    cudnn, cudnn_why = cudnn_backward_call(qd, kd, vd, do)
+    t_cudnn = None
+    if cudnn is not None:
+        try:
+            t_cudnn = time_graph_calls(cudnn)
+        except Exception as e:  # a yardstick only
+            cudnn_why = f"not capturable: {type(e).__name__}: {str(e).splitlines()[0][:200]}"
+    t_lib = min(t for t in (t_flash, t_cudnn) if t is not None)
     t_fb = time_graph_calls(lambda: torch.autograd.grad(flash_attention(q, k, v), (q, k, v), do))
     t_fb_lib = time_graph_calls(
         lambda: torch.autograd.grad(F.scaled_dot_product_attention(q, k, v), (q, k, v), do))
     bound, bound_by = roofline(b, h, sq, skv, **BACKWARD_WORK)
     fb_bound, _ = roofline(b, h, sq, skv, flops=3.5, tensors=(4, 4))
+    cudnn_text = f"{t_cudnn:.5f}" if t_cudnn is not None else f"not timed ({cudnn_why})"
     print(f"[parallel] attention gradient {name} {[b, h, sq, skv, 64]}: lse within {lse_err:.3e} "
           f"(band {LSE_ATOL}); backward kernels vs plain backward max |d| / max|g| q "
           f"{plain_gaps[0]:.3e} k {plain_gaps[1]:.3e} v {plain_gaps[2]:.3e} (band {BWD_PLAIN_REL}); "
           f"vs f32 q {gaps[0]:.3e} k {gaps[1]:.3e} v {gaps[2]:.3e}, through autograd "
           f"{max(auto_gaps):.3e} (band {GRAD_REL}); repeated backward bit-equal; device ms: "
-          f"backward kernels {t_bwd:.5f}, plain {t_plain:.5f}, SDPA's backward {t_lib:.5f}, bound "
-          f"{bound:.5f} ({bound_by}), {bound / t_bwd:.1%} of it; forward + backward kernels "
-          f"{t_fb:.5f}, SDPA {t_fb_lib:.5f}, bound {fb_bound:.5f}", flush=True)
+          f"backward kernels {t_bwd:.5f}, plain {t_plain:.5f}, SDPA's backward: flash op "
+          f"{t_flash:.5f}, cuDNN op {cudnn_text}; bound {bound:.5f} ({bound_by}), "
+          f"{bound / t_bwd:.1%} of it; {t_bwd / t_lib:.3f}x the faster library op; forward + "
+          f"backward kernels {t_fb:.5f}, SDPA {t_fb_lib:.5f}, bound {fb_bound:.5f}", flush=True)
     return dict(case=name, shape=[b, h, sq, skv, 64], launch_key=backward_launch_key(qd, kd, vd),
                 lse_err=lse_err, max_abs_err=max_err,
                 plain_rel_err=plain_gaps, grad_rel_err=gaps, autograd_rel_err=auto_gaps, ms=t_bwd,
-                plain_ms=t_plain, library_ms=t_lib, bound_ms=bound, bound_by=bound_by,
+                prev_ms=None, plain_ms=t_plain, library_ms=t_lib,
+                library_flash_ms=t_flash, library_cudnn_ms=t_cudnn, library_cudnn_note=cudnn_why,
+                bound_ms=bound, bound_by=bound_by,
                 fwd_bwd_ms=t_fb, library_fwd_bwd_ms=t_fb_lib, fwd_bwd_bound_ms=fb_bound)
 
 
@@ -3282,9 +3405,22 @@ def parallel_phase() -> dict:
     c = MASt3RConfig.mast3r_full()
     gen = torch.Generator(device="cuda").manual_seed(16)
     attention = [attention_row(*case, gen) for case in parallel_attention_cases(c)]
+    bwd_build = backward_build_check()
+    print(f"[parallel] backward kernels: {bwd_build['ctas_per_sm']} CTAs per SM (runtime), ptxas "
+          f"registers {bwd_build['registers']}, spill stores {bwd_build['spill_stores']}, as the "
+          f"source note states ({card})", flush=True)
     grads = [attention_grad_row(name, b, c.enc_num_heads if enc else c.dec_num_heads, sq, skv,
                                 fused, gen)
              for name, b, sq, skv, fused, enc in GRAD_CASES]
+    per_kernel = time_other(REPO, backward_only=True)["gradient"]
+    for row in grads:
+        timed = per_kernel[row["case"]]
+        row.update(dq_ms=timed["dq_ms"], dkdv_ms=timed["dkdv_ms"], trace_ms=timed["ms"],
+                   sdpa_autograd_kernels=timed["sdpa_autograd_kernels"])
+        print(f"[parallel] attention gradient {row['case']}: per launch, dq kernel "
+              f"{row['dq_ms']} and dk/dv kernel {row['dkdv_ms']} device ms (torch.profiler, in a "
+              f"process of its own, whose graph chain took {row['trace_ms']:.5f}); SDPA's "
+              f"autograd ran {row['sdpa_autograd_kernels']}", flush=True)
     torch.cuda.empty_cache()
     workdir = tempfile.mkdtemp(prefix="parallel-")
     t1 = time.perf_counter()
@@ -3438,7 +3574,8 @@ def parallel_phase() -> dict:
           f"reported); {cc['seconds']:.1f} s", flush=True)
     seconds = time.perf_counter() - t0
     print(f"[parallel] phase {seconds:.1f} s ({card})", flush=True)
-    return dict(attention=attention, gradient=grads, serving=serving, solve=solve,
+    return dict(attention=attention, gradient=grads, backward_build=bwd_build, serving=serving,
+                solve=solve,
                 encode_gap=one["encode_gap"], sp2=[r["sp2"] for r in two], multihost=mh,
                 train={k: v for k, v in tr.items()}, card_cpu=cc,
                 launches=dict(world1=want["launches"], dp2=two[0]["dp2"]["launches"],
@@ -3463,25 +3600,21 @@ def other_kernel_times(root: str) -> dict:
     of this one's, at the kernel and probe phases' shapes, with this script's
     inputs and timing code and only the checkout's public entry points:
     attention at `parent_attention_cases` (graph and eager wall), the five
-    roll cases, the matcher-plane roll warm and cold."""
+    roll cases, the matcher-plane roll warm and cold; the attention
+    backward at GRAD_CASES (`gradient_times`)."""
     import numpy as np
     import torch
 
-    sys.path.insert(0, root)
-    import mast3r_slam_torch
-    from mast3r_slam_torch.ops import build
+    gen = import_checkout(root)
     from mast3r_slam_torch.ops.attention import flash_attention
     from mast3r_slam_torch.ops.lane_shift import roll_last_axis
 
-    check(os.path.dirname(os.path.dirname(mast3r_slam_torch.__file__)) == root,
-          f"imported {mast3r_slam_torch.__file__}, not the checkout at {root}")
-    build.build_all()
-    gen = torch.Generator(device="cuda").manual_seed(0)
     attention = {}
     for name, b, h, sq, skv, fused in parent_attention_cases():
         q, k, v = attention_inputs(b, h, sq, skv, fused, gen)
         attention[name] = dict(ms=time_graph(lambda x: flash_attention(x, k, v), q),
                                eager_wall_ms=time_eager(lambda x: flash_attention(x, k, v), q))
+    gradient = gradient_times(gen)
     rng = np.random.default_rng(4)
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     rolls = {}
@@ -3495,27 +3628,92 @@ def other_kernel_times(root: str) -> dict:
         "cuda", torch.bfloat16) for _ in range(COLD_PAIRS)]
     rolls["roll_last_axis_bf16"] = dict(ms=time_graph(lambda y: roll_last_axis(y, 3), xs[0]),
                                         cold_ms=time_cold(lambda y: roll_last_axis(y, 3), xs))
-    return dict(attention=attention, rolls=rolls)
+    return dict(attention=attention, rolls=rolls, gradient=gradient)
 
 
-def time_other(root: str) -> dict:
+def import_checkout(root: str):
+    """Put the checkout at `root` first on the path, check that its package
+    is the one imported, build its kernels; -> a seeded CUDA generator."""
+    import torch
+
+    sys.path.insert(0, root)
+    import mast3r_slam_torch
+    from mast3r_slam_torch.ops import build
+
+    check(os.path.dirname(os.path.dirname(mast3r_slam_torch.__file__)) == root,
+          f"imported {mast3r_slam_torch.__file__}, not the checkout at {root}")
+    build.build_all()
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def gradient_times(gen) -> dict:
+    """The attention backward of the checkout `import_checkout` imported, at
+    GRAD_CASES, through its `flash_attention_backward`
+    on o and lse from its plain `attention_reference` and
+    `attention_lse_reference`: the backward in a graph chain (`ms`), each of
+    its two kernels per launch in a trace (`backward_kernel_ms`), and the
+    kernels that SDPA's autograd runs forward and backward, by name. A trace
+    taken late in the main process recorded no kernel on the H100, so this
+    runs in a process of its own."""
+    import torch
+    import torch.nn.functional as F
+
+    from mast3r_slam_torch.models import MASt3RConfig
+    from mast3r_slam_torch.ops.attention import (attention_lse_reference, attention_reference,
+                                                 flash_attention_backward)
+
+    c = MASt3RConfig.mast3r_full()
+    out = {}
+    for name, b, sq, skv, fused, enc in GRAD_CASES:
+        q, k, v = attention_inputs(b, c.enc_num_heads if enc else c.dec_num_heads, sq, skv, fused,
+                                   gen)
+        do = torch.randn(b, sq, q.shape[1], 64, device="cuda", dtype=torch.bfloat16,
+                         generator=gen).transpose(1, 2)
+        o, lse = attention_reference(q, k, v), attention_lse_reference(q, k)
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        sdpa = kernel_device_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(*leaves), leaves, do), calls=1)
+        out[name] = dict(
+            ms=time_graph(lambda x: flash_attention_backward(q, k, v, o, lse, x)[0], do),
+            **backward_kernel_ms(lambda: flash_attention_backward(q, k, v, o, lse, do)),
+            sdpa_autograd_kernels=sorted(sdpa))
+    return out
+
+
+def time_other(root: str, backward_only: bool = False) -> dict:
     """other_kernel_times(root) in a process of its own (this script with
-    --time-kernels-of), so that both checkouts' packages never meet."""
-    out = subprocess.run([sys.executable, os.path.abspath(__file__), "--time-kernels-of", root],
+    --time-kernels-of), so that both checkouts' packages never meet; with
+    `backward_only`, only the backward's: {"gradient": `gradient_times`}."""
+    flag = "--time-backward-of" if backward_only else "--time-kernels-of"
+    out = subprocess.run([sys.executable, os.path.abspath(__file__), flag, root],
                          capture_output=True, text=True, timeout=600, check=False)
     check(out.returncode == 0, f"timing the kernels of {root} failed (rc {out.returncode}): "
           f"{out.stderr[-3000:]}")
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
-def add_prev(rows: list, probe: dict, runs: list, own: list) -> None:
+def add_prev(rows: list, probe: dict, runs: list, own: list, grads: tuple = ()) -> None:
     """Set each attention row's prev_ms (and the matcher-plane roll's
     prev_cold_ms) to the mean over `runs` of the other checkout's time for
     the same case, and its ab_ms to the mean over `own` of this checkout's
     time taken the same way (`time_other` of this checkout, between the
-    other's two runs: parent, this, this, parent)."""
+    other's two runs: parent, this, this, parent); each gradient row's too,
+    with each backward kernel's (prev_dq_ms, ab_dq_ms, and dkdv)."""
     def mean(key, group, case, over=runs):
-        return sum(r[group][case][key] for r in over) / len(over)
+        got = [r[group][case][key] for r in over]
+        return None if None in got else sum(got) / len(got)
+
+    turns = [runs[0], *own, runs[1]]
+    for row in grads:
+        case = row["case"]
+        for key in ("ms", "dq_ms", "dkdv_ms"):
+            row[f"prev_{key}"] = mean(key, "gradient", case)
+            row[f"ab_{key}"] = mean(key, "gradient", case, own)
+        print(f"[parent] flash_attention_backward {case}: device ms parent, this, this, parent "
+              f"{[round(r['gradient'][case]['ms'], 5) for r in turns]}: "
+              f"{row['ab_ms'] / row['prev_ms']:.3f}x (this checkout's phase row {row['ms']:.5f}); "
+              f"per launch dq kernel {[r['gradient'][case]['dq_ms'] for r in turns]}, "
+              f"dk/dv kernel {[r['gradient'][case]['dkdv_ms'] for r in turns]}", flush=True)
 
     for row in rows:
         case = row["case"]
@@ -3523,7 +3721,6 @@ def add_prev(rows: list, probe: dict, runs: list, own: list) -> None:
             row["prev_ms"] = mean("ms", "attention", case)
             row["ab_ms"] = mean("ms", "attention", case, own)
             row["prev_eager_wall_ms"] = mean("eager_wall_ms", "attention", case)
-            turns = [runs[0], *own, runs[1]]
             print(f"[parent] flash_attention {case}: device ms parent, this, this, parent "
                   f"{[round(r['attention'][case]['ms'], 5) for r in turns]}: "
                   f"{row['ab_ms'] / row['prev_ms']:.3f}x (this checkout's phase row "
@@ -3544,15 +3741,20 @@ def main(argv=None) -> int:
     ap.add_argument("--parent", metavar="DIR",
                     help="another checkout whose kernels are timed beside this one's (prev_ms)")
     ap.add_argument("--time-kernels-of", metavar="DIR", help=argparse.SUPPRESS)
+    ap.add_argument("--time-backward-of", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
         print("[chip_smoke] CUDA is not available: this smoke run needs a GPU", file=sys.stderr)
         return 2
-    if args.time_kernels_of:
+    if args.time_kernels_of or args.time_backward_of:
         try:
-            print(json.dumps(other_kernel_times(os.path.abspath(args.time_kernels_of))))
+            if args.time_kernels_of:
+                print(json.dumps(other_kernel_times(os.path.abspath(args.time_kernels_of))))
+            else:
+                root = os.path.abspath(args.time_backward_of)
+                print(json.dumps({"gradient": gradient_times(import_checkout(root))}))
         except SmokeFailure as e:
             print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
             return 1
@@ -3602,7 +3804,7 @@ def main(argv=None) -> int:
         parallel = parallel_phase()
         if parent:
             add_prev(calib["attention"] + configs["attention"] + parallel["attention"], {}, runs,
-                     own)
+                     own, parallel["gradient"])
     except SmokeFailure as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
         return 1
@@ -3666,12 +3868,16 @@ def main(argv=None) -> int:
         launches_by_kernel=parallel["train"]["backward_launches"],
         max_abs_err=max(r["max_abs_err"] for r in parallel["gradient"]),
         ms=grad["ms"],
+        prev_ms=grad["prev_ms"],
+        dq_ms=grad["dq_ms"],
+        dkdv_ms=grad["dkdv_ms"],
         plain_ms=grad["plain_ms"],
         bound_ms=grad["bound_ms"],
         bound_by=grad["bound_by"],
         library_ms=grad["library_ms"],
         shape=grad["shape"],
         by_shape=parallel["gradient"],
+        build=parallel["backward_build"],
     ))
     for name, row in probe.items():
         kernels.append(dict(

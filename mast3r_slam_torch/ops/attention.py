@@ -25,10 +25,11 @@ gradient goes through `_FlashAttention`, a `torch.autograd.Function`: its
 forward is the kernel, launched so that it also writes each row's
 log-sum-exp (`lse`), and its backward is `flash_attention_backward`, the
 two hand-written kernels of ``csrc/flash_attention_bwd.cu`` (dq with δ, then
-dk and dv), which recompute P from q, k and lse and keep no [S, S] tensor in
-device memory. They replace XLA's VJP of JAX's ``attention_xla``, the route
-JAX training takes (its ViT's key length is below ``FLASH_MIN_KV``, and the
-Pallas kernel has no VJP). `attention_backward` is their plain version and
+dk and dv; wgmma products, TMA rings, one wave at training's shapes), which
+recompute P from q, k and lse and keep no [S, S] tensor in device memory;
+`backward_schedule` is their launch geometry. They replace XLA's VJP of
+JAX's ``attention_xla``, the route JAX training takes (its ViT's key length
+is below ``FLASH_MIN_KV``, and the Pallas kernel has no VJP). `attention_backward` is their plain version and
 `attention_lse_reference` the forward's row statistics in plain ops; the
 backward's least time is `roofline(..., **BACKWARD_WORK)`.
 `flash_attention_backward.launches` counts its launches by kernel symbol,
@@ -166,6 +167,62 @@ def attention_schedule(b: int, h: int, sq: int, skv: int) -> Schedule:
     return make_schedule(b, h, sq, skv, splits, 4)
 
 
+# csrc/flash_attention_bwd.cu: each kernel's CTA is one warpgroup; three
+# CTAs share an SM at the registers ptxas gives each kernel (sm_90a; the
+# source's note states the same, tests/test_torch_backward_schedule.py holds
+# the two together and chip_smoke.py holds them to the card's build); the
+# walked tiles come through a ring of BWD_STAGES stages.
+BWD_THREADS = 128
+BWD_CTAS_PER_SM = 3
+BWD_STAGES = 3
+BWD_REGISTERS = {"dq": 122, "dkdv": 154}  # per thread
+_BWD_TILE_BYTES = BLOCK_Q * _HEAD_DIM * 2
+BWD_SMEM = {  # dynamic shared memory per CTA: two resident tiles, two a stage, 1024 for alignment
+    "dq": _BWD_TILE_BYTES * (2 + 2 * BWD_STAGES) + 1024,
+    "dkdv": _BWD_TILE_BYTES * (2 + 2 * BWD_STAGES) + 4 * 2 * BLOCK_Q * BWD_STAGES + 1024,
+}
+
+
+class BackwardLaunch(NamedTuple):
+    """One launch of a backward kernel: `grid` = (tiles, B * H, 1) CTAs of
+    `block` threads, each with `smem` bytes of dynamic shared memory and a
+    ring of `stages` walked tiles."""
+
+    grid: tuple[int, int, int]
+    block: tuple[int, int, int]
+    smem: int
+    stages: int
+
+
+class BackwardSchedule(NamedTuple):
+    """The two launches of one backward: `dq`, one CTA per (q tile, b·h)
+    walking every key tile, then `dkdv`, one CTA per (key tile, b·h) walking
+    every q tile; `waves` is how many rounds of `ctas_per_sm` CTAs on each of
+    the card's SMs the larger launch takes."""
+
+    dq: BackwardLaunch
+    dkdv: BackwardLaunch
+    ctas_per_sm: int
+    waves: int
+
+
+@functools.lru_cache(maxsize=1024)
+def backward_schedule(b: int, h: int, sq: int, skv: int) -> BackwardSchedule:
+    """One CTA per 64-row tile of each pass, BWD_CTAS_PER_SM of them on an
+    SM: the 384 CTAs of (2, 16, 768, 768) and the 288 of (2, 12) each start
+    in one wave of 396, where PR 9's two CTAs per SM took a second wave.
+    Three fit because a CTA is one warpgroup with no producer warp (the
+    source's note says why); the card's runtime confirms the count
+    (`backward_occupancy`, checked by chip_smoke.py)."""
+    q_tiles, kv_tiles = -(-sq // BLOCK_Q), -(-skv // BLOCK_K)
+    block = (BWD_THREADS, 1, 1)
+    dq = BackwardLaunch((q_tiles, b * h, 1), block, BWD_SMEM["dq"], BWD_STAGES)
+    dkdv = BackwardLaunch((kv_tiles, b * h, 1), block, BWD_SMEM["dkdv"], BWD_STAGES)
+    resident = _SMS * BWD_CTAS_PER_SM
+    waves = -(-max(q_tiles, kv_tiles) * b * h // resident)
+    return BackwardSchedule(dq, dkdv, BWD_CTAS_PER_SM, waves)
+
+
 def _kernel():
     from mast3r_slam_torch.ops import build
 
@@ -183,18 +240,35 @@ def _kernel():
 
 
 def _backward_kernels():
-    """(dq, dkdv) entry points of csrc/flash_attention_bwd.cu: 8 pointers,
-    B, H, Sq, Skv, 18 strides and the stride of lse / δ, scale, stream."""
+    """(dq, dkdv) entry points of csrc/flash_attention_bwd.cu. dq: 8
+    pointers, B, H, Sq, Skv, 18 strides and lse's row stride; dkdv: 7
+    pointers, B, H, Sq, Skv, 18 strides; then both scale, ring depth,
+    stream."""
     from mast3r_slam_torch.ops import build
 
     lib = build.load("flash_attention_bwd")
     fns = lib.flash_attention_bwd_dq_bf16, lib.flash_attention_bwd_dkdv_bf16
-    for fn in fns:
+    for fn, pointers, strides in zip(fns, (8, 7), (19, 18)):
         if fn.argtypes is None:
-            fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 19
-                           + [ctypes.c_float, ctypes.c_void_p])
+            fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * 4
+                           + [ctypes.c_longlong] * strides
+                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
             fn.restype = ctypes.c_int
     return fns
+
+
+def backward_occupancy() -> dict:
+    """CTAs of each backward kernel that one SM of the current card holds
+    at once, as the CUDA runtime computes it from the built kernels'
+    registers and shared memory: {"dq": n, "dkdv": n}."""
+    from mast3r_slam_torch.ops import build
+
+    fn = build.load("flash_attention_bwd").flash_attention_bwd_occupancy
+    dq, dkdv = ctypes.c_int(0), ctypes.c_int(0)
+    err = fn(ctypes.byref(dq), ctypes.byref(dkdv))
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd_occupancy failed: cudaError {err}")
+    return {"dq": dq.value, "dkdv": dkdv.value}
 
 
 def _kernel_layout(x: torch.Tensor) -> torch.Tensor:
@@ -316,8 +390,8 @@ def backward_launch_key(q, k, v) -> str:
 
 # Launches counted only by `_launch_backward`, just after a launch that
 # succeeded: by kernel symbol, and by `backward_launch_key` and symbol. The
-# dq kernel also computes δ = rowsum(dO ∘ o) for the dk/dv kernel, which
-# reads it.
+# dq kernel also computes δ = rowsum(dO ∘ o) and writes δ · scale and
+# lse · log2 e for the dk/dv kernel, which reads them.
 BACKWARD_SYMBOLS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkdv")
 flash_attention_backward.launches = dict.fromkeys(BACKWARD_SYMBOLS, 0)
 flash_attention_backward.launches_by_shape = {}
@@ -332,8 +406,8 @@ def _count_backward(symbol: str, key: str) -> None:
 
 def _launch_backward(q, k, v, o, lse, grad_out, scale: float | None = None):
     """Check the forward's tensors and the cotangent, launch the dq kernel
-    (δ and dq) and then the dk/dv kernel on the current stream, and count
-    each launch."""
+    (δ, the row statistics and dq) and then the dk/dv kernel on the current
+    stream with `backward_schedule`'s launches, and count each launch."""
     if any(t.device != q.device for t in (k, v, o, lse, grad_out)) or q.device.type != "cuda":
         raise ValueError("flash_attention_backward: q/k/v/o/lse/grad_out on "
                          f"{[str(t.device) for t in (q, k, v, o, lse, grad_out)]}, not one card")
@@ -362,27 +436,30 @@ def _launch_backward(q, k, v, o, lse, grad_out, scale: float | None = None):
     if sq == 0 or b * h == 0:  # no q row: dk and dv are 0
         return dq, dk.zero_(), dv.zero_()
     key = backward_launch_key(q, k, v)
+    schedule = backward_schedule(b, h, sq, skv)
     q, k, v, o, grad_out = (_kernel_layout(t) for t in (q, k, v, o, grad_out))
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    # Per q tile of each (b, h): its 64 rows' lse · log2 e (+inf past Sq), then their δ (0).
+    stats = torch.empty((b * h, schedule.dq.grid[0], 2, BLOCK_Q), dtype=torch.float32,
+                        device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     dq_kernel, dkdv_kernel = _backward_kernels()
     err = dq_kernel(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), grad_out.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        lse.data_ptr(), stats.data_ptr(), dq.data_ptr(),
         b, h, sq, skv,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
         *grad_out.stride()[:3], *dq.stride()[:3], sq,
-        float(scale), stream)
+        float(scale), schedule.dq.stages, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd_dq kernel launch failed: cudaError {err}")
     _count_backward("flash_attention_bwd_dq", key)
     err = dkdv_kernel(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), grad_out.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), grad_out.data_ptr(), stats.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(),
         b, h, sq, skv,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *grad_out.stride()[:3],
-        *dk.stride()[:3], *dv.stride()[:3], sq,
-        float(scale), stream)
+        *dk.stride()[:3], *dv.stride()[:3],
+        float(scale), schedule.dkdv.stages, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd_dkdv kernel launch failed: cudaError {err}")
     _count_backward("flash_attention_bwd_dkdv", key)

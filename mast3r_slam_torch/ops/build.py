@@ -13,8 +13,10 @@ the same way with g++ into ``build/native/``:
 
 (no -march=native: a build tree copied to another host must still load).
 
-Each library name carries a hash of the source and the flags, so an edited
-source is rebuilt and a stale build is never loaded. Nothing here runs at
+Each library name carries a hash of the source, of every header it
+includes with ``#include "..."`` (``csrc/hopper.cuh``, and what that
+includes), and of the flags, so an edited source or header is rebuilt and a
+stale build is never loaded. Nothing here runs at
 import time; the CPU tests import this module on hosts without nvcc.
 """
 
@@ -23,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
@@ -41,6 +44,7 @@ GXX_FLAGS = ["-O3", "-fopenmp", "-shared", "-fPIC"]
 KERNEL_SOURCES = ("flash_attention", "flash_attention_bwd", "lane_shift")
 NATIVE_SOURCES = ("preprocess",)
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 _loaded: dict[str, ctypes.CDLL] = {}
 build_logs: dict[str, str] = {}  # ptxas register/shared-memory report per source
 
@@ -56,6 +60,19 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built on a host with the CUDA toolkit")
 
 
+def _sources(src: Path) -> list[Path]:
+    """`src` and every file it includes with quotes, transitively, each once
+    (paths relative to the including file, as the compilers resolve them)."""
+    seen, todo = [], [src]
+    while todo:
+        path = todo.pop(0).resolve()
+        if path in seen or not path.exists():  # not beside the source: a system header
+            continue
+        seen.append(path)
+        todo += [path.parent / inc for inc in _INCLUDE.findall(path.read_text())]
+    return seen
+
+
 def _target(name: str) -> tuple[Path, list[str], Path]:
     """(source, compiler command without -o, output library) of `name`."""
     if name in NATIVE_SOURCES:
@@ -64,7 +81,8 @@ def _target(name: str) -> tuple[Path, list[str], Path]:
     else:
         src, flags, out_dir = CSRC / f"{name}.cu", NVCC_FLAGS, BUILD_DIR
         cmd = ["nvcc", *flags]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:12]
+    text = b"".join(path.read_bytes() for path in _sources(src))
+    digest = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:12]
     return src, cmd, out_dir / f"lib{name}-{digest}.so"
 
 
