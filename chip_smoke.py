@@ -209,6 +209,20 @@ Phases, in order; any failure exits non-zero before the result line:
                within 1e-4 of the unsharded one, and sp 2 within 5e-2 of
                max |tokens|. The pipeline at pp > 1 (send/recv, which gloo
                cannot do with CUDA tensors) runs only in the CPU tests.
+ 17. track-api - run after phase 13, before phase 14 quantizes the model:
+               FrameTracker.track with phase 7's mast3r_full, fused and
+               unfused, on a fresh frame, then on the same frame holding a
+               pointmap against a second keyframe (fused: the step folds the
+               pointmap in): events equal, statistics within phase 5's 0.02,
+               frame.N 2, six match_info entries with finite Qkf / Qff of
+               shape [1, n, 1], attention launches per call as predicted from
+               the depths; ms per call of each kind, printed beside the card
+               line. The same at phase 5's small size, card against CPU, in
+               rays and calibrated mode. GaussNewtonSolver on the outlier line
+               fit (huber, then tukey) card against CPU within 1e-5, the same
+               iteration count, no host sync inside solve. Symmetric inference
+               and MASt3RModel.reconstruct at full width: finite, shapes,
+               attention launches as predicted.
 Then it prints the kernels JSON line, the card line, and last
 {"ok": true, "device": {...}}.
 """
@@ -318,6 +332,8 @@ POSED_POSE_ATOL = 1e-4  # the well-posed problem's final poses against the truth
 SNAP_FRAMES, SNAP_EVERY = 8, 4  # phase 11: frames before the snapshot and after it
 WINDOW_MB = 4  # phase 12: runtime.window_decode_microbatch
 OFFLINE_FRAMES, OFFLINE_PAIR_BATCH = 8, 8  # phase 13: OfflineReconstructor's frames, pair_batch
+TRACK_API_TIMED = 3  # phase 17: timed track calls of each kind
+GN_ATOL = 1e-5  # phase 17: GaussNewtonSolver card vs CPU
 
 
 class SmokeFailure(Exception):
@@ -782,20 +798,30 @@ def probe_phase() -> dict:
 # -- phase 5 ---------------------------------------------------------------
 
 
-def reference_phase(cfg, device: str = "cuda") -> None:
-    """The tracking step of a small bf16 model on `device` vs on the CPU."""
-    import numpy as np
+def small_models(device: str = "cuda") -> tuple:
+    """Phase 5's small bf16 model (head dim 64, depth 2, 48x64) on the CPU and
+    on `device`, with the same weights."""
     import torch
 
     from mast3r_slam_torch.models import MASt3RConfig, MASt3RModel
-    from mast3r_slam_torch.tracker import FrameTracker
-    from mast3r_slam_torch.workload import drift_frames
 
     small = MASt3RConfig(enc_embed_dim=128, enc_depth=2, enc_num_heads=2, dec_embed_dim=128,
                          dec_depth=2, dec_num_heads=2, head_type="dpt", dtype=torch.bfloat16)
     cpu = MASt3RModel.create(cfg=small, resolution=64, seed=1, device="cpu")
     gpu = MASt3RModel.create(cfg=small, resolution=64, seed=1, device=device)
     gpu.load_state_dict(cpu.net.state_dict())
+    return cpu, gpu
+
+
+def reference_phase(cfg, device: str = "cuda") -> None:
+    """The tracking step of a small bf16 model on `device` vs on the CPU."""
+    import numpy as np
+    import torch
+
+    from mast3r_slam_torch.tracker import FrameTracker
+    from mast3r_slam_torch.workload import drift_frames
+
+    cpu, gpu = small_models(device)
     h, w = cpu.out_hw
     rng = np.random.default_rng(1)
     base = rng.uniform(0, 1, (h, w, 3)).astype(np.float32)
@@ -2596,6 +2622,267 @@ def offline_phase(model) -> dict:
                 launches=launches, predicted=predicted, attention=rows)
 
 
+# -- phase 17 --------------------------------------------------------------
+
+
+def _track_run(model, settings: dict, fused: bool, imgs: tuple, timed: int) -> dict:
+    """`FrameTracker.track` over an arena on the model's device: the
+    keyframe's mono decode appended, a fresh frame tracked, a second keyframe
+    appended, the same frame tracked again (it now holds a pointmap); then
+    `timed` fresh frames of the same image and `timed` more calls on the held
+    frame, timed (wall ms per call, the call's own host read included).
+    Attention launches counted per call. `fused` picks the fused step or the
+    unfused path; `settings` rays or calibrated (`use_calib`)."""
+    import torch
+
+    from mast3r_slam_torch.config import Config, set_config
+    from mast3r_slam_torch.frame import Keyframes, create_frame
+    from mast3r_slam_torch.inference import mast3r_inference_mono, mast3r_match_asymmetric
+    from mast3r_slam_torch.ops.attention import flash_attention
+    from mast3r_slam_torch.tracker import FrameTracker
+
+    cfg = set_config(Config.from_dict(settings))
+    dev = model.device
+    img_kf, img_f, img_kf2 = imgs
+    h, w = model.out_hw
+    kfs = Keyframes(h, w, device=dev)
+
+    def add_keyframe(i, img):
+        kf = create_frame(i, img, device=dev)
+        kf.X_canon, kf.C, kf.feat, kf.pos = mast3r_inference_mono(model, kf)
+        kf.N = kf.N_updates = 1
+        kfs.append(kf)
+
+    add_keyframe(0, img_kf)
+    if cfg.use_calib:
+        kfs.set_intrinsics(torch.tensor([[float(w), 0.0, w / 2.0], [0.0, float(w), h / 2.0],
+                                         [0.0, 0.0, 1.0]], device=dev))
+    tracker = FrameTracker(model, cfg, keyframes=kfs)
+    tracker._use_fused = fused and tracker._use_fused
+    check(tracker._use_fused == fused, f"track: fused {fused} not available")
+    frame = create_frame(1, img_f, device=dev)
+    calls = []
+    for call in range(2):
+        if call:
+            add_keyframe(2, img_kf2)
+        flash_attention.launches = 0
+        new_kf, info, reloc = tracker.track(frame, mast3r_match_asymmetric)
+        calls.append(dict(flags=(new_kf, reloc), stats=dict(tracker.last_stats), N=frame.N,
+                          info=info, launches=flash_attention.launches,
+                          T=frame.T_WC.float().cpu()))
+
+    def wall_ms(fn, n):
+        _sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        _sync(dev)
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    fresh_ms = wall_ms(lambda: tracker.track(create_frame(3, img_f, device=dev),
+                                             mast3r_match_asymmetric), timed)
+    held_ms = wall_ms(lambda: tracker.track(frame, mast3r_match_asymmetric), timed)
+    n = frame.X_canon.shape[0]
+    return dict(calls=calls, fresh_ms=fresh_ms, held_ms=held_ms, n=n, N_after=frame.N)
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _check_track_info(tag: str, run: dict) -> None:
+    """Six match_info entries, Qkf / Qff finite and [1, n, 1]."""
+    import torch
+
+    for j, call in enumerate(run["calls"]):
+        info = call["info"]
+        check(len(info) == 6, f"{tag} call {j}: match_info has {len(info)} entries")
+        for k, a in enumerate(info):
+            check(bool(torch.isfinite(a).all()), f"{tag} call {j}: match_info[{k}] not finite")
+        for k in (4, 5):
+            check(tuple(info[k].shape) == (1, run["n"], 1),
+                  f"{tag} call {j}: match_info[{k}] shape {tuple(info[k].shape)}")
+
+
+def _compare_track_runs(tag: str, a: dict, b: dict) -> float:
+    """Events equal, statistics within phase 5's band, counts equal -> the
+    largest statistics gap."""
+    gap = 0.0
+    for j, (x, y) in enumerate(zip(a["calls"], b["calls"])):
+        check(x["flags"] == y["flags"], f"{tag} call {j}: events {x['flags']} vs {y['flags']}")
+        check(x["N"] == y["N"], f"{tag} call {j}: frame.N {x['N']} vs {y['N']}")
+        gap = max([gap] + [abs(x["stats"][k] - y["stats"][k]) for k in x["stats"]])
+    check(gap <= TRACK_STATS_ATOL, f"{tag}: statistics differ by {gap:.3e}")
+    return gap
+
+
+def track_api_phase(model) -> dict:
+    """Phase 17: the library surface on the card. `FrameTracker.track` with
+    phase 7's mast3r_full, fused and unfused, each on a fresh frame and then
+    on the same frame holding a pointmap (`_track_run`): events equal, the
+    statistics within phase 5's 0.02, frame.N 2 under weighted_pointmap,
+    six match_info entries with finite Qkf / Qff of JAX's [1, n, 1], and the
+    attention launches of each call as predicted from the depths (an encode
+    for a fresh frame, one two-view decode); ms per call of each path. The
+    same at phase 5's small size on the card against the CPU, in rays and
+    calibrated mode. `GaussNewtonSolver` on JAX's outlier line fit, card
+    against CPU within 1e-5, the same iteration count, and no host sync
+    inside `solve`. `mast3r_symmetric_inference` and
+    `MASt3RModel.reconstruct` at full width: finite outputs of the expected
+    shapes and the predicted attention launches."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from mast3r_slam_torch.config import Config, set_config
+    from mast3r_slam_torch.frame import create_frame
+    from mast3r_slam_torch.inference import mast3r_symmetric_inference
+    from mast3r_slam_torch.ops.attention import flash_attention
+    from mast3r_slam_torch.ops.gauss_newton import GaussNewtonSolver, GNParams
+    from mast3r_slam_torch.profile_step import count_syncs
+    from mast3r_slam_torch.workload import BENCH_SETTINGS
+
+    t0 = time.perf_counter()
+    out = dict(launches={})
+    dev = model.device
+
+    def settings(use_calib: bool = False) -> dict:
+        d = copy.deepcopy(BENCH_SETTINGS)
+        d["runtime"]["keyframe_capacity"] = 4
+        d["tracking"]["pixel_border"] = 0.5
+        return dict(d, use_calib=use_calib)
+
+    def images(hw, seed):
+        rng = np.random.default_rng(seed)
+        kf = rng.uniform(0, 1, hw + (3,)).astype(np.float32)
+        f = np.clip(kf + rng.normal(0, 0.01, kf.shape).astype(np.float32), 0, 1)
+        return kf, f, np.roll(kf, 2, axis=1)
+
+    # full width: fused against unfused on the card
+    c = model.cfg
+    enc, dec = c.enc_depth, 4 * c.dec_depth
+    h, w = model.out_hw
+    imgs = images((h, w), 17)
+    runs = {name: _track_run(model, settings(), fused, imgs, TRACK_API_TIMED)
+            for name, fused in (("fused", True), ("unfused", False))}
+    for name, run in runs.items():
+        _check_track_info(f"track {name}", run)
+        check(run["calls"][1]["N"] == 2, f"track {name}: frame.N {run['calls'][1]['N']} after "
+              "the held frame's call (weighted_pointmap: 2)")
+        got = [cl["launches"] for cl in run["calls"]]
+        check(got == [enc + dec, dec], f"track {name}: attention launches {got}, predicted "
+              f"[{enc} + {dec}, {dec}] (an encode of the fresh frame, one decode each)")
+        check(all(bool(torch.isfinite(cl["T"]).all()) for cl in run["calls"]),
+              f"track {name}: non-finite pose")
+        out["launches"][f"track_{name}"] = sum(got)
+    gap = _compare_track_runs("track fused vs unfused", runs["fused"], runs["unfused"])
+    out["full"] = dict(
+        stats_gap=gap, events=[list(cl["flags"]) for cl in runs["fused"]["calls"]],
+        **{f"{k}_{m}": runs[k][m] for k in runs for m in ("fresh_ms", "held_ms")},
+        launches_per_call=[cl["launches"] for cl in runs["fused"]["calls"]])
+    print(f"[track-api] {card_line()}: mast3r_full {w}x{h} bf16 track ms per call, fused: fresh "
+          f"frame {runs['fused']['fresh_ms']:.2f}, held frame {runs['fused']['held_ms']:.2f}; "
+          f"unfused: fresh {runs['unfused']['fresh_ms']:.2f}, held "
+          f"{runs['unfused']['held_ms']:.2f} ({TRACK_API_TIMED} calls each); events "
+          f"{out['full']['events']}, statistics fused vs unfused within {gap:.3e}, attention "
+          f"launches per call {out['full']['launches_per_call']}", flush=True)
+
+    # phase 5's small size: card against CPU, rays and calibrated
+    cpu, gpu = small_models(dev.type)
+    small_imgs = images(cpu.out_hw, 18)
+    out["small"] = {}
+    for mode, use_calib in (("rays", False), ("calib", True)):
+        for fused in (True, False):
+            tag = f"small {mode} {'fused' if fused else 'unfused'}"
+            a = _track_run(gpu, settings(use_calib), fused, small_imgs, 1)
+            b = _track_run(cpu, settings(use_calib), fused, small_imgs, 1)
+            _check_track_info(tag, a)
+            gap = _compare_track_runs(f"{tag} card vs CPU", a, b)
+            dpose = max((x["T"] - y["T"]).abs().max().item()
+                        for x, y in zip(a["calls"], b["calls"]))
+            out["small"][tag] = dict(stats_gap=gap, pose_gap=dpose, N=a["N_after"])
+    print(f"[track-api] small model card vs CPU: {out['small']}", flush=True)
+
+    # GaussNewtonSolver: JAX's outlier line fit, card against CPU
+    rng = np.random.default_rng(0)
+    xs = rng.uniform(-2, 2, size=128).astype(np.float32)
+    ys = 2.0 * xs - 1.0 + rng.normal(size=128).astype(np.float32) * 0.01
+    bad = rng.choice(128, 25, replace=False)
+    ys[bad] += (rng.normal(size=25) * 5.0).astype(np.float32)
+    solved = {}
+    for where in ("card", "cpu"):
+        on = dev if where == "card" else torch.device("cpu")
+        xt, yt = torch.from_numpy(xs).to(on), torch.from_numpy(ys).to(on)
+
+        def residual_fn(p):
+            return p[0] * xt + p[1] - yt, torch.stack([xt, torch.ones_like(xt)], dim=-1)
+
+        p, res = torch.tensor([1.0, 0.0], device=on), []
+        for kw in (dict(robust="huber", huber_k=0.5), dict(robust="tukey", tukey_t=0.5)):
+            solver = GaussNewtonSolver(GNParams(max_iter=30, delta_thresh=1e-10, **kw))
+            box = []
+            syncs = count_syncs(lambda: box.append(
+                solver.solve(residual_fn, p, torch.ones(128, device=on))))
+            p, cost, iters = box[0]
+            res.append((p.cpu(), float(cost), int(iters), {
+                k: v for k, v in syncs.items()
+                if not k.startswith("mast3r_slam_torch/profile_step.py")}))
+        solved[where] = res
+    gn_err = max((a[0] - b[0]).abs().max().item() for a, b in zip(solved["card"], solved["cpu"]))
+    gn_iters = [r[2] for r in solved["card"]]
+    gn_syncs = sum(sum(r[3].values()) for r in solved["card"])
+    check(gn_iters == [r[2] for r in solved["cpu"]],
+          f"GaussNewtonSolver iterations {gn_iters} on the card, "
+          f"{[r[2] for r in solved['cpu']]} on the CPU")
+    check(gn_err <= GN_ATOL, f"GaussNewtonSolver card vs CPU {gn_err:.3e}")
+    check(gn_syncs == 0, f"GaussNewtonSolver synchronised with the host inside solve: "
+          f"{[r[3] for r in solved['card']]}")
+    fit = solved["card"][1][0]
+    check(bool((fit - torch.tensor([2.0, -1.0])).abs().max() < 5e-3), f"line fit {fit.tolist()}")
+    out["gauss_newton"] = dict(max_abs_err=gn_err, iterations=gn_iters, host_syncs=gn_syncs,
+                               x=fit.tolist())
+    print(f"[track-api] GaussNewtonSolver (huber, then tukey) on the outlier line fit: card vs "
+          f"CPU {gn_err:.3e}, iterations {gn_iters}, host syncs inside solve {gn_syncs}, "
+          f"x {fit.tolist()}", flush=True)
+
+    # symmetric inference and reconstruct at full width
+    set_config(Config.from_dict(BENCH_SETTINGS))
+    a_img, b_img = imgs[0], imgs[2]
+    flash_attention.launches = 0
+    sym = mast3r_symmetric_inference(model, create_frame(0, a_img, device=dev),
+                                     create_frame(1, b_img, device=dev))
+    _sync(dev)
+    sym_launches = flash_attention.launches
+    check(len(sym) == 4 and tuple(sym[0].shape) == (4, h, w, 3),
+          f"symmetric inference shapes {[tuple(t.shape) for t in sym]}")
+    check(all(bool(torch.isfinite(t.float()).all()) for t in sym),
+          "symmetric inference: non-finite outputs")
+    check(sym_launches == 2 * enc + dec, f"symmetric inference: attention launched "
+          f"{sym_launches}, predicted 2*{enc} + {dec}")
+    pair = torch.stack([torch.from_numpy(a_img), torch.from_numpy(b_img)]).to(dev) * 2.0 - 1.0
+    flash_attention.launches = 0
+    rec = model.reconstruct(pair, pair.flip(0))
+    _sync(dev)
+    rec_launches = flash_attention.launches
+    for view, o in enumerate(rec):
+        check(tuple(o["pts3d"].shape) == (2, h, w, 3), f"reconstruct view {view + 1} shape")
+        check(all(bool(torch.isfinite(t.float()).all()) for t in o.values()),
+              f"reconstruct view {view + 1}: non-finite outputs")
+    check(rec_launches == 2 * enc + dec, f"reconstruct: attention launched {rec_launches}, "
+          f"predicted 2*{enc} + {dec}")
+    out["launches"].update(symmetric_inference=sym_launches, reconstruct=rec_launches)
+    print(f"[track-api] mast3r_symmetric_inference {[tuple(t.shape) for t in sym]} and "
+          f"reconstruct of 2 pairs: finite, attention launches {sym_launches} and "
+          f"{rec_launches} (predicted {2 * enc + dec} each); phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    set_config(Config.from_dict(BENCH_SETTINGS))  # what phase 13 left for phase 14
+    return out
+
+
 # -- phase 14 --------------------------------------------------------------
 
 
@@ -3799,6 +4086,7 @@ def main(argv=None) -> int:
         state = state_phase(model)
         window = window_phase(model)
         offline = offline_phase(model)
+        track_api = track_api_phase(model)  # phase 17, before phase 14 quantizes the model
         quant = quant_phase(model)  # quantizes the model: the last phase that runs it
         solve_bf16 = solve_bf16_phase()
         parallel = parallel_phase()
@@ -3820,6 +4108,7 @@ def main(argv=None) -> int:
     print(f"[chip_smoke] quant: {json.dumps(quant)}", flush=True)
     print(f"[chip_smoke] solve_bf16: {json.dumps(solve_bf16)}", flush=True)
     print(f"[chip_smoke] parallel: {json.dumps(parallel)}", flush=True)
+    print(f"[chip_smoke] track_api: {json.dumps(track_api)}", flush=True)
     enc = kern["rows"][0]
     kernels = [dict(
         name="flash_attention",
@@ -3840,6 +4129,7 @@ def main(argv=None) -> int:
                               **{f"window_{k.replace(' ', '_')}": r["launches"]
                                  for k, r in window.items()},
                               offline=offline["launches"], slam_int8=quant["launches"],
+                              **track_api["launches"],
                               **{f"parallel_{k}": v for k, v in parallel["launches"].items()}),
         max_abs_err=max([kern["max_err"]] + [r["max_abs_err"] for r in
                                              calib["attention"] + configs["attention"]

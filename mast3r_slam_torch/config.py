@@ -226,6 +226,11 @@ def _deep_update(base: dict, update: dict) -> None:
 _config: Config | None = None
 
 
+def default_config() -> Config:
+    """The in-code defaults, installed nowhere."""
+    return Config()
+
+
 def load_config(config_path: str | Path) -> Config:
     """Load a YAML config (with inheritance) and install it globally."""
     global _config

@@ -28,7 +28,7 @@ import torch
 from mast3r_slam_torch.config import get_config
 from mast3r_slam_torch.device import resolve_device
 from mast3r_slam_torch.geometry import cartesian_to_spherical, spherical_to_cartesian
-from mast3r_slam_torch.lie import core as lie
+from mast3r_slam_torch.lie import Sim3, core as lie
 
 
 class Mode(enum.Enum):
@@ -95,6 +95,10 @@ class Frame:
         if self.T_WC is None:
             self.T_WC = lie.sim3_identity(device=self.img.device)
 
+    @property
+    def T_WC_sim3(self) -> Sim3:
+        return Sim3(self.T_WC)
+
     def get_score(self, C: torch.Tensor) -> float:
         if get_config().tracking.filtering_score == "median":
             return float(torch.quantile(C.float().reshape(-1), 0.5))
@@ -144,8 +148,9 @@ def _arena_remove(buf: torch.Tensor, idx: int) -> None:
 
 class Keyframes:
     """Fixed-capacity keyframe store on `device` (default: the card, raising
-    without CUDA): append / remove / pop_last / last_index / __getitem__ /
-    write_pointmap / write_pose / update_T_WCs, and the intrinsics K [3, 3]
+    without CUDA): append / remove / pop_last / last_index / last_keyframe /
+    __getitem__ / write_pointmap / write_pose / update_T_WCs, the live
+    slices get_poses / get_points / get_confidences, and the intrinsics K [3, 3]
     of calibrated mode (`set_intrinsics` / `get_intrinsics`). Writes are in-place slot
     copies. `__getitem__` returns a Frame whose pose is a copy and whose
     pointmap, confidence and features are views of the arena: a caller that
@@ -176,6 +181,10 @@ class Keyframes:
         self.version: int = 0
 
     def __len__(self) -> int:
+        return len(self.frame_ids)
+
+    @property
+    def count(self) -> int:
         return len(self.frame_ids)
 
     def _ensure_feat(self, feat: torch.Tensor) -> None:
@@ -226,6 +235,10 @@ class Keyframes:
     def last_index(self) -> Optional[int]:
         return len(self.frame_ids) - 1 if self.frame_ids else None
 
+    def last_keyframe(self) -> Optional[Frame]:
+        idx = self.last_index()
+        return None if idx is None else self[idx]
+
     def __getitem__(self, idx: int) -> Frame:
         f = Frame(
             frame_id=self.frame_ids[idx], img=self.imgs[idx], T_WC=self.T_WC[idx].clone(),
@@ -259,6 +272,22 @@ class Keyframes:
         self.T_WC[torch.as_tensor(np.asarray(indices), device=self.device)] = T_WCs
         self.version += 1
 
+    def get_poses(self) -> torch.Tensor:
+        """[count, 8] poses of the live keyframes (a view of the arena)."""
+        return self.T_WC[: len(self)]
+
+    def get_points(self) -> torch.Tensor:
+        """[count, N, 3] canonical pointmaps of the live keyframes (a view)."""
+        return self.X[: len(self)]
+
+    def get_confidences(self) -> torch.Tensor:
+        """[count, N, 1] average confidences C / max(N, 1) of the live keyframes."""
+        return self.get_average_conf_arena()[: len(self)]
+
+    def get_average_conf_arena(self) -> torch.Tensor:
+        """[capacity, N, 1] average confidences over the whole arena (for masked use)."""
+        return self.C / torch.clamp(self.N, min=1.0)
+
     def set_intrinsics(self, K: torch.Tensor) -> None:
         self.K = K
 
@@ -279,3 +308,13 @@ class SLAMState:
 
     def dequeue_global_optimization(self) -> Optional[int]:
         return self.global_optimizer_tasks.pop(0) if self.global_optimizer_tasks else None
+
+    def queue_reloc(self) -> None:
+        self.reloc_pending += 1
+
+    def dequeue_reloc(self) -> bool:
+        """Take one pending relocalisation -> whether there was one."""
+        if self.reloc_pending > 0:
+            self.reloc_pending -= 1
+            return True
+        return False

@@ -10,6 +10,11 @@ from mast3r_slam_torch.lie import core as lie
 _EPS = 1e-10
 
 
+def skew_sym(v: torch.Tensor) -> torch.Tensor:
+    """[..., 3] -> the cross-product matrix [..., 3, 3] ([v]x w = v x w)."""
+    return lie.skew(v)
+
+
 def point_to_dist(X: torch.Tensor) -> torch.Tensor:
     """Euclidean norm with the reference's epsilon: sqrt(|X|^2 + 1e-10)."""
     return torch.sqrt((X * X).sum(-1, keepdim=True) + _EPS)

@@ -58,6 +58,16 @@ def mast3r_asymmetric_inference(model, frame_i: Frame, frame_j: Frame):
                  for a, b in zip(_flatten_out(out_i), _flatten_out(out_j)))
 
 
+def mast3r_symmetric_inference(model, frame_i: Frame, frame_j: Frame):
+    """Both directions of one pair in one decode of batch 2 -> X, C, D, Q
+    stacked [4, H, W, ...] ordered (ii, ji, jj, ij)."""
+    _ensure_encoded(model, frame_i)
+    _ensure_encoded(model, frame_j)
+    out = mast3r_decode_symmetric_batch(model, frame_i.feat[None], frame_i.pos[None],
+                                        frame_j.feat[None], frame_j.pos[None])
+    return tuple(a[:, 0] for a in out)
+
+
 def mast3r_match_asymmetric(model, frame_i: Frame, frame_j: Frame, idx_i2j_init=None):
     """Asymmetric inference + dense matching -> (idx_i2j [1,N], valid_match_j
     [1,N,1], Xii, Cii, Qii, Xji, Cji, Qji, each flattened [1, N, .])."""

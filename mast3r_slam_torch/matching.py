@@ -14,8 +14,8 @@ import torch
 
 from mast3r_slam_torch.config import get_config
 from mast3r_slam_torch.ops.dense_match import match_dense_window
-from mast3r_slam_torch.ops.iter_proj import (fused_dot3, iter_proj, pixel_to_lin,
-                                              prep_for_iter_proj, sqrt_rn)
+from mast3r_slam_torch.ops.iter_proj import (fused_dot3, iter_proj, lin_to_pixel,
+                                              pixel_to_lin, prep_for_iter_proj, sqrt_rn)
 from mast3r_slam_torch.ops.refine import refine_matches
 
 
@@ -143,3 +143,12 @@ def match_iterative_proj(
     diff = X11_sampled - X21.reshape(b, n, 3)
     valid = valid_proj & (sqrt_rn(fused_dot3(diff, diff)) < dist_thresh)
     return idx, valid[..., None]
+
+
+__all__ = [
+    "match",
+    "match_simple",
+    "match_iterative_proj",
+    "lin_to_pixel",
+    "pixel_to_lin",
+]

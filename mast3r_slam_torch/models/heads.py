@@ -61,6 +61,12 @@ def resize_bilinear_ac(x: torch.Tensor, oh: int, ow: int) -> torch.Tensor:
     return _resize(x.permute(0, 3, 1, 2), oh, ow).permute(0, 2, 3, 1)
 
 
+def tokens_to_grid(tokens: torch.Tensor, hp: int, wp: int) -> torch.Tensor:
+    """[B, S, C] -> [B, hp, wp, C]."""
+    b, s, c = tokens.shape
+    return tokens.reshape(b, hp, wp, c)
+
+
 def _tokens_to_nchw(tokens: torch.Tensor, hp: int, wp: int) -> torch.Tensor:
     b, s, c = tokens.shape
     return tokens.transpose(1, 2).reshape(b, c, hp, wp)

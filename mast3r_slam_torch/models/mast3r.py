@@ -263,6 +263,13 @@ class MASt3RModel:
                                  views=(1,))
         return out["pts3d"][0].reshape(-1, 3), out["conf"][0].reshape(-1, 1)
 
+    @torch.no_grad()
+    def reconstruct(self, img1: torch.Tensor, img2: torch.Tensor):
+        """Two-view inference of image pairs [B, H, W, 3] in [-1, 1] -> (out1,
+        out2): each view encoded, then one decode at the images' size (JAX's
+        ``MASt3RNet.__call__``)."""
+        return self.net(img1, img2)
+
     def num_params(self) -> int:
         return sum(p.numel() for p in self.net.parameters())
 

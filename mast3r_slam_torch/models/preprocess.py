@@ -13,6 +13,9 @@ same bytes).
 `resize_img` needs PIL, imported when called; `resize_img_native` runs the
 C++ library of `mast3r_slam_torch.native` (area/bilinear filters) and is the
 path on a host without PIL.
+
+`resize_image_device` resizes an image that is already a tensor (on the card
+or the CPU), bilinear with align-corners, as two matrix products.
 """
 
 from __future__ import annotations
@@ -116,3 +119,59 @@ def resize_img(img: np.ndarray, size: int, square_ok: bool = False,
     if return_transformation:
         return res, (W1 / W, H1 / H, (W - pil.size[0]) / 2, (H - pil.size[1]) / 2)
     return res
+
+
+def _interp_matrix(n_out: int, n_in: int, dtype, device):
+    """The align-corners bilinear interpolation matrix [n_out, n_in] (JAX's
+    ``_interp_matrix_jnp``): row i weights the two inputs around
+    i * (n_in - 1) / (n_out - 1)."""
+    import torch
+
+    if n_out == n_in:
+        return torch.eye(n_out, dtype=dtype, device=device)
+    pos = torch.arange(n_out, dtype=torch.float32, device=device) * (
+        (n_in - 1) / max(n_out - 1, 1))
+    lo = torch.clamp(torch.floor(pos).to(torch.int64), 0, n_in - 2)
+    frac = pos - lo.float()
+    m = torch.zeros((n_out, n_in), dtype=torch.float32, device=device)
+    rows = torch.arange(n_out, device=device)
+    m[rows, lo] = 1.0 - frac
+    m[rows, lo + 1] = frac
+    return m.to(dtype)
+
+
+def resize_image_device(img, target_size, keep_aspect: bool = True):
+    """Bilinear align-corners resize of a tensor image, [H, W, C] or [C, H, W]
+    (HWC when the last axis has 1, 3 or 4 entries, as in JAX), on its own
+    device. `target_size` is an int (the long edge with `keep_aspect`, the
+    side of a square without) or (h, w); the scaled sides are truncated, as
+    JAX's. The resize is separable: one product with the rows' interpolation
+    matrix, one with the columns'. Integer images are computed in f32 and
+    rounded and clipped to [0, 255] back to their dtype."""
+    import torch
+
+    img = torch.as_tensor(img)
+    if img.dim() != 3:
+        raise ValueError(f"expected 3D image, got shape {tuple(img.shape)}")
+    hwc = img.shape[-1] in (1, 3, 4)
+    if not hwc:
+        img = img.permute(1, 2, 0)
+    h, w = img.shape[:2]
+    if isinstance(target_size, (tuple, list)):
+        th, tw = int(target_size[0]), int(target_size[1])
+    elif keep_aspect:
+        scale = target_size / max(h, w)
+        th, tw = int(h * scale), int(w * scale)
+    else:
+        th = tw = int(target_size)
+    dtype = img.dtype if img.is_floating_point() else torch.float32
+    x = img.to(dtype)
+    Mh = _interp_matrix(th, h, dtype, img.device)  # [th, h]
+    Mw = _interp_matrix(tw, w, dtype, img.device)  # [tw, w]
+    x = torch.einsum("oh,hwc->owc", Mh, x)
+    x = torch.einsum("pw,owc->opc", Mw, x)
+    if not img.is_floating_point():
+        x = torch.clamp(torch.round(x), 0, 255).to(img.dtype)
+    if not hwc:
+        x = x.permute(2, 0, 1)
+    return x

@@ -79,6 +79,25 @@ def quantize_module(net: nn.Module, dtype: torch.dtype,
     return names
 
 
+@torch.no_grad()
+def dequantize_module(net: nn.Module, dtype: torch.dtype = torch.bfloat16) -> list[str]:
+    """The inverse of `quantize_module` (JAX's ``dequantize_params``): every
+    int8 weight becomes a float parameter again, int8 times scale in f32
+    rounded once to `dtype` -> the names of the weights restored. The layer
+    keeps the dtype it computed in while quantized, so with `dtype` the
+    model dtype the network computes what it computed quantized."""
+    names = []
+    for name, owner in net.named_modules():
+        if not isinstance(owner, _LayerWeight) or owner.quant_dtype is None:
+            continue
+        w = (owner.weight_q.float() * owner.weight_scale).to(dtype)
+        del owner.weight_q, owner.weight_scale
+        owner.weight = nn.Parameter(w, requires_grad=False)
+        owner.quant_dtype = None
+        names.append(f"{name}.weight" if name else "weight")
+    return names
+
+
 def quantized_fraction(net: nn.Module) -> float:
     """Fraction of the weight scalars stored as int8 (scales count as stored)."""
     quant = total = 0

@@ -198,6 +198,10 @@ class ViTEncoder(nn.Module):
         )
         self.enc_norm = LayerNorm(embed_dim)
 
+    def forward(self, img):
+        """The encode (JAX ``ViTEncoder.__call__``)."""
+        return self.encode(img)
+
     def encode(self, img):
         """img [B, H, W, 3] in [-1, 1] -> (feat [B, S, C] f32, pos [B, S, 2])."""
         x, pos = self.patch_embed(img)

@@ -78,11 +78,10 @@ class OfflineReconstructor:
 
         # 5. Global refinement.
         graph.solve_GN_rays()
-        n = len(kfs)
         return dict(
-            poses=kfs.T_WC[:n].cpu().numpy(),
-            points=kfs.X[:n].cpu().numpy(),
-            confidences=(kfs.C / torch.clamp(kfs.N, min=1.0))[:n].cpu().numpy(),
+            poses=kfs.get_poses().cpu().numpy(),
+            points=kfs.get_points().cpu().numpy(),
+            confidences=kfs.get_confidences().cpu().numpy(),
             pairs=pairs,
             n_edges=graph.n_edges,
         )

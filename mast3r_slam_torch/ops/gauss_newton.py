@@ -143,28 +143,33 @@ def _pose_gn_loop_rays_soa(T_init, Xt, rdk_t, w_t, p: GNParams, rel_error: float
     return _pose_gn_iterate(solve_step, T_init, p, rel_error)
 
 
-def _pose_gn_iterate(solve_step, T_init, p: GNParams, rel_error: float):
+def _pose_gn_iterate(solve_step, T_init, p: GNParams, rel_error: float,
+                     count: bool = False):
     """`max_iter` calls of solve_step(T) -> (T_new, tau, cost) under a
     device-side `done` flag (one per stream of T [..., 8]) that freezes the
     pose and the convergence state once JAX's while_loop would have stopped
     (relative cost change under `rel_error` or step norm under
-    `delta_thresh`) -> (T, final cost)."""
+    `delta_thresh`) -> (T, final cost), and with `count` also the iterations
+    JAX's loop would have run (int32, on the device)."""
     batch = T_init.shape[:-1]
     inf = torch.full(batch, torch.inf, dtype=T_init.dtype, device=T_init.device)
     T, old_cost, new_cost, delta_norm = T_init, inf, inf, inf
     done = torch.zeros(batch, dtype=torch.bool, device=T_init.device)
+    iters = torch.zeros(batch, dtype=torch.int32, device=T_init.device) if count else None
     for it in range(p.max_iter):
         if it > 0:
             converged = ((old_cost - new_cost).abs() / (old_cost + 1e-10) < rel_error) | (
                 delta_norm < p.delta_thresh
             )
             done = done | converged
+        if count:
+            iters = iters + (~done).int()
         T_new, tau, cost = solve_step(T)
         T = torch.where(done[..., None], T, T_new)
         old_cost = torch.where(done, old_cost, new_cost)
         new_cost = torch.where(done, new_cost, cost)
         delta_norm = torch.where(done, delta_norm, torch.linalg.vector_norm(tau, dim=-1))
-    return T, new_cost
+    return (T, new_cost, iters) if count else (T, new_cost)
 
 
 def gauss_newton_pose_calib(
@@ -488,3 +493,39 @@ def gauss_newton_graph(
         delta = torch.where(done, delta, d_new)
         done = done | (delta < p.delta_thresh)
     return T, delta
+
+
+class GaussNewtonSolver:
+    """Robust Gauss-Newton over a user residual model (JAX's
+    ``GaussNewtonSolver``): ``solve(residual_fn, x0 [n], sqrt_info [M])``
+    with ``residual_fn(x) -> (r [M], J [M, n])`` in torch ops. Each iteration
+    whitens the residuals by `sqrt_info`, reweights them (Huber or Tukey, per
+    `params.robust`), solves the normal equations by the damped Cholesky
+    (`params.reg`) and takes the Euclidean step x + dx; a step that is not
+    finite (a system that is not positive definite) is a zero step.
+
+    JAX runs one ``lax.while_loop`` that stops when the relative cost change
+    is under `rel_error` or the step norm under `params.delta_thresh`. Here
+    `_pose_gn_iterate` runs `params.max_iter` iterations, and a `done` flag on
+    the device freezes x, the cost and the count once that rule fires, so
+    the host reads nothing inside `solve` (provided `residual_fn` reads
+    nothing either) and the results are the loop's."""
+
+    def __init__(self, params: GNParams = GNParams(), rel_error: float = 1e-3):
+        self.p = params
+        self.rel_error = rel_error
+
+    def solve(self, residual_fn, x0: torch.Tensor, sqrt_info: torch.Tensor):
+        """-> (x [n], final cost [], iterations [] int32), all on x0's device."""
+        p = self.p
+
+        def step(x):
+            r, J = residual_fn(x)
+            rob = sqrt_info * torch.sqrt(robust_weight(sqrt_info * r, p))
+            A = rob[:, None] * J
+            b = rob * r
+            dx = cholesky_solve(A.T @ A, -(A.T @ b), reg=p.reg)
+            dx = torch.where(torch.isfinite(dx).all(), dx, torch.zeros_like(dx))
+            return x + dx, dx, 0.5 * (b * b).sum()
+
+        return _pose_gn_iterate(step, x0, p, self.rel_error, count=True)

@@ -100,6 +100,13 @@ class RetrievalDatabase:
             return _mean_pool_signature(feat.float())
         return self.retrieval.forward_global(feat.float())
 
+    def prep_features(self, feat: torch.Tensor) -> torch.Tensor:
+        """The whitened local features of the retrieval model, or `feat`
+        itself without one."""
+        if self.retrieval is None:
+            return feat
+        return self.retrieval.forward_features(feat)[0]
+
     @torch.no_grad()
     def update(self, frame: Frame, add_after_query: bool = True, k: int = 3,
                min_thresh: float = 0.0) -> list[int]:

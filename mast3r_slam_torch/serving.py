@@ -281,7 +281,7 @@ class BatchTracker:
         """`step_async` then `resolve_stats` (one host read per batch)."""
         return self.resolve_stats(self.step_async(feats, poss))
 
-    def open_slot(self, i: int, feat, pos, X, C) -> None:
+    def open_slot(self, i: int, feat, poss, X, C) -> None:
         """Start a new stream in slot `i` from its first keyframe (tokens,
         positions, mono pointmap), pose at identity. Slots are independent
         lanes, so a join leaves the other streams' results as they were."""
@@ -294,7 +294,7 @@ class BatchTracker:
         j = i - self.rows.start
         self.state = BatchState(
             kf_feat=_set_rows(s.kf_feat, j, self._dev(feat)),
-            kf_pos=_set_rows(s.kf_pos, j, self._dev(pos)),
+            kf_pos=_set_rows(s.kf_pos, j, self._dev(poss)),
             kf_X=_set_rows(s.kf_X, j, self._dev(X)), kf_C=_set_rows(s.kf_C, j, self._dev(C)),
             kf_N=_set_rows(s.kf_N, j, 1.0), kf_T=_set_rows(s.kf_T, j, ident),
             fr_X=_set_rows(s.fr_X, j, 0.0), fr_C=_set_rows(s.fr_C, j, 0.0),

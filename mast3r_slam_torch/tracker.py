@@ -232,12 +232,21 @@ def _mono_pointmap(model, feat, pos, f: int):
 def make_track_step(model, cfg, filtering_mode: str, img_downsample: int = 1,
                     use_calib: bool = False) -> Callable:
     """The per-frame chained step:
-    ``step(img [H,W,3], state, promote=True, enc=None, dec=None, K=None) -> (out, state)``.
+    ``step(img [H,W,3], state, promote=True, enc=None, dec=None, K=None, frame=None)
+    -> (out, state)``.
 
     `state` holds the keys of ``_STATE``; `out` holds the per-frame results
     of ``_PER_FRAME`` (stats = [match_frac, match_frac_k, unique_frac_f,
-    event, kN after, retired kN]), the raw match indices under "idx" and,
-    under "promoted", whether the step ran the promotion (a Python bool).
+    event, kN after, retired kN]), the raw match indices under "idx", the
+    desc_conf of both views under "Qkf" and "Qff" ([1, n, 1], JAX's shapes)
+    and, under "promoted", whether the step ran the promotion (a Python
+    bool). `frame` = (fX [n, 3], fC [n, 1], fN []) is a pointmap the frame
+    already holds (JAX ``_make_fused_track``): the decode is fused into it
+    (`fuse_pointmap_masked`) before the core, which then tracks the fused
+    points and their average confidence; "frame_X" / "frame_C" are the fused
+    pointmap and its count fN2 is appended to stats (a seventh entry). With
+    ``frame=None`` (the chain and the window) the frame's pointmap is the
+    decode itself, as after a first observation, at no extra launch.
     With ``promote=False`` the step neither reads `new_kf` nor promotes (the
     chain keeps its keyframe); `enc` = (feat [S, D], pos [S, 2]) skips the
     encode of a frame already encoded, and `dec` = (out_f, out_k), the
@@ -255,7 +264,7 @@ def make_track_step(model, cfg, filtering_mode: str, img_downsample: int = 1,
         return a[:, ::f, ::f] if f > 1 else a
 
     @torch.no_grad()
-    def step(img_f, st, promote: bool = True, enc=None, dec=None, K=None):
+    def step(img_f, st, promote: bool = True, enc=None, dec=None, K=None, frame=None):
         with record_function("track.encode"):
             if enc is None:
                 img = _to_unit_image(img_f, dev)
@@ -275,6 +284,12 @@ def make_track_step(model, cfg, filtering_mode: str, img_downsample: int = 1,
         Xkf, Ckf, Qkf = Xs_k.reshape(n, 3), Cs_k.reshape(n, 1), Qs_k.reshape(n, 1)
 
         kX, kC, kN, T_WCf, T_WCk = st["kf_X"], st["kf_C"], st["kN"], st["T_prev"], st["kf_T"]
+        if frame is None:
+            fX2, fC2, fN2, fC_avg = Xff, Cff, None, Cff
+        else:
+            with record_function("track.fuse"):
+                fX2, fC2, fN2 = fuse_pointmap_masked(*frame, Xff, Cff, filtering_mode)
+                fC_avg = fC2 / torch.clamp(fN2, min=1.0)
         if use_calib:
             # The calibrated core puts the points on their rays before it
             # selects, so the matcher carries no payload.
@@ -282,20 +297,23 @@ def make_track_step(model, cfg, filtering_mode: str, img_downsample: int = 1,
                 idx, valid = match(Xs_f, Xs_k, Ds_f, Ds_k, st["idx"])
             with record_function("track.pose"):
                 core = _track_core_calib(
-                    idx[0], valid[0], Qff, Qkf, Xff, Cff, kX, kC / torch.clamp(kN, min=1.0),
+                    idx[0], valid[0], Qff, Qkf, fX2, fC_avg, kX, kC / torch.clamp(kN, min=1.0),
                     Xkf, T_WCf, T_WCk, K, tuple(Xs_f.shape[1:3]), cfg_key,
                 )
         else:
             with record_function("track.match"):
                 # The (Q, C, X) payload rides the matcher's tap streams; the
                 # hit mask comes back with the match.
-                pay_img = torch.cat([Qs_f[..., None], Cs_f[..., None], Xs_f], dim=-1)
+                if frame is None:
+                    pay_img = torch.cat([Qs_f[..., None], Cs_f[..., None], Xs_f], dim=-1)
+                else:
+                    pay_img = torch.cat([Qff, fC_avg, fX2], dim=-1).reshape(*Xs_f.shape[:3], 5)
                 idx, valid, pay_g, hit = match(
                     Xs_f, Xs_k, Ds_f, Ds_k, st["idx"], payload=pay_img, want_hit=True
                 )
             with record_function("track.pose"):
                 core = _track_core_rays(
-                    idx[0], valid[0], Qff, Qkf, Xff, Cff, kX, kC / torch.clamp(kN, min=1.0),
+                    idx[0], valid[0], Qff, Qkf, fX2, fC_avg, kX, kC / torch.clamp(kN, min=1.0),
                     Xkf, T_WCf, T_WCk, cfg_key, pay_g=pay_g[0], unique_hit=hit[0],
                 )
         with record_function("track.fuse"):
@@ -324,10 +342,11 @@ def make_track_step(model, cfg, filtering_mode: str, img_downsample: int = 1,
         event = torch.where(
             skip, float(EVENT_SKIP), torch.where(new_kf, float(EVENT_NEW_KF), float(EVENT_TRACKED))
         )
-        stats6 = torch.stack([match_frac, match_frac_k, unique_frac_f, event, nN, ret_N])
+        stats = [match_frac, match_frac_k, unique_frac_f, event, nN, ret_N]
         out = dict(
-            stats=stats6, T_WCf=T_out, frame_X=Xff, frame_C=Cff, feat=feat_f[0], pos=pos_f[0],
-            ret_X=ret_X, ret_C=ret_C, kf_X=nX, kf_C=nC, kf_T=nT, idx=idx, promoted=promoted,
+            stats=torch.stack(stats if fN2 is None else stats + [fN2]), T_WCf=T_out,
+            frame_X=fX2, frame_C=fC2, feat=feat_f[0], pos=pos_f[0], ret_X=ret_X, ret_C=ret_C,
+            kf_X=nX, kf_C=nC, kf_T=nT, idx=idx, Qkf=Qkf[None], Qff=Qff[None], promoted=promoted,
         )
         state = dict(
             kf_feat=nfeat, kf_pos=npos, idx=idx_next, kf_X=nX, kf_C=nC, kN=nN,
@@ -669,26 +688,32 @@ class FrameTracker:
     def _track_fused(self, frame: Frame, kf_idx: int):
         """The step with promotion left to the caller, from the arena's
         keyframe state and the frame's own pose as the initial guess (the
-        JAX ``_make_fused_track`` program). The frame is a fresh one, as
-        the SLAM loop gives it: its pointmap is the step's output."""
+        JAX ``_make_fused_track`` program). A frame that already holds a
+        pointmap (``frame.N > 0``, tracked before) has the decode fused into
+        it inside the step, and the step tracks the fused points; a fresh
+        frame, as the SLAM loop gives it, takes the decode as its pointmap,
+        which is what that fusion returns at N = 0, without its launches."""
         from mast3r_slam_torch.inference import _ensure_encoded
 
-        if frame.N > 0:
-            raise NotImplementedError("re-tracking a frame that already holds a fused pointmap")
         _ensure_encoded(self.model, frame)
         kf = self._kf_state(kf_idx)
         st = dict(kf_feat=kf["feat"], kf_pos=kf["pos"], idx=self._warm_idx(), kf_X=kf["X"],
                   kf_C=kf["C"], kN=torch.full((), kf["N"], device=self.device),
                   T_prev=frame.T_WC, kf_T=kf["T"])
-        out, _ = self._run_step(frame.img, st, promote=False, enc=(frame.feat, frame.pos))
+        held = None
+        if frame.N > 0:
+            held = (frame.X_canon, frame.C, torch.full((), float(frame.N), device=self.device))
+        out, _ = self._run_step(frame.img, st, promote=False, enc=(frame.feat, frame.pos),
+                                frame=held)
         self.idx_f2k = out["idx"]
         stats = out["stats"].cpu().numpy()  # the one host read of the frame
         match_frac, match_frac_k, unique_frac_f = (float(x) for x in stats[:3])
         kf_N = float(stats[4])
         self.last_stats = dict(match_frac=match_frac, match_frac_k=match_frac_k,
                                unique_frac_f=unique_frac_f)
+        # the frame's fusion applies whatever the tracking gate decides
         frame.X_canon, frame.C = out["frame_X"], out["frame_C"]
-        frame.N = 1
+        frame.N = 1 if held is None else int(stats[6])
         frame.N_updates += 1
         c = self.cfg
         if match_frac < c.min_match_frac:
@@ -702,7 +727,7 @@ class FrameTracker:
         if new_kf:
             self.reset_idx_f2k()
         match_info = [out["kf_X"], out["kf_C"] / max(kf_N, 1.0), frame.X_canon,
-                      frame.get_average_conf()]
+                      frame.get_average_conf(), out["Qkf"], out["Qff"]]
         return new_kf, match_info, False
 
     def _finish(self, frame, kf_idx, out, Ckf, Qkf, Qff):

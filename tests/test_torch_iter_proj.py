@@ -28,12 +28,12 @@ from mast3r_slam_tpu.matching import match as jax_match
 from mast3r_slam_tpu.matching import match_iterative_proj as jax_match_iterative
 from mast3r_slam_torch.geometry import img_gradient
 from mast3r_slam_torch.matching import match, match_iterative_proj
-from mast3r_slam_torch.ops import iter_proj as ip
 from mast3r_slam_torch.ops import refine
 from test_torch_helpers import both_configs
 from test_torch_match import _smooth_field, scene
 
-# the JAX ops package exports functions under these modules' names
+# both ops packages export functions under these modules' names
+ip = importlib.import_module("mast3r_slam_torch.ops.iter_proj")
 jax_ip = importlib.import_module("mast3r_slam_tpu.ops.iter_proj")
 jax_refine = importlib.import_module("mast3r_slam_tpu.ops.refine")
 
