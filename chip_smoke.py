@@ -332,7 +332,7 @@ POSED_POSE_ATOL = 1e-4  # the well-posed problem's final poses against the truth
 SNAP_FRAMES, SNAP_EVERY = 8, 4  # phase 11: frames before the snapshot and after it
 WINDOW_MB = 4  # phase 12: runtime.window_decode_microbatch
 OFFLINE_FRAMES, OFFLINE_PAIR_BATCH = 8, 8  # phase 13: OfflineReconstructor's frames, pair_batch
-TRACK_API_TIMED = 3  # phase 17: timed track calls of each kind
+TRACK_API_TIMED = 20  # phase 17: timed track calls of each kind, the kinds interleaved
 GN_ATOL = 1e-5  # phase 17: GaussNewtonSolver card vs CPU
 
 
@@ -2625,14 +2625,13 @@ def offline_phase(model) -> dict:
 # -- phase 17 --------------------------------------------------------------
 
 
-def _track_run(model, settings: dict, fused: bool, imgs: tuple, timed: int) -> dict:
+def _track_run(model, settings: dict, fused: bool, imgs: tuple) -> dict:
     """`FrameTracker.track` over an arena on the model's device: the
     keyframe's mono decode appended, a fresh frame tracked, a second keyframe
-    appended, the same frame tracked again (it now holds a pointmap); then
-    `timed` fresh frames of the same image and `timed` more calls on the held
-    frame, timed (wall ms per call, the call's own host read included).
+    appended, the same frame tracked again (it now holds a pointmap).
     Attention launches counted per call. `fused` picks the fused step or the
-    unfused path; `settings` rays or calibrated (`use_calib`)."""
+    unfused path; `settings` rays or calibrated (`use_calib`). The tracker
+    and the held frame are returned for `_track_times`."""
     import torch
 
     from mast3r_slam_torch.config import Config, set_config
@@ -2670,20 +2669,34 @@ def _track_run(model, settings: dict, fused: bool, imgs: tuple, timed: int) -> d
         calls.append(dict(flags=(new_kf, reloc), stats=dict(tracker.last_stats), N=frame.N,
                           info=info, launches=flash_attention.launches,
                           T=frame.T_WC.float().cpu()))
+    return dict(calls=calls, n=frame.X_canon.shape[0], N_after=frame.N, tracker=tracker,
+                frame=frame)
 
-    def wall_ms(fn, n):
-        _sync(dev)
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        _sync(dev)
-        return (time.perf_counter() - t0) * 1e3 / n
 
-    fresh_ms = wall_ms(lambda: tracker.track(create_frame(3, img_f, device=dev),
-                                             mast3r_match_asymmetric), timed)
-    held_ms = wall_ms(lambda: tracker.track(frame, mast3r_match_asymmetric), timed)
-    n = frame.X_canon.shape[0]
-    return dict(calls=calls, fresh_ms=fresh_ms, held_ms=held_ms, n=n, N_after=frame.N)
+def _track_times(runs: dict, img_f, dev, calls: int) -> dict:
+    """Wall ms of single `track` calls (the call's own host read included),
+    `calls` of each kind: each run's tracker on a fresh frame of `img_f` and
+    on its held frame. The kinds are interleaved, their order rotated each
+    round, so that drift of the host hits every kind alike -> per kind the
+    median, the quartiles and the range."""
+    import numpy as np
+
+    from mast3r_slam_torch.frame import create_frame
+    from mast3r_slam_torch.inference import mast3r_match_asymmetric
+
+    kinds = [(name, kind) for name in runs for kind in ("fresh", "held")]
+    samples = {kind: [] for kind in kinds}
+    for r in range(calls):
+        for name, kind in kinds[r % len(kinds):] + kinds[:r % len(kinds)]:
+            run = runs[name]
+            frame = create_frame(3, img_f, device=dev) if kind == "fresh" else run["frame"]
+            _sync(dev)
+            t0 = time.perf_counter()
+            run["tracker"].track(frame, mast3r_match_asymmetric)
+            _sync(dev)
+            samples[(name, kind)].append((time.perf_counter() - t0) * 1e3)
+    return {f"{name}_{kind}": dict(zip(("min", "q1", "median", "q3", "max"), np.percentile(
+        ms, [0, 25, 50, 75, 100]).tolist()), calls=len(ms)) for (name, kind), ms in samples.items()}
 
 
 def _sync(dev) -> None:
@@ -2767,7 +2780,7 @@ def track_api_phase(model) -> dict:
     enc, dec = c.enc_depth, 4 * c.dec_depth
     h, w = model.out_hw
     imgs = images((h, w), 17)
-    runs = {name: _track_run(model, settings(), fused, imgs, TRACK_API_TIMED)
+    runs = {name: _track_run(model, settings(), fused, imgs)
             for name, fused in (("fused", True), ("unfused", False))}
     for name, run in runs.items():
         _check_track_info(f"track {name}", run)
@@ -2780,14 +2793,14 @@ def track_api_phase(model) -> dict:
               f"track {name}: non-finite pose")
         out["launches"][f"track_{name}"] = sum(got)
     gap = _compare_track_runs("track fused vs unfused", runs["fused"], runs["unfused"])
+    ms = _track_times(runs, imgs[1], dev, TRACK_API_TIMED)
     out["full"] = dict(
-        stats_gap=gap, events=[list(cl["flags"]) for cl in runs["fused"]["calls"]],
-        **{f"{k}_{m}": runs[k][m] for k in runs for m in ("fresh_ms", "held_ms")},
+        stats_gap=gap, events=[list(cl["flags"]) for cl in runs["fused"]["calls"]], ms=ms,
         launches_per_call=[cl["launches"] for cl in runs["fused"]["calls"]])
-    print(f"[track-api] {card_line()}: mast3r_full {w}x{h} bf16 track ms per call, fused: fresh "
-          f"frame {runs['fused']['fresh_ms']:.2f}, held frame {runs['fused']['held_ms']:.2f}; "
-          f"unfused: fresh {runs['unfused']['fresh_ms']:.2f}, held "
-          f"{runs['unfused']['held_ms']:.2f} ({TRACK_API_TIMED} calls each); events "
+    spans = "; ".join(f"{k} {v['median']:.2f} (quartiles {v['q1']:.2f}-{v['q3']:.2f}, range "
+                      f"{v['min']:.2f}-{v['max']:.2f})" for k, v in ms.items())
+    print(f"[track-api] {card_line()}: mast3r_full {w}x{h} bf16 track ms per call, median of "
+          f"{TRACK_API_TIMED} calls of each kind, the kinds interleaved: {spans}; events "
           f"{out['full']['events']}, statistics fused vs unfused within {gap:.3e}, attention "
           f"launches per call {out['full']['launches_per_call']}", flush=True)
 
@@ -2798,8 +2811,8 @@ def track_api_phase(model) -> dict:
     for mode, use_calib in (("rays", False), ("calib", True)):
         for fused in (True, False):
             tag = f"small {mode} {'fused' if fused else 'unfused'}"
-            a = _track_run(gpu, settings(use_calib), fused, small_imgs, 1)
-            b = _track_run(cpu, settings(use_calib), fused, small_imgs, 1)
+            a = _track_run(gpu, settings(use_calib), fused, small_imgs)
+            b = _track_run(cpu, settings(use_calib), fused, small_imgs)
             _check_track_info(tag, a)
             gap = _compare_track_runs(f"{tag} card vs CPU", a, b)
             dpose = max((x["T"] - y["T"]).abs().max().item()

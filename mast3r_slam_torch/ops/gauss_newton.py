@@ -140,7 +140,8 @@ def _pose_gn_loop_rays_soa(T_init, Xt, rdk_t, w_t, p: GNParams, rel_error: float
         tau = torch.where(torch.isfinite(tau).all(-1, keepdim=True), tau, torch.zeros_like(tau))
         return lie.sim3_retract(T, tau), tau, cost
 
-    return _pose_gn_iterate(solve_step, T_init, p, rel_error)
+    T, cost, _ = _pose_gn_iterate(solve_step, T_init, p, rel_error)
+    return T, cost
 
 
 def _pose_gn_iterate(solve_step, T_init, p: GNParams, rel_error: float,
@@ -149,8 +150,8 @@ def _pose_gn_iterate(solve_step, T_init, p: GNParams, rel_error: float,
     device-side `done` flag (one per stream of T [..., 8]) that freezes the
     pose and the convergence state once JAX's while_loop would have stopped
     (relative cost change under `rel_error` or step norm under
-    `delta_thresh`) -> (T, final cost), and with `count` also the iterations
-    JAX's loop would have run (int32, on the device)."""
+    `delta_thresh`) -> (T, final cost, iterations): the iterations JAX's loop
+    would have run (int32, on the device) with `count`, else None."""
     batch = T_init.shape[:-1]
     inf = torch.full(batch, torch.inf, dtype=T_init.dtype, device=T_init.device)
     T, old_cost, new_cost, delta_norm = T_init, inf, inf, inf
@@ -169,7 +170,7 @@ def _pose_gn_iterate(solve_step, T_init, p: GNParams, rel_error: float,
         old_cost = torch.where(done, old_cost, new_cost)
         new_cost = torch.where(done, new_cost, cost)
         delta_norm = torch.where(done, delta_norm, torch.linalg.vector_norm(tau, dim=-1))
-    return (T, new_cost, iters) if count else (T, new_cost)
+    return T, new_cost, iters
 
 
 def gauss_newton_pose_calib(
@@ -236,7 +237,8 @@ def gauss_newton_pose_calib(
         tau = torch.where(torch.isfinite(tau).all(), tau, torch.zeros_like(tau))
         return lie.sim3_retract(T, tau), tau, cost
 
-    return _pose_gn_iterate(solve_step, T_init, p, 1e-3)
+    T, cost, _ = _pose_gn_iterate(solve_step, T_init, p, 1e-3)
+    return T, cost
 
 
 # ---------------------------------------------------------------------------

@@ -304,10 +304,7 @@ def make_track_step(model, cfg, filtering_mode: str, img_downsample: int = 1,
             with record_function("track.match"):
                 # The (Q, C, X) payload rides the matcher's tap streams; the
                 # hit mask comes back with the match.
-                if frame is None:
-                    pay_img = torch.cat([Qs_f[..., None], Cs_f[..., None], Xs_f], dim=-1)
-                else:
-                    pay_img = torch.cat([Qff, fC_avg, fX2], dim=-1).reshape(*Xs_f.shape[:3], 5)
+                pay_img = torch.cat([Qff, fC_avg, fX2], dim=-1).reshape(*Xs_f.shape[:3], 5)
                 idx, valid, pay_g, hit = match(
                     Xs_f, Xs_k, Ds_f, Ds_k, st["idx"], payload=pay_img, want_hit=True
                 )

@@ -24,16 +24,18 @@ confidences, whose f32 rounding grows with their magnitude (|X| up to 67
 here: the decode alone differs by 7e-5).
 
 Also: the step without a held frame (the chain and window path) is the fold
-at a count of 0, bit for bit, and issues the same operations as before the
-fold existed (a count of the non-view aten ops, taken on the tree before it).
+at a count of 0, bit for bit, and issues no operation of the fold (its
+non-view aten ops are the held-frame step's less the fold's).
 """
 
 import copy
+from collections import Counter
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import record_function
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from mast3r_slam_tpu.frame import Keyframes as JaxKeyframes
@@ -41,18 +43,13 @@ from mast3r_slam_tpu.frame import create_frame as jax_create_frame
 from mast3r_slam_tpu.inference import mast3r_inference_mono as jax_mono
 from mast3r_slam_tpu.inference import mast3r_match_asymmetric as jax_match
 from mast3r_slam_tpu.tracker import FrameTracker as JaxFrameTracker
-from mast3r_slam_torch.frame import Keyframes, create_frame
+from mast3r_slam_torch.frame import Keyframes, create_frame, fuse_pointmap_masked
 from mast3r_slam_torch.inference import mast3r_inference_mono, mast3r_match_asymmetric
 from mast3r_slam_torch.tracker import FrameTracker, make_track_step
 from test_torch_helpers import BENCH_SETTINGS, both_configs, tiny_pair
 
 BAND = dict(atol=1e-4, rtol=1e-5)
 CASES = {"fused": (False, True), "unfused": (False, False), "calib": (True, True)}
-# Non-view aten ops of one tracking step without a held frame on the tiny
-# linear-head model at 48x64 under BENCH_SETTINGS, counted on the tree before
-# the held-frame fold (rays, calibrated). A change to the step that adds or
-# removes work changes them: update them with it.
-STEP_OPS = {False: 8324, True: 8631}
 
 
 def _settings(use_calib: bool) -> dict:
@@ -206,9 +203,22 @@ def test_fresh_step_is_the_fold_at_zero(models, use_calib):
 
 @pytest.mark.parametrize("use_calib", [False, True])
 def test_fresh_step_issues_the_ops_it_issued_before(models, use_calib):
-    """The chain and window path gets no operation from the held-frame fold."""
+    """The chain and window path gets no operation from the held-frame fold:
+    the step with a held frame (of count 0, so both steps see the same data)
+    issues the fresh step's ops and, besides them, exactly those of the fold
+    (`fuse_pointmap_masked` and the average confidence, in its span)."""
     with both_configs(_settings(use_calib)) as cfg:
         step, img, st, K = _step_inputs(models, use_calib, cfg)
-        with _OpLog() as log:
-            step(img, st, promote=False, K=K)
-    assert len(log.ops) == STEP_OPS[use_calib]
+        with _OpLog() as fresh_log:
+            fresh, _ = step(img, st, promote=False, K=K)
+        n = fresh["frame_X"].shape[0]
+        held = (torch.zeros(n, 3), torch.zeros(n, 1), torch.zeros(()))
+        with _OpLog() as held_log:
+            step(img, st, promote=False, K=K, frame=held)
+        with _OpLog() as fold_log, record_function("track.fuse"):
+            _, fC2, fN2 = fuse_pointmap_masked(*held, fresh["frame_X"], fresh["frame_C"],
+                                               cfg.tracking.filtering_mode)
+            fC2 / torch.clamp(fN2, min=1.0)
+    fresh_ops, held_ops = Counter(fresh_log.ops), Counter(held_log.ops)
+    assert fresh_ops <= held_ops
+    assert held_ops - fresh_ops == Counter(fold_log.ops)
