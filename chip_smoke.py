@@ -9,9 +9,11 @@ example the parent commit, unpacked with `git archive` into a directory that
 sources and timed by this script's code, in a process of their own, once
 before phase 3 and once after phase 4 (attention at the path shapes of 768,
 640 and 432 tokens and phase 16's sp q shards, where the split rule
-decides the launch, and the attention backward at phase 16's five
-gradient shapes through DIR's `flash_attention_backward`, each of its two
-kernels also alone); the mean of the two is printed as `prev_ms` beside
+decides the launch, the attention backward at phase 16's five gradient
+shapes through DIR's `flash_attention_backward`, each of its two kernels
+also alone, the probe's rolls and DIR's `offset_slice_sum` at the probe
+case's shape and at SLICE_PLANE, warm and cold); the mean of the two is
+printed as `prev_ms` (and `prev_cold_ms`) beside
 this checkout's `ms` (null without --parent). This checkout's kernels are
 timed the same way in between (parent, this, this, parent), as `ab_ms`.
 
@@ -49,6 +51,18 @@ Phases, in order; any failure exits non-zero before the result line:
                16000, 65537}, 1 and an odd number of rows, shifts {0, 1, 7,
                8, 9, C-1}, f32 and bf16, dynamic and static, from a base
                that is not 16-byte aligned, and through both its kernels.
+               Times a kernel that does nothing (one CTA) the same way:
+               the launch floor, printed beside each probe-shape row's ms
+               (`floor_ms`, `over_floor_ms`). Then offset_slice_sum at a
+               plane's size (SLICE_PLANE: (6152, 520) bf16 -> rows 5-6148,
+               width 512, offsets (0, 3, 7); 19 MB moved): torch.equal to
+               its plain version on 10 random tiles, warm and cold (the
+               10 tiles, 190 MB) beside the plain version and its bound;
+               and at its edges (`slice_sum_edge_checks`: C {8, 77, 256,
+               520, 1000, 16000}, 1, 7 and 16 rows from row 0 and 3,
+               widths 1 to C - max(offsets), one, three and eight offsets,
+               aligned and unaligned bases), through the wrapper twice
+               (bit-equal) and through both its kernels.
   5. reference - a small model (head dim 64, depth 2, 48x64) runs the same
                tracking step on the card and on the CPU (plain versions);
                the decode outputs and the tracker's results must agree.
@@ -267,7 +281,14 @@ PROBE_CASES = {
     "static_rot_bf16": ((16, 256), "bfloat16", False, 117),
 }
 MATCHER_PLANE = (16, 384, 512)  # a bf16 roll where the bytes, not the launch, set the bound
-COLD_PAIRS = 10  # input/output pairs of the cold matcher-plane roll: 126 MB > the 50 MB L2
+# a bf16 tile whose slice sum (row0, rows = 16 * 384, width, offsets) moves 19 MB: the bytes set
+# its bound, as the matcher plane's do the roll's
+SLICE_PLANE, SLICE_PLANE_ARGS = (6152, 520), (5, 6144, 512, (0, 3, 7))
+# input/output pairs of the cold plane calls: 126 MB (roll), 190 MB (slice sum) > the 50 MB L2
+COLD_PAIRS = 10
+# slice_sum_edge_checks: one offset, the probe's three, and 8 with repeats in descending
+# order, on (0, 8, 16) and off (1, 3, 9, 17) 16-byte boundaries
+SLICE_EDGE_OFFSETS = ((0,), (0, 3, 7), (17, 16, 9, 9, 8, 3, 1, 0))
 EUROC_HW = (480, 752)  # EuRoC MAV cam0 frames
 EUROC_CROP = (320, 512)  # what the host pipeline makes of them at resolution 512: 640 tokens
 # run -> (config file, frames, settings over the file's): the gates opened as in
@@ -657,6 +678,128 @@ def roll_edge_checks(rng) -> int:
     return calls
 
 
+def lane_shift_counted(fn):
+    """fn()'s result and the lane-shift kernel launches it made, by kernel
+    symbol, counted from 0."""
+    import torch
+
+    from mast3r_slam_torch.ops import lane_shift as ls
+
+    for key in ls.launches:
+        ls.launches[key] = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(ls.launches)
+
+
+def launch_floor_ms() -> float:
+    """Device ms per launch of a kernel that does nothing (one CTA, no memory
+    traffic), launched through `_launch` and timed as every probe row is:
+    the floor under the launch-bound rows."""
+    import torch
+
+    from mast3r_slam_torch.ops import lane_shift as ls
+
+    x = torch.zeros(8, device="cuda")
+    return time_graph(lambda y: [ls._launch(ls.FLOOR_SYMBOL, (0,), y.dtype, y), y][1], x)
+
+
+def slice_plane_row(rng) -> dict:
+    """offset_slice_sum at SLICE_PLANE, where the bytes set its bound: once
+    counted, torch.equal to the plain version on COLD_PAIRS random tiles,
+    timed warm (a chain on one L2-resident tile: `ms`, `plain_ms`) and cold
+    (a rotation over the COLD_PAIRS tiles, each call its own output:
+    `cold_ms`, `plain_cold_ms`)."""
+    import numpy as np
+    import torch
+
+    from mast3r_slam_torch.ops import lane_shift as ls
+
+    args = SLICE_PLANE_ARGS
+    row0, rows, width, offsets = args
+    xs = [torch.from_numpy(rng.normal(size=SLICE_PLANE).astype(np.float32)).to(
+        "cuda", torch.bfloat16) for _ in range(COLD_PAIRS)]
+    _, counts = lane_shift_counted(lambda: ls.offset_slice_sum(xs[0], *args))
+    sym = ls.SLICE_SUM_SYMBOL
+    check(counts == {**dict.fromkeys(counts, 0), sym: 1}, f"plane slice sum launched {counts}")
+    geometry = ls.slice_sum_geometry(rows, width, xs[0].data_ptr() % 16 == 0)
+    check(geometry.kind == ls.VECTOR, f"plane slice sum took {geometry}")
+    max_err = 0.0
+    for x in xs:
+        out, ref = ls.offset_slice_sum(x, *args), ls.offset_slice_sum_reference(x, *args)
+        max_err = max(max_err, (out - ref).abs().max().item())
+        check(torch.equal(out, ref), "plane slice sum: kernel != plain version")
+    t_kernel = time_graph(lambda y: [ls.offset_slice_sum(y, *args), y][1], xs[0])
+    t_plain = time_graph(lambda y: [ls.offset_slice_sum_reference(y, *args), y][1], xs[0])
+    t_cold = time_cold(lambda y: ls.offset_slice_sum(y, *args), xs)
+    t_plain_cold = time_cold(lambda y: ls.offset_slice_sum_reference(y, *args), xs)
+    bound, bound_by = ls.slice_sum_bound(xs[0].numel(), rows, width, len(offsets))
+    moved = 2 * xs[0].numel() + 4 * rows * width
+    print(f"[probe] offset_slice_sum_bf16 {list(SLICE_PLANE)} rows {row0}+{rows} width {width} "
+          f"offsets {list(offsets)} ({geometry}): launches {counts[sym]}, max_abs_err {max_err}, "
+          f"device ms: warm (L2-resident) kernel {t_kernel:.5f} ({moved / t_kernel / 1e6:.1f} "
+          f"GB/s) plain {t_plain:.5f}; cold ({COLD_PAIRS} pairs, {COLD_PAIRS * moved / 1e6:.0f} "
+          f"MB) kernel {t_cold:.5f} ({moved / t_cold / 1e6:.1f} GB/s, {bound / t_cold:.1%} of "
+          f"bound) plain {t_plain_cold:.5f}; bound {bound:.5f} ({bound_by})", flush=True)
+    return dict(launches=counts[sym], max_abs_err=max_err, ms=t_kernel, prev_ms=None,
+                plain_ms=t_plain, library_ms=None, cold_ms=t_cold, prev_cold_ms=None,
+                plain_cold_ms=t_plain_cold, bound_ms=bound, bound_by=bound_by,
+                of_bound_cold=bound / t_cold, shape=list(SLICE_PLANE),
+                slices=dict(row0=row0, rows=rows, width=width, offsets=list(offsets)),
+                kernel=geometry._asdict(), replaces=f"{PROBE_SCRIPT}:102")
+
+
+def slice_sum_edge_checks(rng) -> int:
+    """offset_slice_sum torch.equal to offset_slice_sum_reference where its
+    design can go wrong: C {8, 77, 256, 520, 1000, 16000} (at odd C rows
+    start off 16-byte boundaries), 1, 7 and 16 rows from row 0 and from row
+    3, widths from 1 to C - max(offsets) (1, 3, 13 and C - max - 1 or C - max:
+    not multiples of 4; 4, 12, 260: multiples of 4, not of 8), each offset
+    set of SLICE_EDGE_OFFSETS, from a 16-byte aligned base and from one 2
+    bytes past it; each through the wrapper (slice_sum_geometry's choice),
+    again (bit-equal to the first), and through both kernels wherever they
+    take the shape. Returns the number of launches checked."""
+    import numpy as np
+    import torch
+
+    from mast3r_slam_torch.ops import lane_shift as ls
+
+    calls = 0
+    for c in (8, 77, 256, 520, 1000, 16000):
+        for rows in (1, 7, 16):
+            for row0 in (0, 3):
+                n = (row0 + rows) * c
+                buf = torch.from_numpy(rng.normal(size=n + 1).astype(np.float32)).to(
+                    "cuda", torch.bfloat16)
+                for x, base in ((buf[:-1].view(row0 + rows, c), "aligned"),
+                                (buf[1:].view(row0 + rows, c), "offset")):
+                    for offsets in SLICE_EDGE_OFFSETS:
+                        top = c - max(offsets)
+                        for width in sorted({1, 3, 4, 8, 12, 13, 260, top - 1, top}
+                                            & set(range(1, top + 1))):
+                            args = (row0, rows, width, offsets)
+                            ref = ls.offset_slice_sum_reference(x, *args)
+                            first = ls.offset_slice_sum(x, *args)
+                            outs = {"wrapper": first, "again": ls.offset_slice_sum(x, *args),
+                                    "direct": ls._launch_slice_sum(
+                                        x, *args, ls.slice_direct_geometry(rows, width))}
+                            if base == "aligned" and width % 4 == 0:
+                                outs["vector"] = ls._launch_slice_sum(
+                                    x, *args, ls.slice_vector_geometry(rows, width))
+                            what = f"slice sum C {c} rows {row0}+{rows} width {width} " \
+                                   f"offsets {offsets} {base}"
+                            for how, out in outs.items():
+                                check(torch.equal(out, ref), f"{what} {how}: kernel != plain")
+                            check(torch.equal(outs["again"].view(torch.int32),
+                                              first.view(torch.int32)),
+                                  f"{what}: a repeated call is not bit-equal")
+                            calls += len(outs)
+    torch.cuda.synchronize()
+    print(f"[probe] offset_slice_sum edges: {calls} launches torch.equal to the plain version",
+          flush=True)
+    return calls
+
+
 def probe_phase() -> dict:
     import numpy as np
     import torch
@@ -671,25 +814,19 @@ def probe_phase() -> dict:
     # On the card a wrapper launches its kernel or raises; it never falls back.
     for bad, what in ((lambda: ls.roll_last_axis(torch.zeros(4, 8, dtype=torch.float16,
                                                              device="cuda"), 1), "fp16 roll"),
-                      (lambda: ls.roll_last_axis(torch.zeros(4, 8, device="cuda"), 8), "shift C")):
+                      (lambda: ls.roll_last_axis(torch.zeros(4, 8, device="cuda"), 8), "shift C"),
+                      (lambda: ls.offset_slice_sum(torch.zeros(4, 8, device="cuda"), 0, 1, 4, (0,)),
+                       "f32 slice sum")):
         try:
             bad()
             check(False, f"lane_shift took a {what} instead of raising")
         except (TypeError, ValueError):
             pass
 
-    def counted(fn):
-        """fn()'s result and the kernel launches it made, by kernel symbol."""
-        for key in ls.launches:
-            ls.launches[key] = 0
-        out = fn()
-        torch.cuda.synchronize()
-        return out, dict(ls.launches)
-
     # The probe entry point's main path: each case once, the script's inputs.
     outs, launches = {}, {}
     for name, fn in probe_shift.CASES.items():
-        outs[name], counts = counted(fn)
+        outs[name], counts = lane_shift_counted(fn)
         sym = probe_shift.SYMBOLS[name]
         launches[name] = counts[sym]
         check(counts == {**dict.fromkeys(counts, 0), sym: 1},
@@ -745,6 +882,15 @@ def probe_phase() -> dict:
               f"{max_err}, device ms: kernel {t_kernel:.5f} plain {t_plain:.5f} torch.roll "
               f"{lib_txt} bound {bound:.7f} ({bound_by})", flush=True)
 
+    # The probe shapes are launch-bound: each row beside the launch floor.
+    floor = launch_floor_ms()
+    print(f"[probe] launch floor (a kernel doing nothing, one CTA, through _launch): "
+          f"{floor:.5f} device ms per launch", flush=True)
+    for name, row in rows.items():
+        row.update(floor_ms=floor, over_floor_ms=row["ms"] - floor)
+        print(f"[probe] {name}: ms {row['ms']:.5f}, launch floor {floor:.5f}, ms - floor "
+              f"{row['ms'] - floor:.5f}", flush=True)
+
     # The shared launch helper (the script's _mk) at a matcher plane's size.
     x = torch.from_numpy(rng.normal(size=MATCHER_PLANE).astype(np.float32)).to("cuda",
                                                                                 torch.bfloat16)
@@ -757,7 +903,7 @@ def probe_phase() -> dict:
         return ls._launch("roll_last_axis_bf16", y.shape, y.dtype, y, n_rows, c, None, 3,
                           *geometry)
 
-    out, counts = counted(lambda: helper_roll(x))
+    out, counts = lane_shift_counted(lambda: helper_roll(x))
     check(counts == {**dict.fromkeys(counts, 0), "roll_last_axis_bf16": 1},
           f"matcher-plane roll launched {counts}")
     max_err = (out.float() - torch.roll(x, 3, dims=-1).float()).abs().max().item()
@@ -792,6 +938,8 @@ def probe_phase() -> dict:
           f"{t_lib_cold:.5f} ({moved / t_lib_cold / 1e6:.1f} GB/s); bound {bound:.5f} "
           f"({bound_by})", flush=True)
     rows["roll_last_axis_bf16"]["edge_calls"] = roll_edge_checks(rng)
+    rows["offset_slice_sum_bf16"] = slice_plane_row(rng)
+    rows["offset_slice_sum_bf16"]["edge_calls"] = slice_sum_edge_checks(rng)
     return rows
 
 
@@ -3900,14 +4048,16 @@ def other_kernel_times(root: str) -> dict:
     of this one's, at the kernel and probe phases' shapes, with this script's
     inputs and timing code and only the checkout's public entry points:
     attention at `parent_attention_cases` (graph and eager wall), the five
-    roll cases, the matcher-plane roll warm and cold; the attention
+    roll cases, the matcher-plane roll warm and cold, `offset_slice_sum` at
+    the probe case's shape and at SLICE_PLANE warm and cold; the attention
     backward at GRAD_CASES (`gradient_times`)."""
     import numpy as np
     import torch
 
     gen = import_checkout(root)
+    from mast3r_slam_torch import probe_shift
     from mast3r_slam_torch.ops.attention import flash_attention
-    from mast3r_slam_torch.ops.lane_shift import roll_last_axis
+    from mast3r_slam_torch.ops.lane_shift import offset_slice_sum, roll_last_axis
 
     attention = {}
     for name, b, h, sq, skv, fused in parent_attention_cases():
@@ -3917,18 +4067,27 @@ def other_kernel_times(root: str) -> dict:
     gradient = gradient_times(gen)
     rng = np.random.default_rng(4)
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-    rolls = {}
+    probe = {}
+    slice_args = (probe_shift.SLICE_ROW0, probe_shift.SLICE_ROWS, probe_shift.SLICE_WIDTH,
+                  probe_shift.SLICE_OFFSETS)
     for name, (shape, dtype, dynamic, _) in PROBE_CASES.items():
-        if dynamic is None:
-            continue
         x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to("cuda", dtypes[dtype])
+        if dynamic is None:
+            probe[f"case_{name}"] = dict(ms=time_graph(
+                lambda y: [offset_slice_sum(y, *slice_args), y][1], x))
+            continue
         s = torch.tensor([3], dtype=torch.int32, device="cuda") if dynamic else 3
-        rolls[f"case_{name}"] = dict(ms=time_graph(lambda y: roll_last_axis(y, s), x))
+        probe[f"case_{name}"] = dict(ms=time_graph(lambda y: roll_last_axis(y, s), x))
     xs = [torch.from_numpy(rng.normal(size=MATCHER_PLANE).astype(np.float32)).to(
         "cuda", torch.bfloat16) for _ in range(COLD_PAIRS)]
-    rolls["roll_last_axis_bf16"] = dict(ms=time_graph(lambda y: roll_last_axis(y, 3), xs[0]),
+    probe["roll_last_axis_bf16"] = dict(ms=time_graph(lambda y: roll_last_axis(y, 3), xs[0]),
                                         cold_ms=time_cold(lambda y: roll_last_axis(y, 3), xs))
-    return dict(attention=attention, rolls=rolls, gradient=gradient)
+    xs = [torch.from_numpy(rng.normal(size=SLICE_PLANE).astype(np.float32)).to(
+        "cuda", torch.bfloat16) for _ in range(COLD_PAIRS)]
+    probe["offset_slice_sum_bf16"] = dict(
+        ms=time_graph(lambda y: [offset_slice_sum(y, *SLICE_PLANE_ARGS), y][1], xs[0]),
+        cold_ms=time_cold(lambda y: offset_slice_sum(y, *SLICE_PLANE_ARGS), xs))
+    return dict(attention=attention, probe=probe, gradient=gradient)
 
 
 def import_checkout(root: str):
@@ -3993,7 +4152,7 @@ def time_other(root: str, backward_only: bool = False) -> dict:
 
 
 def add_prev(rows: list, probe: dict, runs: list, own: list, grads: tuple = ()) -> None:
-    """Set each attention row's prev_ms (and the matcher-plane roll's
+    """Set each attention and probe row's prev_ms (and the plane rows'
     prev_cold_ms) to the mean over `runs` of the other checkout's time for
     the same case, and its ab_ms to the mean over `own` of this checkout's
     time taken the same way (`time_other` of this checkout, between the
@@ -4027,13 +4186,15 @@ def add_prev(rows: list, probe: dict, runs: list, own: list, grads: tuple = ()) 
                   f"{row['ms']:.5f} at {row['splits']} splits); eager wall ms "
                   f"{[r['attention'][case]['eager_wall_ms'] for r in runs]}", flush=True)
     for case, row in probe.items():
-        if case in runs[0]["rolls"]:
-            row["prev_ms"] = mean("ms", "rolls", case)
+        if case in runs[0]["probe"]:
+            row["prev_ms"] = mean("ms", "probe", case)
+            row["ab_ms"] = mean("ms", "probe", case, own)
             if "cold_ms" in row:
-                row["prev_cold_ms"] = mean("cold_ms", "rolls", case)
-            print(f"[parent] {case}: {[r['rolls'][case] for r in runs]} (this checkout "
-                  f"{row['ms']:.5f}{' cold %.5f' % row['cold_ms'] if 'cold_ms' in row else ''})",
-                  flush=True)
+                row["prev_cold_ms"] = mean("cold_ms", "probe", case)
+                row["ab_cold_ms"] = mean("cold_ms", "probe", case, own)
+            print(f"[parent] {case}: parent, this, this, parent {[r['probe'][case] for r in turns]}"
+                  f" (this checkout's phase row {row['ms']:.5f}"
+                  f"{' cold %.5f' % row['cold_ms'] if 'cold_ms' in row else ''})", flush=True)
 
 
 def main(argv=None) -> int:

@@ -52,8 +52,35 @@
 //    shift. A third kernel that staged whole rows in shared memory (loads
 //    independent of the shift, then a barrier) was measured and dropped: it
 //    was slower than the warp kernel at every shape timed (PERF.md).
-// No per-element division in either. offset_slice_sum keeps the simple
-// design: one thread per output element in a grid-stride loop.
+// No per-element division in either.
+//
+// offset_slice_sum's design: two kernels, one launch, chosen by the wrapper
+// (ops/lane_shift.py `slice_sum_geometry`, which passes the geometry in). At a
+// plane's size ((6152, 520) bf16 -> (6144, 512) f32: 6.4 MB read, 12.6 MB
+// written) the bytes set the bound, 5.67 us, so the output is written with
+// 16-byte stores and the input read with aligned 16-byte loads.
+//  * `slice_sum_vec_kernel<N>`, for a 16-byte aligned x and a width that is a
+//    multiple of 4: block (32, 8), a warp per output row (block y, then grid
+//    y, looping), grid x over segments of 256 columns; lane l takes the 8
+//    columns from col = 8 (32 blockIdx.x + l) (4 at the end of a width that
+//    is 4 mod 8). For offset k its 8 source elements start at flat index
+//    e = (row0 + i) C + off_k + col, inside the aligned vector e / 8 and,
+//    unless e % 8 is 0, the next one; both are loaded (the second only when
+//    it holds a needed element, so no load leaves x's 16-byte blocks) and
+//    the 8 elements cut out with a funnel shift (`window16`). e % 8 is the
+//    same on every lane of the warp, so the cut is uniform. N, the number of
+//    offsets, is a template parameter: every offset's loads are issued
+//    before the first add, and the sum runs in the order given, from 0.0f.
+//    The loads of the N offsets overlap in L1; device memory sees each line
+//    of the span once.
+//  * `slice_sum_direct_kernel`, for the rest (a base off 16 bytes, a width
+//    not a multiple of 4): grid and block x over columns, y over rows, one
+//    output element a thread, its N source elements read straight from x.
+// No per-element integer division in either: rows come from the block and
+// warp index, columns from the lane.
+//
+// `launch_floor_kernel` does nothing in one CTA: its time in a chain of
+// launches is the floor under every launch-bound kernel here.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,10 +88,11 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 4096;
+constexpr int kThreads = 256;  // threads of a direct slice-sum block (lane_shift.py SLICE_THREADS)
 constexpr int kMaxOffsets = 8;
 constexpr int kRollThreads = 256;
+constexpr int kSliceLaneCols = 8;  // output columns of a lane of the vector slice sum
+constexpr int kSliceRows = 8;      // warps (output rows) of a vector slice-sum block
 
 struct Offsets {
   int n;
@@ -203,26 +231,73 @@ roll_warp_kernel(const U* __restrict__ x, U* __restrict__ out, long long R, int 
   }
 }
 
-__global__ void offset_slice_sum_kernel(const __nv_bfloat16* __restrict__ x,
-                                        float* __restrict__ out, int C, int row0, int rows,
-                                        int width, Offsets offs) {
-  const long long total = static_cast<long long>(rows) * width;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < total;
-       i += stride) {
-    const int r = static_cast<int>(i / width);
-    const int j = static_cast<int>(i - static_cast<long long>(r) * width);
-    const __nv_bfloat16* src = x + static_cast<long long>(row0 + r) * C + j;
-    float acc = 0.0f;
-    for (int k = 0; k < offs.n; ++k) acc += __bfloat162float(src[offs.v[k]]);
-    out[i] = acc;
+// A bf16 in the low or high half of a 32-bit word, as f32 (exact).
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
+// A 16-byte aligned x, width % 4 == 0: see the note at the top. N offsets.
+template <int N>
+__global__ void __launch_bounds__(32 * kSliceRows)
+slice_sum_vec_kernel(const uint16_t* __restrict__ x, float* __restrict__ out, int C, int row0,
+                     int rows, int width, Offsets offs) {
+  const int col = kSliceLaneCols * (blockIdx.x * 32 + threadIdx.x);
+  if (col >= width) return;
+  const int cnt = width - col < kSliceLaneCols ? width - col : kSliceLaneCols;  // 8, or 4
+  const uint4* xv = reinterpret_cast<const uint4*>(x);
+  for (int i = blockIdx.y * kSliceRows + threadIdx.y; i < rows; i += gridDim.y * kSliceRows) {
+    const long long src = static_cast<long long>(row0 + i) * C + col;
+    uint4 lo[N], hi[N];
+    int o[N];
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const long long e = src + offs.v[k];
+      o[k] = static_cast<int>(e & 7);
+      lo[k] = __ldg(xv + (e >> 3));
+      hi[k] = o[k] + cnt > 8 ? __ldg(xv + (e >> 3) + 1) : lo[k];
+    }
+    float acc[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[j] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const uint4 w = window16<uint16_t>(lo[k], hi[k], o[k]);
+      const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[2 * j] += bf16_lo(ws[j]);
+        acc[2 * j + 1] += bf16_hi(ws[j]);
+      }
+    }
+    float4* orow = reinterpret_cast<float4*>(out + static_cast<long long>(i) * width + col);
+    orow[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    if (cnt == 8) orow[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
   }
 }
 
-int grid_for(long long total) {
-  long long blocks = (total + kThreads - 1) / kThreads;
-  if (blocks < 1) blocks = 1;
-  return static_cast<int>(blocks < kMaxBlocks ? blocks : kMaxBlocks);
+// Any x and width: thread x a column, threads y (block y, then grid y) the rows.
+__global__ void __launch_bounds__(kThreads)
+slice_sum_direct_kernel(const __nv_bfloat16* __restrict__ x, float* __restrict__ out, int C,
+                        int row0, int rows, int width, Offsets offs) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= width) return;
+  for (int i = blockIdx.y * blockDim.y + threadIdx.y; i < rows; i += gridDim.y * blockDim.y) {
+    const __nv_bfloat16* src = x + static_cast<long long>(row0 + i) * C + j;
+    float acc = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kMaxOffsets; ++k) {  // unrolled: offs.v stays in the parameter space
+      if (k < offs.n) acc += __bfloat162float(__ldg(src + offs.v[k]));
+    }
+    out[static_cast<long long>(i) * width + j] = acc;
+  }
+}
+
+__global__ void launch_floor_kernel() {}
+
+template <int N>
+void launch_slice_vec(const void* x, float* out, int C, int row0, int rows, int width,
+                      const Offsets& offs, dim3 grid, dim3 block, cudaStream_t st) {
+  slice_sum_vec_kernel<N><<<grid, block, 0, st>>>(static_cast<const uint16_t*>(x), out, C, row0,
+                                                  rows, width, offs);
 }
 
 // Launch geometry from the wrapper (ops/lane_shift.py `roll_geometry`):
@@ -274,19 +349,45 @@ extern "C" int roll_last_axis_bf16(const void* x, void* out, long long R, int C,
   return launch_roll<uint16_t>(x, out, R, C, shift_dev, shift, kind, gx, gy, bx, by, stream);
 }
 
-// offsets: a host array of n_offsets (<= 8) column offsets, copied into the
-// kernel's arguments. Returns cudaGetLastError(), or cudaErrorInvalidValue for
-// more than 8 offsets.
+// offsets: a host array of n_offsets (1..8) column offsets, copied into the
+// kernel's arguments; then the launch geometry from the wrapper
+// (ops/lane_shift.py `slice_sum_geometry`): kind 1 is the vector kernel (grid
+// (gx, gy), block (32, 8)), 0 the direct one (grid (gx, gy), block (bx, by)).
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for a bad count or kind.
 extern "C" int offset_slice_sum_bf16(const void* x, void* out, int C, int row0, int rows,
-                                     int width, const int* offsets, int n_offsets,
-                                     void* stream) {
-  if (n_offsets < 0 || n_offsets > kMaxOffsets) return static_cast<int>(cudaErrorInvalidValue);
+                                     int width, const int* offsets, int n_offsets, int kind,
+                                     int gx, int gy, int bx, int by, void* stream) {
+  if (n_offsets < 1 || n_offsets > kMaxOffsets) return static_cast<int>(cudaErrorInvalidValue);
   Offsets offs;
   offs.n = n_offsets;
   for (int k = 0; k < kMaxOffsets; ++k) offs.v[k] = k < n_offsets ? offsets[k] : 0;
-  const long long total = static_cast<long long>(rows) * width;
-  if (total == 0) return 0;
-  offset_slice_sum_kernel<<<grid_for(total), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<float*>(out), C, row0, rows, width, offs);
+  if (static_cast<long long>(rows) * width == 0) return 0;
+  auto st = static_cast<cudaStream_t>(stream);
+  float* op = static_cast<float*>(out);
+  const dim3 grid(gx, gy), block(bx, by);
+  if (kind == 1) {
+    switch (n_offsets) {
+      case 1: launch_slice_vec<1>(x, op, C, row0, rows, width, offs, grid, block, st); break;
+      case 2: launch_slice_vec<2>(x, op, C, row0, rows, width, offs, grid, block, st); break;
+      case 3: launch_slice_vec<3>(x, op, C, row0, rows, width, offs, grid, block, st); break;
+      case 4: launch_slice_vec<4>(x, op, C, row0, rows, width, offs, grid, block, st); break;
+      case 5: launch_slice_vec<5>(x, op, C, row0, rows, width, offs, grid, block, st); break;
+      case 6: launch_slice_vec<6>(x, op, C, row0, rows, width, offs, grid, block, st); break;
+      case 7: launch_slice_vec<7>(x, op, C, row0, rows, width, offs, grid, block, st); break;
+      default: launch_slice_vec<8>(x, op, C, row0, rows, width, offs, grid, block, st); break;
+    }
+  } else if (kind == 0) {
+    slice_sum_direct_kernel<<<grid, block, 0, st>>>(static_cast<const __nv_bfloat16*>(x), op, C,
+                                                    row0, rows, width, offs);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The launch floor: one CTA of one warp that does nothing (x and out unused,
+// so that it launches through the same helper as the kernels above).
+extern "C" int launch_floor(const void* x, void* out, void* stream) {
+  launch_floor_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,9 +14,14 @@ Shift rule, as ``pltpu.roll`` needs it: ``0 <= shift < C``. A static shift
 (a Python int) outside that range raises; a dynamic shift (an int32 tensor of
 one element, read by the kernel on the device) is reduced mod C.
 
-`roll_geometry` is the roll's launch geometry (which of its two kernels, the
-grid and the block), computed here and passed to the kernel, so the CPU
-tests can hold it to covering every output element once.
+`roll_geometry` and `slice_sum_geometry` are the launch geometries (which
+of a function's two kernels, the grid and the block), computed here and
+passed to the kernel, so the CPU tests can hold them to covering every
+output element once.
+
+`FLOOR_SYMBOL` names a kernel that does nothing in one CTA: launched through
+`_launch` like the others, it times the launch floor under the kernels of
+the probe shapes (chip_smoke.py).
 """
 
 from __future__ import annotations
@@ -32,8 +37,12 @@ _F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 MAX_OFFSETS = 8
 _ROLL_SYMBOLS = {torch.float32: "roll_last_axis_f32", torch.bfloat16: "roll_last_axis_bf16"}
 SLICE_SUM_SYMBOL = "offset_slice_sum_bf16"
-launches = dict.fromkeys([*_ROLL_SYMBOLS.values(), SLICE_SUM_SYMBOL], 0)
+FLOOR_SYMBOL = "launch_floor"
+launches = dict.fromkeys([*_ROLL_SYMBOLS.values(), SLICE_SUM_SYMBOL, FLOOR_SYMBOL], 0)
 ROLL_THREADS = 256  # threads of a roll block (csrc/lane_shift.cu kRollThreads)
+SLICE_THREADS = 256  # threads of a direct slice-sum block (csrc/lane_shift.cu kThreads)
+SLICE_LANE_COLS = 8  # output columns of a lane of the vector slice sum (kSliceLaneCols)
+SLICE_ROWS = 8  # warps, one output row each, of a vector slice-sum block (kSliceRows)
 
 
 class RollGeometry(NamedTuple):
@@ -101,6 +110,52 @@ def roll_geometry(rows: int, c: int, itemsize: int, aligned: bool = True) -> Rol
     return direct_geometry(rows, c, itemsize)
 
 
+class SliceGeometry(NamedTuple):
+    """One launch of the slice sum, by kernel `kind`: DIRECT (threads x over
+    columns, threads y over rows, looping) or VECTOR (block (32, SLICE_ROWS):
+    a warp per output row, looping over grid y; grid x over segments of
+    32 * SLICE_LANE_COLS columns)."""
+
+    kind: int
+    grid: tuple[int, int]
+    block: tuple[int, int]
+
+    def args(self) -> tuple[int, ...]:
+        """kind, gx, gy, bx, by, in the kernel's order."""
+        return (self.kind, *self.grid, *self.block)
+
+
+VECTOR = 1  # csrc/lane_shift.cu offset_slice_sum_bf16's kinds: DIRECT, VECTOR
+
+
+def slice_direct_geometry(rows: int, width: int) -> SliceGeometry:
+    """The direct kernel: a column a thread, whole warps of at most
+    SLICE_THREADS along x, the rest of the block's threads along y."""
+    bx = min(SLICE_THREADS, 32 * -(-width // 32))
+    by = SLICE_THREADS // bx
+    return SliceGeometry(DIRECT, (-(-width // bx), min(-(-rows // by), 65535)), (bx, by))
+
+
+def slice_vector_geometry(rows: int, width: int) -> SliceGeometry:
+    """The vector kernel (a 16-byte aligned x, width a multiple of 4)."""
+    if width % 4:
+        raise ValueError("the vector slice sum takes a width that is a multiple of 4")
+    segments = -(-width // (32 * SLICE_LANE_COLS))
+    return SliceGeometry(VECTOR, (segments, min(-(-rows // SLICE_ROWS), 65535)),
+                         (32, SLICE_ROWS))
+
+
+@functools.lru_cache(maxsize=1024)
+def slice_sum_geometry(rows: int, width: int, aligned: bool = True) -> SliceGeometry:
+    """The vector kernel for a 16-byte aligned x and a width that is a
+    multiple of 4 (any C, row0 and offsets), the direct one otherwise."""
+    if rows * width == 0:
+        return SliceGeometry(DIRECT, (0, 1), (32, 1))
+    if aligned and width % 4 == 0:
+        return slice_vector_geometry(rows, width)
+    return slice_direct_geometry(rows, width)
+
+
 def roll_reference(x: torch.Tensor, shift) -> torch.Tensor:
     """Plain version: ``torch.roll`` along the last axis (a tensor shift is
     read to the host and reduced mod C)."""
@@ -147,8 +202,11 @@ def _lib() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [p, p, ll, i, p, i, i, i, i, i, i, p]
             fn.restype = i
-        lib.offset_slice_sum_bf16.argtypes = [p, p, i, i, i, i, ctypes.POINTER(i), i, p]
-        lib.offset_slice_sum_bf16.restype = ctypes.c_int
+        lib.offset_slice_sum_bf16.argtypes = [p, p, i, i, i, i, ctypes.POINTER(i), i, i, i, i, i,
+                                              i, p]
+        lib.offset_slice_sum_bf16.restype = i
+        lib.launch_floor.argtypes = [p, p, p]
+        lib.launch_floor.restype = i
     return lib
 
 
@@ -207,9 +265,16 @@ def offset_slice_sum(x: torch.Tensor, row0: int, rows: int, width: int,
     if x.dtype != torch.bfloat16:
         raise TypeError(f"offset_slice_sum: the kernel takes bf16, got {x.dtype}")
     _check_slices(x, row0, rows, width, offsets)
+    geometry = slice_sum_geometry(rows, width, x.data_ptr() % 16 == 0)
+    return _launch_slice_sum(x, row0, rows, width, offsets, geometry)
+
+
+def _launch_slice_sum(x: torch.Tensor, row0: int, rows: int, width: int, offsets: Sequence[int],
+                      geometry: SliceGeometry) -> torch.Tensor:
+    """One launch of the slice-sum kernel that `geometry` names."""
     offs = (ctypes.c_int * len(offsets))(*offsets)
     return _launch(SLICE_SUM_SYMBOL, (rows, width), torch.float32,
-                   x, x.shape[1], row0, rows, width, offs, len(offsets))
+                   x, x.shape[1], row0, rows, width, offs, len(offsets), *geometry.args())
 
 
 def roll_bound(numel: int, itemsize: int) -> tuple[float, str]:

@@ -137,4 +137,5 @@ def test_cpu_tensors_launch_nothing_and_main_prints_every_case(capsys):
     assert lines[1:] == [f"{name}: OK" for name in probe_shift.CASES]
     assert lane_shift.launches == before
     assert set(probe_shift.SYMBOLS) == set(probe_shift.CASES)
-    assert set(probe_shift.SYMBOLS.values()) == set(lane_shift.launches)
+    # every case's kernel, and the launch floor's (chip_smoke.py times it)
+    assert set(lane_shift.launches) == {*probe_shift.SYMBOLS.values(), lane_shift.FLOOR_SYMBOL}
