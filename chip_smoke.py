@@ -20,7 +20,8 @@ timed the same way in between (parent, this, this, parent), as `ab_ms`.
 Phases, in order; any failure exits non-zero before the result line:
   1. card    - needs CUDA; prints the card's name and power limit (nvidia-smi).
   2. build   - builds every kernel in mast3r_slam_torch/csrc (the attention
-               forward and backward, the lane shifts) with nvcc and the
+               forward and backward, the lane shifts, the graph IF node's
+               setter) with nvcc and the
                host preprocessing library with g++, one process per source,
                all at once.
   3. kernels - holds the attention kernel against its plain PyTorch version at
@@ -70,8 +71,11 @@ Phases, in order; any failure exits non-zero before the result line:
                heads) at 512x384 in bf16 with random seeded weights, under
                bench.py's tracking settings: init_keyframe, two windows of
                K=8, then 4 frames with match_frac_thresh=1.0 (promotion on
-               every frame). Checks finiteness, events, and that every
-               kernel of the path was launched as often as predicted.
+               every frame), each window one replay of a captured CUDA graph
+               drained by one stats read. Checks finiteness, events, and
+               that every kernel of the path was launched as often as
+               predicted (the attention's promotions counted at the drain,
+               one IF node per frame).
   7. slam    - SLAM.run, the system's entry point, at the same width over an
                in-memory sequence of 640x480 uint8 frames (the TUM size; the
                native host pipeline crops them to 512x384), twice:
@@ -237,6 +241,26 @@ Phases, in order; any failure exits non-zero before the result line:
                iteration count, no host sync inside solve. Symmetric inference
                and MASt3RModel.reconstruct at full width: finite, shapes,
                attention launches as predicted.
+ 18. program - run after phase 17, before phase 14: the tracking window as
+               one captured CUDA graph (mast3r_full at 512x384, bf16,
+               bench.py's settings, K = sync_every = 8). The same drifting
+               frames through the captured window and the eager one
+               (`capture_windows` False: the select form): events exact,
+               statistics within phase 5's 0.02, poses and pointmaps
+               finite. A promoting pair (match_frac_thresh 1.0): the same
+               checks, and the IF body's device counter equal to the NEW_KF
+               events at the drain. count_syncs around two later windows:
+               only the drain's site, once a window. A knob-on window runs
+               eager, by design. The IF node (graph_cond_if) around the mono
+               decode equal to the select form on the same inputs. Then, in
+               a fresh process (no torch.profiler session before its clocks:
+               after one, each skipped IF node pays for its large body), 1 +
+               10 windows each way, interleaved: the same checks, ms/frame
+               from dispatch through the drain (median, quartiles, range),
+               peak memory, host-side launches per window (copies in, the
+               replay, clones out); the IF node timed with its body skipped
+               and taken beside the select form; a replayed window's
+               kernels and device busy time from a trace.
 Then it prints the kernels JSON line, the card line, and last
 {"ok": true, "device": {...}}.
 """
@@ -246,6 +270,7 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -353,6 +378,9 @@ POSED_POSE_ATOL = 1e-4  # the well-posed problem's final poses against the truth
 SNAP_FRAMES, SNAP_EVERY = 8, 4  # phase 11: frames before the snapshot and after it
 WINDOW_MB = 4  # phase 12: runtime.window_decode_microbatch
 OFFLINE_FRAMES, OFFLINE_PAIR_BATCH = 8, 8  # phase 13: OfflineReconstructor's frames, pair_batch
+PROGRAM_WINDOWS = 10  # phase 18: timed windows of each kind (after one that captures)
+IF_NODES = 20  # phase 18: IF nodes in the graph that times graph_cond_if
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 TRACK_API_TIMED = 20  # phase 17: timed track calls of each kind, the kinds interleaved
 GN_ATOL = 1e-5  # phase 17: GaussNewtonSolver card vs CPU
 
@@ -1013,6 +1041,7 @@ def main_path_phase(cfg) -> dict:
     import numpy as np
     import torch
 
+    from mast3r_slam_torch import graphs
     from mast3r_slam_torch.models import MASt3RModel
     from mast3r_slam_torch.ops.attention import flash_attention
     from mast3r_slam_torch.tracker import EVENT_NEW_KF, EVENT_TRACKED, FrameTracker
@@ -1029,21 +1058,22 @@ def main_path_phase(cfg) -> dict:
     base = rng.uniform(0, 1, (h, w, 3)).astype(np.float32)
     imgs = drift_frames(base, 2 * WINDOW + PROMOTION_FRAMES, rng)
 
-    flash_attention.launches = 0
+    flash_attention.launches = graphs.if_node.launches = 0
     tracker = FrameTracker(model, cfg)
     tracker.init_keyframe(base)
     win1 = tracker.track_window(imgs[:WINDOW])
-    torch.cuda.synchronize()
+    tracker.sync_window(win1)
     t1 = time.perf_counter()
     win2 = tracker.track_window(imgs[WINDOW: 2 * WINDOW])
-    torch.cuda.synchronize()
+    tracker.sync_window(win2)  # the drain: the window's one host read
     ms_frame = (time.perf_counter() - t1) / WINDOW * 1e3
     promo = FrameTracker(model, dataclasses.replace(
         cfg, tracking=dataclasses.replace(cfg.tracking, match_frac_thresh=1.0)))
     promo.state = tracker.state
     win3 = promo.track_window(imgs[2 * WINDOW:])
+    promo.sync_window(win3)
     torch.cuda.synchronize()
-    launches = flash_attention.launches
+    launches, if_launches = flash_attention.launches, graphs.if_node.launches
 
     n = h * w
     for name, win, want in (("window 1", win1, EVENT_TRACKED), ("window 2", win2, EVENT_TRACKED)):
@@ -1068,9 +1098,16 @@ def main_path_phase(cfg) -> dict:
     print(f"[main] attention launches {launches}, predicted {per_frame}*(1+{frames}) + "
           f"{per_promotion}*{promotions} = {expected}", flush=True)
     check(launches == expected, f"flash_attention launched {launches} times, predicted {expected}")
-    print(f"[main] {ms_frame:.2f} ms/frame (window 2, K={WINDOW}), promotions {promotions}/"
-          f"{PROMOTION_FRAMES}, stats frame 16 {win2['stats'][-1].tolist()}", flush=True)
-    return dict(launches=launches, ms_frame=ms_frame, promotions=promotions)
+    # every window is one replay of a captured graph: one IF node (its setter
+    # kernel) per frame, the mono decode inside it on the promoting frames
+    check(len(tracker.graphs.graphs) == 1 and len(promo.graphs.graphs) == 1,
+          "the main path's windows were not captured")
+    check(if_launches == frames, f"graph_cond_if launched {if_launches} times for {frames} frames")
+    print(f"[main] {ms_frame:.2f} ms/frame (window 2, K={WINDOW}, a graph replay and its drain), "
+          f"promotions {promotions}/{PROMOTION_FRAMES}, IF nodes run {if_launches}, stats frame "
+          f"16 {win2['stats'][-1].tolist()}", flush=True)
+    return dict(launches=launches, if_launches=if_launches, ms_frame=ms_frame,
+                promotions=promotions)
 
 
 # -- phase 7 ---------------------------------------------------------------
@@ -1170,7 +1207,8 @@ def slam_phase() -> dict:
         solve_ms = [a.elapsed_time(b) for a, b in solves]
         print(f"[slam {name}] {n} frames in {wall:.2f} s = {wall / n * 1e3:.1f} ms/frame; "
               f"events {dict(sorted(ev.items()))}; keyframes {res['keyframe_indices']}; "
-              f"edges {fg.n_edges}; backend decodes {fg.n_decodes}; host syncs {n_syncs}: "
+              f"edges {fg.n_edges}; backend decodes {fg.n_decodes}; host syncs {n_syncs} "
+              f"({n_syncs / n:.1f}/frame): "
               f"{dict(sorted(syncs.items(), key=lambda kv: -kv[1]))}", flush=True)
         print(f"[slam {name}] backend solves {len(solve_ms)}: ms per solve between CUDA events "
               f"median {np.median(solve_ms) if solve_ms else float('nan'):.2f} max "
@@ -1496,7 +1534,9 @@ def calib_runs(model) -> dict:
                   f"{EUROC_HW[1]}x{EUROC_HW[0]} (pointmaps {kfs.h}x{kfs.w}) in {wall:.2f} s = "
                   f"{wall / n * 1e3:.1f} ms/frame; events {dict(sorted(ev.items()))}; keyframes "
                   f"{res['keyframe_indices']}; edges {fg.n_edges}; backend decodes "
-                  f"{fg.n_decodes}; host syncs {sum(syncs.values())}", flush=True)
+                  f"{fg.n_decodes}; host syncs {sum(syncs.values())} "
+                  f"({sum(syncs.values()) / n:.1f}/frame): "
+                  f"{dict(sorted(syncs.items(), key=lambda kv: -kv[1]))}", flush=True)
             print(f"[calib {name}] graph solves {len(solves)} in modes {modes}: ms between CUDA "
                   f"events median {np.median(solve_ms):.2f} max "
                   f"{max(solve_ms, default=float('nan')):.2f}; K {K.tolist()}; attention "
@@ -2589,12 +2629,13 @@ def _window_run(model, settings: dict, imgs: list, base, windows: int) -> dict:
         for j in range(windows):
             t0 = time.perf_counter()
             outs.append(tracker.track_window(imgs[j * WINDOW:(j + 1) * WINDOW]))
-            torch.cuda.synchronize()
+            tracker.sync_window(outs[-1])  # the drain
             ms = (time.perf_counter() - t0) / WINDOW * 1e3
         launches = flash_attention.launches
     finally:
         del model.encode, model.decode
-    return dict(outs=outs, launches=launches, ms_frame=ms, calls=dict(calls))
+    return dict(outs=outs, launches=launches, ms_frame=ms, calls=dict(calls),
+                captured=bool(tracker.graphs.graphs))
 
 
 def predicted_window_attention(events, model_cfg, batched: bool, spec: bool, mb: int) -> int:
@@ -2604,7 +2645,9 @@ def predicted_window_attention(events, model_cfg, batched: bool, spec: bool, mb:
     attention. Batched encode: one encode per window, else one per frame.
     Speculative decode: floor(K / mb) chunks and one of the rest before the
     chain, then a live decode for every frame after the first promotion;
-    without it a live decode per frame. A decode more per promotion."""
+    without it a live decode per frame. A mono decode more per promotion in
+    a captured window (knobs off: the IF node), per frame in an eager one
+    (a knob on: `branch`'s select form decodes, then selects)."""
     import numpy as np
 
     from mast3r_slam_torch.tracker import EVENT_NEW_KF
@@ -2619,7 +2662,7 @@ def predicted_window_attention(events, model_cfg, batched: bool, spec: bool, mb:
         n_dec = k // size + (1 if k % size else 0) + live
     else:
         n_dec = k
-    return enc * n_enc + dec * (n_dec + len(promoted))
+    return enc * n_enc + dec * (n_dec + (k if batched or spec else len(promoted)))
 
 
 def window_phase(model) -> dict:
@@ -2654,11 +2697,14 @@ def window_phase(model) -> dict:
         if thresh is not None:
             settings["tracking"]["match_frac_thresh"] = thresh
         run = _window_run(model, settings, imgs, base, windows)
+        check(run["captured"] != on, f"window {name}: captured {run['captured']}, knobs {on}")
         predicted = sum(predicted_window_attention(o["stats"][:, 3].tolist(), model.cfg, on, on,
                                                    WINDOW_MB) for o in run["outs"])
         events = [o["stats"][:, 3].tolist() for o in run["outs"]]
-        print(f"[window] {name}: {windows} x {WINDOW} frames, {run['ms_frame']:.2f} ms/frame "
-              f"(last window); events {events}; model calls {run['calls']}; attention "
+        print(f"[window] {name}: {windows} x {WINDOW} frames "
+              f"{'captured' if run['captured'] else 'eager'}, {run['ms_frame']:.2f} ms/frame "
+              f"(last window); events {events}; model calls (a captured window's: while "
+              f"capturing) {run['calls']}; attention "
               f"launches {run['launches']}, predicted {predicted}", flush=True)
         check(run["launches"] == predicted,
               f"window {name}: attention launched {run['launches']}, predicted {predicted}")
@@ -3298,6 +3344,311 @@ def solve_bf16_phase() -> dict:
 # -- another checkout's kernels (--parent) -----------------------------------
 
 
+
+# -- phase 18 --------------------------------------------------------------
+
+
+def _cond_program(model):
+    """The IF node's row: inputs at the main path's shapes (pred, one frame's
+    features, a kept pointmap) and program(inputs, branch, nodes) that runs
+    `nodes` branches on the promotion's mono decode, each an IF node of its
+    own under capture, chained on the kept pointmap."""
+    import torch
+
+    from mast3r_slam_torch.tracker import _mono_pointmap
+
+    h, w = model.out_hw
+    n = h * w
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    feat, pos = model.encode(torch.rand(1, h, w, 3, device="cuda", generator=gen) * 2 - 1)
+    inputs = dict(pred=torch.ones((), dtype=torch.bool, device="cuda"), feat=feat[0],
+                  pos=pos[0], X=torch.rand(n, 3, device="cuda", generator=gen),
+                  C=torch.rand(n, 1, device="cuda", generator=gen))
+
+    def body(f, p):
+        return _mono_pointmap(model, f, p, 1)
+
+    def program(inp, branch, nodes: int = 1):
+        X, C = inp["X"], inp["C"]
+        for _ in range(nodes):
+            X, C = branch(inp["pred"], body, (inp["feat"], inp["pos"]), (X, C))
+        return dict(X=X, C=C)
+
+    return inputs, body, program
+
+
+def graph_cond_check(model) -> dict:
+    """The IF node (`graphs.if_node`: csrc/graph_cond.cu's setter kernel and
+    the conditional node) around the promotion's mono decode at the main
+    path's shapes against its plain version, `graphs.branch`'s select form
+    (decode, then torch.where), on the same inputs: a one-node `WindowGraph`
+    replayed with pred set, clear and set -> max |IF - select| and the
+    launches of one run of the body."""
+    from mast3r_slam_torch import graphs
+
+    counts = graphs.launch_counts()
+    inputs, _body, program = _cond_program(model)
+    graph = graphs.GraphCache("cuda").window("row", (), program, inputs)
+    err = 0.0
+    for pred in (True, False, True):
+        inputs["pred"].fill_(pred)
+        got, want = graph.run(inputs), program(inputs, graphs.branch)
+        for key in got:
+            err = max(err, (got[key] - want[key]).abs().max().item())
+    graphs.add_launches(graphs.launch_delta(graphs.launch_counts(), counts))  # not the path's
+    n = inputs["X"].shape[0]
+    print(f"[program] graph_cond_if (IF node) around the mono decode: max |IF - select| {err}",
+          flush=True)
+    check(err == 0.0, f"the IF node's outputs differ from the select form's by {err}")
+    return dict(shape=f"pred [], feat {tuple(inputs['feat'].shape)} bf16, X [{n}, 3] f32, "
+                      f"C [{n}, 1] f32", max_abs_err=err, body_launches=graph.body_launches)
+
+
+def graph_cond_times(model) -> dict:
+    """Device ms per IF node with pred clear (`ms`: the body skipped, what a
+    frame that does not promote pays) and set (`taken_ms`), from a graph of
+    IF_NODES of them replayed between CUDA events (the host's launch of a
+    graph is not what the clock sees); the select form's per call
+    (`plain_ms`). The bound is the bytes of the function with pred clear:
+    pred, the kept pointmap read and the output written. Taken before any
+    torch.profiler session in the process: after one, a skipped node whose
+    body is large costs ~50x more (measured on one H100)."""
+    from mast3r_slam_torch import graphs
+
+    counts = graphs.launch_counts()
+    inputs, body, program = _cond_program(model)
+    timed = graphs.GraphCache("cuda").window(
+        "timed", (), lambda inp, br: program(inp, br, IF_NODES), inputs)
+    times = {}
+    for pred in (False, True):
+        timed.inputs["pred"].fill_(pred)
+        times[pred] = _replay_ms(timed.graph, IF_NODES, 10 if not pred else 2)
+    inputs["pred"].fill_(False)
+    plain_ms = time_graph_calls(lambda: graphs.select(
+        inputs["pred"], body(inputs["feat"], inputs["pos"]), (inputs["X"], inputs["C"])),
+        iters=1, reps=5)
+    graphs.add_launches(graphs.launch_delta(graphs.launch_counts(), counts))
+    bytes_ = 1 + 2 * inputs["X"].shape[0] * 4 * 4
+    return dict(ms=times[False], taken_ms=times[True], plain_ms=plain_ms,
+                bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None)
+
+
+def _window_times(trackers: dict, wins: list) -> tuple:
+    """Each tracker over the windows `wins` in turn (the order of the kinds
+    swapped every window), each window timed on the host clock from its
+    dispatch through its drain (`sync_window`, the one read) -> (per kind:
+    ms/frame of each window after the first, stats, outputs, peak memory)."""
+    import torch
+
+    ms = {k: [] for k in trackers}
+    stats = {k: [] for k in trackers}
+    outs = {k: [] for k in trackers}
+    peak = {k: 0 for k in trackers}
+    kinds = list(trackers)
+    for j, x in enumerate(wins):
+        for kind in (kinds if j % 2 else kinds[::-1]):
+            tr = trackers[kind]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = tr.track_window(x)
+            stats[kind].append(tr.sync_window(out))
+            torch.cuda.synchronize()
+            if j:  # window 0 captures the graph
+                ms[kind].append((time.perf_counter() - t0) * 1e3 / len(x))
+                peak[kind] = max(peak[kind], torch.cuda.max_memory_allocated())
+            outs[kind].append(out)
+    return ms, stats, outs, peak
+
+
+def _program_world(model, thresh=None, capture=(True, False), windows: int = 2):
+    """Trackers at bench.py's settings from one keyframe (match_frac_thresh
+    `thresh` if given), captured and eager, and `windows` windows of K =
+    sync_every drifting frames on the card."""
+    import numpy as np
+    import torch
+
+    from mast3r_slam_torch.config import Config, set_config
+    from mast3r_slam_torch.tracker import FrameTracker
+    from mast3r_slam_torch.workload import BENCH_SETTINGS, drift_frames
+
+    cfg = set_config(Config.from_dict(BENCH_SETTINGS))
+    k = cfg.runtime.sync_every
+    check(k == WINDOW, f"sync_every {k}")
+    if thresh is not None:
+        cfg = dataclasses.replace(cfg, tracking=dataclasses.replace(cfg.tracking,
+                                                                    match_frac_thresh=thresh))
+    rng = np.random.default_rng(18)
+    h, w = model.out_hw
+    base = rng.uniform(0, 1, (h, w, 3)).astype(np.float32)
+    wins = list(torch.from_numpy(drift_frames(base, windows * k, rng)).cuda().split(k))
+    trackers = {}
+    for kind, cap in zip(("captured", "eager"), capture):
+        tr = trackers[kind] = FrameTracker(model, cfg)
+        tr.capture_windows = cap
+        tr.init_keyframe(base)
+    return cfg, trackers, wins
+
+
+def _compare_windows(tag: str, stats: dict, outs: dict) -> float:
+    """Captured against eager: events exact, statistics within phase 5's
+    band, poses and pointmaps finite -> the largest statistics gap."""
+    import numpy as np
+    import torch
+
+    gap = 0.0
+    for a, b in zip(stats["captured"], stats["eager"]):
+        check(np.array_equal(a[:, 3], b[:, 3]), f"{tag}: events {a[:, 3]} vs {b[:, 3]}")
+        gap = max(gap, float(np.abs(a - b).max()))
+    check(gap <= TRACK_STATS_ATOL, f"{tag}: statistics {gap:.3e} apart")
+    for o in outs["captured"] + outs["eager"]:
+        check(bool(torch.isfinite(o["T_WCf"]).all() and torch.isfinite(o["frame_X"]).all()
+                   and torch.isfinite(o["final"]["kf_X"]).all()),
+              f"{tag}: non-finite poses or pointmaps")
+    return gap
+
+
+def window_timing() -> dict:
+    """In a process of its own (`--window-timing`), so that no torch.profiler
+    session has run before the clocks (after one, every skipped IF node of
+    the window pays for its large body): mast3r_full at bench.py's
+    settings, 1 + PROGRAM_WINDOWS windows of K = 8 through the captured and
+    the eager window, interleaved (ms/frame, peak memory, events and
+    statistics captured vs eager); the IF node's times (`graph_cond_times`);
+    then one replay and its drain under torch.profiler -> device work per
+    frame from the trace."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mast3r_slam_torch.models import MASt3RModel
+    from mast3r_slam_torch.ops import build
+    from mast3r_slam_torch.profile_step import summarize_trace
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build_all()
+    model = MASt3RModel.create("mast3r_full", resolution=512, precision="bf16", seed=0)
+    _cfg, trackers, wins = _program_world(model, windows=1 + PROGRAM_WINDOWS)
+    ms, stats, outs, peak = _window_times(trackers, wins)
+    gap = _compare_windows("program timing", stats, outs)
+    graph = next(iter(trackers["captured"].graphs.graphs.values()))
+    pct = {kind: dict(zip(("min", "q1", "median", "q3", "max"),
+                          np.percentile(v, [0, 25, 50, 75, 100]).tolist()), windows=len(v))
+           for kind, v in ms.items()}
+    cond = graph_cond_times(model)
+    tracker = trackers["captured"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tracker.sync_window(tracker.track_window(wins[1]))
+    path = os.path.join(REPO, "build", "profile", "window_program.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        runtime = collections.Counter(e["name"] for e in json.load(f)["traceEvents"]
+                                      if e.get("cat") == "cuda_runtime")
+    trace = summarize_trace(path, WINDOW)
+    for key in ("stage_device_busy_ms_per_frame", "stage_kernels_per_frame",
+                "stage_host_ms_per_frame"):
+        trace.pop(key)  # the tracker's spans fire only at a capture
+    trace.update(graph_launches=runtime["cudaGraphLaunch"],
+                 memcpy_calls=sum(n for k, n in runtime.items() if "Memcpy" in k),
+                 kernel_launch_calls=sum(n for k, n in runtime.items() if "LaunchKernel" in k))
+    return dict(ms_frame=pct, peak_allocated_bytes=peak, stats_gap=gap,
+                host_launches=graph.host_launches, launches_per_replay=graph.launches,
+                launches_per_promotion=graph.body_launches, graph_cond=cond, trace=trace,
+                card=card_line())
+
+
+def window_program_phase(model) -> dict:
+    """Phase 18: the tracking window as one captured CUDA graph, at bench.py's
+    settings (K = sync_every = 8). Here: two windows through the captured and
+    the eager window (`capture_windows` False: `branch`'s select form),
+    events exact, statistics within phase 5's 0.02, poses and pointmaps
+    finite, one graph per length, none eager; a promoting pair
+    (match_frac_thresh 1.0): the same checks, and the IF body's device
+    counter equal to the NEW_KF events at the drain; `count_syncs` around two
+    later windows: only the drain's site, once a window; a knob-on window
+    runs eager (by design); the IF node against the select form
+    (`graph_cond_check`). In a fresh process (`window_timing`): ms/frame of
+    1 + 10 interleaved windows each way (median, quartiles, range), peak
+    memory, host-side launches per window, the IF node's times, and a
+    replay's device work from a trace."""
+    import torch
+
+    from mast3r_slam_torch.config import set_config
+    from mast3r_slam_torch.profile_step import count_syncs
+    from mast3r_slam_torch.tracker import EVENT_NEW_KF
+
+    t_phase = time.perf_counter()
+    cfg, trackers, wins = _program_world(model)
+    _ms, stats, outs, _peak = _window_times(trackers, wins)
+    gap = _compare_windows("program", stats, outs)
+    cap = trackers["captured"]
+    check(len(cap.graphs.graphs) == 1 and not trackers["eager"].graphs.graphs,
+          f"graphs: captured {len(cap.graphs.graphs)}, eager {len(trackers['eager'].graphs.graphs)}")
+    syncs = count_syncs(lambda: [cap.sync_window(cap.track_window(x)) for x in wins])
+    site = [s for s in syncs if s.startswith("mast3r_slam_torch/tracker.py")]
+    print(f"[program] {len(wins)} windows of K={WINDOW} each way: events equal, statistics "
+          f"within {gap:.3e}; host syncs over {len(wins)} later windows by site: {syncs}",
+          flush=True)
+    check(len(syncs) == 1 and len(site) == 1 and syncs[site[0]] == len(wins),
+          f"host syncs other than the drain's, once a window: {syncs}")
+
+    _cfg, promo, pwins = _program_world(model, thresh=1.0)
+    _pms, pstats, pouts, _ppeak = _window_times(promo, pwins)
+    pgap = _compare_windows("program promoting", pstats, pouts)
+    new_kf = int(sum((s[:, 3] == EVENT_NEW_KF).sum() for s in pstats["captured"]))
+    body_runs = int(promo["captured"].graphs.body_runs)
+    print(f"[program] promoting windows: NEW_KF events {new_kf}, IF body runs {body_runs} "
+          f"(device counter), stats within {pgap:.3e}", flush=True)
+    check(new_kf >= 1 and body_runs == new_kf,
+          f"IF body ran {body_runs} times for {new_kf} NEW_KF events")
+
+    knob = _program_world(model, capture=(True,), windows=1)[1]["captured"]
+    set_config(dataclasses.replace(cfg, runtime=dataclasses.replace(
+        cfg.runtime, window_batched_encode=True)))  # the window reads its knobs from the config
+    try:
+        knob.sync_window(knob.track_window(wins[0]))
+    finally:
+        set_config(cfg)
+    check(not knob.graphs.graphs, "a knob-on window was captured")
+    print("[program] a knob-on window (window_batched_encode) ran eager, by design", flush=True)
+
+    row = graph_cond_check(model)
+    del trackers, promo, knob, outs, pouts
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--window-timing"],
+                          capture_output=True, text=True, timeout=600, cwd=REPO)
+    check(proc.returncode == 0, f"the window timing failed:\n{proc.stderr[-3000:]}")
+    timing = json.loads(proc.stdout.strip().splitlines()[-1])
+    pct, trace = timing["ms_frame"], timing["trace"]
+    row.update(timing["graph_cond"])
+    print(f"[program] in a fresh process, {PROGRAM_WINDOWS} windows of K={WINDOW} each way, "
+          f"interleaved: ms/frame captured {pct['captured']}, eager {pct['eager']}; peak "
+          f"allocated GB captured {timing['peak_allocated_bytes']['captured'] / 1e9:.3f}, eager "
+          f"{timing['peak_allocated_bytes']['eager'] / 1e9:.3f}; host-side launches per captured "
+          f"window {timing['host_launches']} (1 replay, copies in, clones out); launches per "
+          f"replay {timing['launches_per_replay']}, per promotion "
+          f"{timing['launches_per_promotion']}; statistics within {timing['stats_gap']:.3e}",
+          flush=True)
+    print(f"[program] graph_cond_if: device ms per IF node, body skipped {row['ms']:.5f}, taken "
+          f"{row['taken_ms']:.4f}; the select form {row['plain_ms']:.4f} ms; bound "
+          f"{row['bound_ms']:.5f} ms (bytes)", flush=True)
+    print(f"[program] a replayed window's trace: {json.dumps(trace)}", flush=True)
+    check(trace["graph_launches"] == 1, f"{trace['graph_launches']} graph launches in a window")
+    busy = trace["device_busy_ms_per_frame"]
+    print(f"[program] device busy {busy:.2f} ms/frame; idle share of the captured median "
+          f"{1 - busy / pct['captured']['median']:.3f}; phase {time.perf_counter() - t_phase:.1f} s "
+          f"({timing['card']})", flush=True)
+    return dict(ms_frame=pct, peak_allocated_bytes=timing["peak_allocated_bytes"],
+                stats_gap=max(gap, timing["stats_gap"]), promoting_gap=pgap, new_kf=new_kf,
+                body_runs=body_runs, host_launches=timing["host_launches"],
+                launches_per_replay=timing["launches_per_replay"],
+                launches_per_promotion=timing["launches_per_promotion"], host_syncs=syncs,
+                trace=trace, graph_cond=row)
+
+
 # -- phase 16 --------------------------------------------------------------
 
 PAR_B, PAR_MB, PAR_STEPS = 8, 4, 2  # parallel serving: streams, microbatch, feature-fed steps
@@ -3869,6 +4220,7 @@ def parallel_phase() -> dict:
               f"{row['dq_ms']} and dk/dv kernel {row['dkdv_ms']} device ms (torch.profiler, in a "
               f"process of its own, whose graph chain took {row['trace_ms']:.5f}); SDPA's "
               f"autograd ran {row['sdpa_autograd_kernels']}", flush=True)
+    gc.collect()  # earlier phases' trackers and the memory pools of their window graphs
     torch.cuda.empty_cache()
     workdir = tempfile.mkdtemp(prefix="parallel-")
     t1 = time.perf_counter()
@@ -4203,15 +4555,18 @@ def main(argv=None) -> int:
                     help="another checkout whose kernels are timed beside this one's (prev_ms)")
     ap.add_argument("--time-kernels-of", metavar="DIR", help=argparse.SUPPRESS)
     ap.add_argument("--time-backward-of", metavar="DIR", help=argparse.SUPPRESS)
+    ap.add_argument("--window-timing", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
         print("[chip_smoke] CUDA is not available: this smoke run needs a GPU", file=sys.stderr)
         return 2
-    if args.time_kernels_of or args.time_backward_of:
+    if args.time_kernels_of or args.time_backward_of or args.window_timing:
         try:
-            if args.time_kernels_of:
+            if args.window_timing:
+                print(json.dumps(window_timing()))
+            elif args.time_kernels_of:
                 print(json.dumps(other_kernel_times(os.path.abspath(args.time_kernels_of))))
             else:
                 root = os.path.abspath(args.time_backward_of)
@@ -4261,6 +4616,7 @@ def main(argv=None) -> int:
         window = window_phase(model)
         offline = offline_phase(model)
         track_api = track_api_phase(model)  # phase 17, before phase 14 quantizes the model
+        program = window_program_phase(model)  # phase 18, on the same unquantized model
         quant = quant_phase(model)  # quantizes the model: the last phase that runs it
         solve_bf16 = solve_bf16_phase()
         parallel = parallel_phase()
@@ -4283,6 +4639,7 @@ def main(argv=None) -> int:
     print(f"[chip_smoke] solve_bf16: {json.dumps(solve_bf16)}", flush=True)
     print(f"[chip_smoke] parallel: {json.dumps(parallel)}", flush=True)
     print(f"[chip_smoke] track_api: {json.dumps(track_api)}", flush=True)
+    print(f"[chip_smoke] program: {json.dumps(program)}", flush=True)
     enc = kern["rows"][0]
     kernels = [dict(
         name="flash_attention",
@@ -4342,6 +4699,24 @@ def main(argv=None) -> int:
         shape=grad["shape"],
         by_shape=parallel["gradient"],
         build=parallel["backward_build"],
+    ))
+    cond = program["graph_cond"]
+    kernels.append(dict(
+        name="graph_cond_if",
+        route="cuda",
+        source="mast3r_slam_torch/csrc/graph_cond.cu",
+        replaces="mast3r_slam_tpu/tracker.py:469",
+        replaces_note="jax.lax.cond of the chained step's promotion (not a Pallas kernel): the "
+                      "setter kernel and the conditional IF node it keys",
+        launches=main["if_launches"],
+        max_abs_err=cond["max_abs_err"],
+        ms=cond["ms"],
+        taken_ms=cond["taken_ms"],
+        plain_ms=cond["plain_ms"],
+        bound_ms=cond["bound_ms"],
+        bound_by=cond["bound_by"],
+        library_ms=cond["library_ms"],
+        shape=cond["shape"],
     ))
     for name, row in probe.items():
         kernels.append(dict(

@@ -26,6 +26,7 @@ import torch
 from mast3r_slam_torch.geometry import normalize_rays
 
 BIG = 1e30
+BIG_BF16 = torch.tensor(BIG, dtype=torch.bfloat16).item()  # BIG rounded to bf16, a Python float
 
 
 def window_taps(radius: int, dilations: tuple[int, ...]) -> list[tuple[int, int]]:
@@ -81,7 +82,7 @@ def match_dense_window(
     def stream(x):  # rounded to bf16 once, computed on in f32
         return x.to(bf16).float()
 
-    rays1 = _pad_hw(stream(normalize_rays(X11)), r, float(torch.tensor(BIG, dtype=bf16)))
+    rays1 = _pad_hw(stream(normalize_rays(X11)), r, BIG_BF16)
     rays2 = stream(normalize_rays(X21))
     desc1 = _pad_hw(stream(D11), r, 0.0)
     desc2 = stream(D21)

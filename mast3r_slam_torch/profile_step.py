@@ -1,18 +1,24 @@
-"""Where the time of the port's tracking step goes, on one NVIDIA GPU.
+"""Where the time of the port's tracking window goes, on one NVIDIA GPU.
 
     python3 -m mast3r_slam_torch.profile_step [--frames 8] [--out build/profile]
 
 Runs mast3r_full (ViT-L/16, 512x384, bf16, random seeded weights) under
 bench.py's tracking settings (`workload`), as chip_smoke.py's main path
-does: one warm-up window, one timed window (host clock around work that
-ends in a synchronize), one window under torch.profiler, then one window
-under ``torch.cuda.set_sync_debug_mode("warn")``. Prints one JSON line:
-ms/frame (unprofiled), the device busy time per frame (the union of kernel,
-memcpy and memset intervals in the trace) and the idle share it leaves of the
-unprofiled frame, kernels per frame, device busy time, kernels and host time
-per tracking stage (the tracker's record_function spans), the top kernels by
-device time, and the host synchronisations per frame by source line. The
-chrome trace (tens of MB) is written under --out.
+does. A window of --frames is one replay of a captured CUDA graph: one
+window captures it, then one is timed (host clock from the dispatch through
+the drain, the window's one host read), one is replayed under
+torch.profiler, and one under ``torch.cuda.set_sync_debug_mode("warn")``.
+Then one window runs eagerly (``capture_windows`` False: the promotion's
+select form), unprofiled and under torch.profiler: in a captured window the
+tracker's record_function spans fire only at the capture, so the per-stage
+breakdown comes from the eager window and is labelled so. Prints one JSON
+line: ms/frame of the captured window, its device busy time per frame (the
+union of kernel, memcpy and memset intervals in the trace) and the idle
+share it leaves, kernels per frame, the top kernels by device time, graph
+launches per window, the host synchronisations per frame by source line,
+and under "eager" the eager window's ms/frame, device busy time, kernels
+and the device time, launches and host time per tracking stage. The chrome
+traces (tens of MB) are written under --out.
 """
 
 from __future__ import annotations
@@ -89,9 +95,10 @@ def count_syncs(fn) -> dict[str, int]:
     import torch
 
     counts: dict[str, int] = {}
+    armed = []  # switching the debug mode on warns once itself: not fn()'s
 
     def record(message, category, filename, lineno, file=None, line=None):
-        if "synchroniz" not in str(message):
+        if not armed or "synchroniz" not in str(message):
             return
         ours = [f for f in traceback.extract_stack()[:-1] if f.filename.startswith(REPO)]
         site = (f"{os.path.relpath(ours[-1].filename, REPO)}:{ours[-1].lineno}" if ours
@@ -102,6 +109,7 @@ def count_syncs(fn) -> dict[str, int]:
         warnings.simplefilter("always")
         warnings.showwarning = record
         torch.cuda.set_sync_debug_mode("warn")
+        armed.append(True)
         try:
             fn()
         finally:
@@ -141,30 +149,47 @@ def main() -> int:
     rng = np.random.default_rng(0)
     base = rng.uniform(0, 1, (h, w, 3)).astype(np.float32)
     k = args.frames
-    imgs = torch.from_numpy(drift_frames(base, 4 * k, rng)).cuda()
+    imgs = torch.from_numpy(drift_frames(base, 6 * k, rng)).cuda()
 
     tracker = FrameTracker(model, cfg)
     tracker.init_keyframe(base)
-    tracker.track_window(imgs[:k])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    tracker.track_window(imgs[k: 2 * k])
-    torch.cuda.synchronize()
-    ms_frame = (time.perf_counter() - t0) * 1e3 / k
+    wins = imgs.split(k)
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        tracker.track_window(imgs[2 * k: 3 * k])
+    def window(x) -> float:
+        """ms/frame of one window, dispatch through drain."""
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    trace = os.path.join(args.out, "trace.json")
-    prof.export_chrome_trace(trace)
-    result = dict(card=card, frames=k, ms_per_frame=ms_frame, profiled_ms_per_frame=wall_ms / k,
-                  **summarize_trace(trace, k))
+        t0 = time.perf_counter()
+        tracker.sync_window(tracker.track_window(x))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / len(x)
+
+    def profiled(x, name: str) -> tuple[dict, float]:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ms = window(x)
+        trace = os.path.join(args.out, name)
+        prof.export_chrome_trace(trace)
+        return summarize_trace(trace, len(x)), ms
+
+    window(wins[0])  # captures the window's graph
+    ms_frame = window(wins[1])
+    captured, profiled_ms = profiled(wins[2], "trace.json")
+    for key in ("stage_device_busy_ms_per_frame", "stage_kernels_per_frame",
+                "stage_host_ms_per_frame"):
+        captured.pop(key)  # the spans fire only at the capture
+    with open(os.path.join(args.out, "trace.json")) as f:
+        graph_launches = sum(e.get("name") == "cudaGraphLaunch" for e in json.load(f)["traceEvents"])
+    result = dict(card=card, frames=k, ms_per_frame=ms_frame, profiled_ms_per_frame=profiled_ms,
+                  graph_launches_per_window=graph_launches, **captured)
     result["device_idle_share"] = 1.0 - result["device_busy_ms_per_frame"] / ms_frame
-    syncs = count_syncs(lambda: tracker.track_window(imgs[3 * k:]))
+    syncs = count_syncs(lambda: tracker.sync_window(tracker.track_window(wins[3])))
     result["host_syncs_per_frame"] = sum(syncs.values()) / k
     result["host_sync_sites_per_frame"] = {site: c / k for site, c in sorted(syncs.items())}
+    tracker.capture_windows = False  # the eager window, for its stages
+    eager_ms = window(wins[4])
+    eager, eager_profiled_ms = profiled(wins[5], "trace_eager.json")
+    result["eager"] = dict(ms_per_frame=eager_ms, profiled_ms_per_frame=eager_profiled_ms,
+                           device_idle_share=1.0 - eager["device_busy_ms_per_frame"] / eager_ms,
+                           **eager)
     print(json.dumps(result))
     return 0
 

@@ -30,10 +30,11 @@ hide a TPU link's round trip):
   window order. If that drain sends a frame into RELOC, the chain is aborted
   and the window run against the old state is replayed synchronously.
 
-Host reads per chained window: one per frame inside the step (the
-`new_kf` flag that selects the promotion branch, tracker.py), one for the
-window's [K, 6] stats, and the backend's (one for the match fractions of
-each `add_factors`, none inside a solve). Processing order, bookkeeping,
+Host reads per chained window: none inside it (on the card a window is one
+replay of a captured CUDA graph, its promotions decided on the device,
+tracker.py), one for the window's [K, 6] stats at the drain
+(`FrameTracker.sync_chain`), and the backend's (one for the match fractions
+of each `add_factors`, none inside a solve). Processing order, bookkeeping,
 replay after a skip and the `refresh_chain` / `queue_arena_correction`
 handshake are those of the JAX loop.
 
@@ -163,6 +164,7 @@ class SLAM:
             if window:
                 entries, window[:] = list(window), []
                 stats = self.tracker.sync_chain([h for (_f, _t, h) in entries])
+                self._count_promotions(stats)
                 self._drain_window([(f, t, h["out"]) for (f, t, h) in entries], stats,
                                    corr=entries[-1][2]["corr"])
 
@@ -171,7 +173,8 @@ class SLAM:
                 return
             frames_ts, handle = inflight[0]
             inflight[0] = None
-            stats = handle["out"]["stats"].cpu().numpy()  # the window's stats read
+            stats = self.tracker.sync_chain([handle])[0]  # the window's one stats read
+            self._count_promotions(stats)
             rows = handle["out"]["rows"]
             self._drain_window([(fr, ts, rows[j]) for j, (fr, ts) in enumerate(frames_ts)],
                                stats, corr=handle["corr"])
@@ -187,11 +190,13 @@ class SLAM:
                 frames = [create_frame(i, batch_dev[j]) for j, (i, _t, _u) in enumerate(entries)]
                 handle = self.tracker.dispatch_window(frames, batch_dev, T_init=self._last_T_WC)
                 if handle is not None:
-                    self._count_chained(handle["out"]["rows"])
+                    self.events["chained_step"] += len(frames)
                     drain_inflight()
                     if self.tracker._chain is None:
                         # the drain went into RELOC and aborted the chain: this
-                        # window ran against the old state; replay it
+                        # window ran against the old state; count what it ran
+                        # (one more host read, on this rare path), replay it
+                        self._count_promotions(self.tracker.sync_chain([handle])[0])
                         for j, (_i, ts, _u) in enumerate(entries):
                             self._step_sync(frames[j], ts)
                     else:
@@ -204,7 +209,7 @@ class SLAM:
                 if use_pipeline and self.state.mode == Mode.TRACKING:
                     handle = self.tracker.dispatch(frame, T_init=self._last_T_WC)
                     if handle is not None:
-                        self._count_chained([handle["out"]])
+                        self.events["chained_step"] += 1
                         window.append((frame, timestamp, handle))
                         continue
                 flush_window()
@@ -240,9 +245,10 @@ class SLAM:
             print("Run metrics:", summarize(self.config.runtime.metrics_path))
         return self._get_results()
 
-    def _count_chained(self, rows: list) -> None:
-        self.events["chained_step"] += len(rows)
-        self.events["chained_promotion"] += sum(r["promoted"] for r in rows)
+    def _count_promotions(self, stats: np.ndarray) -> None:
+        """The promotions a drained window's steps ran on the device, from its
+        events (those after a skip included: the chain ran them)."""
+        self.events["chained_promotion"] += int((stats[..., 3] == EVENT_NEW_KF).sum())
 
     def _step_sync(self, frame: Frame, timestamp: float) -> None:
         """Synchronous per-frame step (INIT, RELOC, no pipeline)."""

@@ -10,14 +10,20 @@ its payload and hit extras; the ray-distance Sim(3) pose Gauss-Newton;
 keyframe pointmap fusion; and the keyframe/skip decision, with promotion by a
 mono (self-pair) decode.
 
-Promotion design. JAX takes the decision inside the device program
-(``lax.cond``). Here the step reads the one-element ``new_kf`` flag on the
-host once per frame and branches in Python to the mono decode: one host
-synchronisation per tracked frame (`profile_step` counts them; an image
-handed over from host memory adds its copy to the card). A design that
-keeps the decision on the device is later work.
+Promotion design. As in JAX (``lax.cond``), the keyframe decision and the
+promotion stay on the device: the step passes the one-element ``new_kf``
+flag to a `branch` (`graphs`), which reads nothing back to the host. In a
+captured window it is a CUDA graph conditional IF node, so the mono decode
+runs only on promoting frames; on the CPU and in an eager window on the card
+it is the select form (decode, then ``torch.where``). The host learns of a
+promotion from the event in the window's stats at the drain.
 
-The window program (`FrameTracker._window_steps`) takes JAX's knobs:
+The window program (`FrameTracker._run_window`, JAX's
+``_make_fused_track_chain_scan``): on the card with both knobs off, a window
+of K frames is one replay of a captured CUDA graph (`graphs.WindowGraph`,
+cached per tracker by window length, core and image dtype), and the host
+reads nothing until the drain (`sync_chain` / `sync_window`, one read per
+window). With JAX's knobs the window runs eagerly:
 ``runtime.window_batched_encode`` encodes a window's frames in one batch
 before the chain, and ``runtime.window_spec_decode`` also decodes them
 against the window's first keyframe in chunks of
@@ -26,8 +32,9 @@ window decodes live, so both are exact.
 
 Each stage of the step runs inside a ``torch.profiler.record_function``
 span (track.encode / decode / match / pose / fuse / promote), so a profile
-attributes device time to stages; outside a profile a span costs a few
-microseconds.
+of an eager window attributes device time to stages; outside a profile a
+span costs a few microseconds, and in a captured window the spans fire only
+at the capture.
 
 Every tracking path runs on `make_track_step`: the window program
 (`track_window`, `dispatch_window`, `dispatch`), and the synchronous
@@ -52,6 +59,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from mast3r_slam_torch import graphs
 from mast3r_slam_torch.config import Config, get_config
 from mast3r_slam_torch.device import resolve_device
 from mast3r_slam_torch.frame import Frame, Keyframes, fuse_pointmap_masked
@@ -232,28 +240,31 @@ def _mono_pointmap(model, feat, pos, f: int):
 def make_track_step(model, cfg, filtering_mode: str, img_downsample: int = 1,
                     use_calib: bool = False) -> Callable:
     """The per-frame chained step:
-    ``step(img [H,W,3], state, promote=True, enc=None, dec=None, K=None, frame=None)
-    -> (out, state)``.
+    ``step(img [H,W,3], state, promote=True, enc=None, dec=None, K=None, frame=None,
+    branch=graphs.branch) -> (out, state)``.
 
     `state` holds the keys of ``_STATE``; `out` holds the per-frame results
     of ``_PER_FRAME`` (stats = [match_frac, match_frac_k, unique_frac_f,
-    event, kN after, retired kN]), the raw match indices under "idx", the
-    desc_conf of both views under "Qkf" and "Qff" ([1, n, 1], JAX's shapes)
-    and, under "promoted", whether the step ran the promotion (a Python
-    bool). `frame` = (fX [n, 3], fC [n, 1], fN []) is a pointmap the frame
-    already holds (JAX ``_make_fused_track``): the decode is fused into it
-    (`fuse_pointmap_masked`) before the core, which then tracks the fused
-    points and their average confidence; "frame_X" / "frame_C" are the fused
-    pointmap and its count fN2 is appended to stats (a seventh entry). With
-    ``frame=None`` (the chain and the window) the frame's pointmap is the
-    decode itself, as after a first observation, at no extra launch.
-    With ``promote=False`` the step neither reads `new_kf` nor promotes (the
-    chain keeps its keyframe); `enc` = (feat [S, D], pos [S, 2]) skips the
-    encode of a frame already encoded, and `dec` = (out_f, out_k), the
-    decoder's two output dicts with a batch of one, skips the decode against
-    the state's keyframe (the window's speculative decode). With `use_calib`
-    the step runs the calibrated core with the intrinsics `K` [3, 3] of each
-    call.
+    event, kN after, retired kN]), the raw match indices under "idx" and the
+    desc_conf of both views under "Qkf" and "Qff" ([1, n, 1], JAX's shapes).
+    Whether the step promoted is its event (stats slot 3), on the device:
+    the promotion's mono decode goes through `branch` on ``new_kf`` (JAX's
+    ``lax.cond``), the select form by default and an IF node under a
+    `graphs.WindowGraph`'s capture; the new keyframe's features, pose and
+    count are selected on ``new_kf``. `frame` = (fX [n, 3], fC [n, 1], fN
+    []) is a pointmap the frame already holds (JAX ``_make_fused_track``):
+    the decode is fused into it (`fuse_pointmap_masked`) before the core,
+    which then tracks the fused points and their average confidence;
+    "frame_X" / "frame_C" are the fused pointmap and its count fN2 is
+    appended to stats (a seventh entry). With ``frame=None`` (the chain and
+    the window) the frame's pointmap is the decode itself, as after a first
+    observation, at no extra launch. With ``promote=False`` the step does
+    not promote (the chain keeps its keyframe); `enc` = (feat [S, D], pos
+    [S, 2]) skips the encode of a frame already encoded, and `dec` =
+    (out_f, out_k), the decoder's two output dicts with a batch of one,
+    skips the decode against the state's keyframe (the window's speculative
+    decode). With `use_calib` the step runs the calibrated core with the
+    intrinsics `K` [3, 3] of each call.
     """
     cfg_key = _calib_cfg_key(cfg) if use_calib else _rays_cfg_key(cfg)
     min_match_frac, match_frac_thresh = cfg_key[2], cfg_key[9]
@@ -264,7 +275,8 @@ def make_track_step(model, cfg, filtering_mode: str, img_downsample: int = 1,
         return a[:, ::f, ::f] if f > 1 else a
 
     @torch.no_grad()
-    def step(img_f, st, promote: bool = True, enc=None, dec=None, K=None, frame=None):
+    def step(img_f, st, promote: bool = True, enc=None, dec=None, K=None, frame=None,
+             branch=graphs.branch):
         with record_function("track.encode"):
             if enc is None:
                 img = _to_unit_image(img_f, dev)
@@ -323,13 +335,15 @@ def make_track_step(model, cfg, filtering_mode: str, img_downsample: int = 1,
         ret_C = torch.where(skip, kC, kC2)
         ret_N = torch.where(skip, kN, kN2)
 
-        promoted = promote and bool(new_kf)  # the one host read per frame
-        if promoted:
-            with record_function("track.promote"):
-                Xm, Cm = _mono_pointmap(model, feat_f[0], pos_f[0], f)
-            nfeat, npos, nX, nC, nN, nT = (
-                feat_f[0], pos_f[0], Xm, Cm, torch.ones_like(ret_N), core["T_WCf"]
-            )
+        if promote:
+            def promote_fn(feat, pos):
+                with record_function("track.promote"):
+                    return _mono_pointmap(model, feat, pos, f)
+
+            nX, nC = branch(new_kf, promote_fn, (feat_f[0], pos_f[0]), (ret_X, ret_C))
+            nfeat, npos, nN, nT = graphs.select(
+                new_kf, (feat_f[0], pos_f[0], torch.ones_like(ret_N), core["T_WCf"]),
+                (st["kf_feat"], st["kf_pos"], ret_N, T_WCk))
         else:
             nfeat, npos, nX, nC, nN, nT = st["kf_feat"], st["kf_pos"], ret_X, ret_C, ret_N, T_WCk
 
@@ -343,7 +357,7 @@ def make_track_step(model, cfg, filtering_mode: str, img_downsample: int = 1,
         out = dict(
             stats=torch.stack(stats if fN2 is None else stats + [fN2]), T_WCf=T_out,
             frame_X=fX2, frame_C=fC2, feat=feat_f[0], pos=pos_f[0], ret_X=ret_X, ret_C=ret_C,
-            kf_X=nX, kf_C=nC, kf_T=nT, idx=idx, Qkf=Qkf[None], Qff=Qff[None], promoted=promoted,
+            kf_X=nX, kf_C=nC, kf_T=nT, idx=idx, Qkf=Qkf[None], Qff=Qff[None],
         )
         state = dict(
             kf_feat=nfeat, kf_pos=npos, idx=idx_next, kf_X=nX, kf_C=nC, kN=nN,
@@ -362,14 +376,18 @@ class FrameTracker:
     * The chain API of the SLAM loop, over the keyframe arena `keyframes`:
       `dispatch(frame)` / `dispatch_window(frames, imgs)` run chained steps
       against the chain's keyframe state (built from the arena on first use),
-      `sync_chain` reads a window's stats, `commit_chain_frame`,
+      `sync_chain` reads a window's stats (the drain), `commit_chain_frame`,
       `abort_chain`, `refresh_chain`, `push_pose_delta` and
       `queue_arena_correction` keep the chain and the arena in step, and
       `track(frame, match_fn)` is the synchronous path.
     * Without an arena: `init_keyframe(img)` makes `img` the first keyframe
       and `track_window(imgs [K, H, W, 3])` runs K chained steps and returns
       the per-frame results stacked [K, ...] with the final chain state under
-      "final", as the JAX window program does.
+      "final", as the JAX window program does; `sync_window` drains it.
+
+    On the card every window (`dispatch` is a window of one) replays the
+    tracker's captured graph of its length (`graphs`, a `GraphCache`);
+    ``capture_windows = False`` runs windows eagerly instead, to compare.
 
     With ``use_calib`` every step takes the calibrated objective once the
     arena holds intrinsics K (`_calib_live`, checked per step); the
@@ -412,6 +430,8 @@ class FrameTracker:
         self._corr_cum = lie.sim3_identity(device=self.device)
         self._chain_gen = 0
         self._use_fused = hasattr(model, "net") and self.cfg.filtering_mode in _ELEMENTWISE_FUSION
+        self.graphs = graphs.GraphCache(self.device)  # the captured windows (card only)
+        self.capture_windows = True  # False: every window eager (select form), to compare
 
     @property
     def can_pipeline(self) -> bool:
@@ -447,18 +467,74 @@ class FrameTracker:
         )
 
     def track_window(self, imgs) -> dict:
+        """K chained steps from the chain state of `init_keyframe` over imgs
+        [K, H, W, 3] -> the per-frame results of ``_PER_FRAME`` stacked [K,
+        ...], the final chain state under "final", and under
+        "promotion_launches" the kernel launches of one promotion that the
+        drain (`sync_window`) counts per NEW_KF event."""
         if self.state is None:
             raise RuntimeError("init_keyframe() must be called before track_window()")
-        outs, self.state = self._window_steps(imgs, self.state)
-        result = {k: torch.stack([o[k] for o in outs]) for k in _PER_FRAME}
-        result["final"] = {k: self.state[k] for k in _STATE}
-        return result
+        stacked, final, promotion = self._run_window(imgs, self.state)
+        self.state = dict(final)
+        return dict(stacked, final=final, promotion_launches=promotion)
+
+    def sync_window(self, result: dict) -> np.ndarray:
+        """The drain of a `track_window` result: its [K, 6] stats in one host
+        read; counts the launches of the promotions its graph ran."""
+        stats = result["stats"].cpu().numpy()  # the window's one host read
+        graphs.add_launches(result.pop("promotion_launches", {}),
+                            int((stats[:, 3] == EVENT_NEW_KF).sum()))
+        return stats
 
     # --------------------------------------------------- the window program
 
-    def _window_steps(self, imgs, st: dict) -> tuple[list, dict]:
-        """The chained steps of one window, under the window program's knobs
-        (JAX ``_make_fused_track_chain_scan``):
+    def _run_window(self, imgs, st: dict) -> tuple[dict, dict, dict]:
+        """The window program (JAX ``_make_fused_track_chain_scan``) over imgs
+        [K, H, W, 3] (a tensor, an array or a list of images) from the chain
+        state `st` -> (per-frame outputs of ``_PER_FRAME`` stacked [K, ...],
+        final state of ``_STATE``, the launches of one promotion, which the
+        drain counts per NEW_KF event).
+
+        On the card with both window knobs off, one replay of the tracker's
+        captured graph for (K, image shape and dtype, core, decode shape,
+        config): the images and the state are copied into its static
+        inputs, nothing is read back, and the promotions run in IF nodes.
+        Otherwise (the CPU, a knob on, or `capture_windows` False)
+        `_window_steps` eagerly, with `branch`'s select form; nothing is
+        left to count at the drain then."""
+        K = self.keyframes.K if self._calib_live() else None
+        rt = get_config().runtime
+        knobs = rt.window_batched_encode or (rt.window_spec_decode and K is None)
+        x = torch.stack([torch.as_tensor(i) for i in imgs]) if isinstance(imgs, (list, tuple)) \
+            else torch.as_tensor(imgs)
+        inputs = dict(imgs=x, **{k: st[k] for k in _STATE})
+        if K is not None:
+            inputs["K"] = K
+        promotion = {}
+        if self.device.type != "cuda" or knobs or not self.capture_windows:
+            out = self._program(inputs, graphs.branch)
+        else:
+            graph = self.graphs.window(graphs.window_key(x, K is not None, self.model.out_hw),
+                                       graphs.param_signature(getattr(self.model, "net", None)),
+                                       self._program, inputs)
+            out, promotion = graph.run(inputs), graph.body_launches
+        return ({k: out[k] for k in _PER_FRAME}, {k: out[f"final.{k}"] for k in _STATE},
+                promotion)
+
+    def _program(self, inputs: dict, branch) -> dict:
+        """The window as `WindowGraph` captures it (and the eager window):
+        `_window_steps` over `inputs` (imgs, the ``_STATE`` keys and, for
+        the calibrated core, K), the per-frame outputs stacked and the final
+        state under "final.<key>"."""
+        rows, st = self._window_steps(inputs["imgs"], {k: inputs[k] for k in _STATE}, branch,
+                                      inputs.get("K"))
+        out = {k: torch.stack([r[k] for r in rows]) for k in _PER_FRAME}
+        out.update({f"final.{k}": st[k] for k in _STATE})
+        return out
+
+    def _window_steps(self, imgs, st: dict, branch, K=None) -> tuple[list, dict]:
+        """The chained steps of one window (the calibrated core when the
+        intrinsics `K` are given), under the window program's knobs:
 
         * ``runtime.window_batched_encode``: the K frames are encoded in one
           batch of K before the chain, and each step takes its features;
@@ -468,13 +544,18 @@ class FrameTracker:
           and one of the rest; one pass when K <= mb or mb is 0), which turns
           the batched encode on. Each step takes its frame's outputs until a
           step promotes; every later step decodes live against the new
-          keyframe, which keeps the window exact. The promotion is the step's
-          host read already, so this is a Python branch (JAX: ``lax.cond``).
+          keyframe, which keeps the window exact. Which step promoted is
+          read on the host after each step while the speculative decodes
+          are live (JAX keeps a device flag and a ``lax.cond``): this eager
+          window is the only one with a host read inside it.
 
-        Calibrated mode keeps per-frame decodes, as JAX does. -> (per-frame
-        outputs, final state)."""
+        Each step's promotion goes through `branch`. Calibrated mode keeps
+        per-frame decodes, as JAX does. -> (per-frame outputs, final
+        state)."""
         rt = get_config().runtime
-        spec = rt.window_spec_decode and not self._calib_live()
+        spec = rt.window_spec_decode and K is None
+        step = self._step if K is None else self._step_calib
+        kw = {} if K is None else dict(K=K)
         encs = decs = None
         if rt.window_batched_encode or spec:
             x = torch.stack([_to_unit_image(img, self.device) for img in imgs])
@@ -487,9 +568,9 @@ class FrameTracker:
                                              rt.window_decode_microbatch)
         rows = []
         for j, img in enumerate(imgs):
-            out, st = self._run_step(img, st, enc=None if encs is None else encs[j],
-                                     dec=None if decs is None else decs[j])
-            if out["promoted"]:
+            out, st = step(img, st, enc=None if encs is None else encs[j],
+                           dec=None if decs is None else decs[j], branch=branch, **kw)
+            if decs is not None and bool(out["stats"][3] == EVENT_NEW_KF):
                 decs = None  # the chain's keyframe changed: decode live from here
             rows.append(out)
         return rows, st
@@ -558,9 +639,11 @@ class FrameTracker:
         n = self.keyframes.h * self.keyframes.w
         return torch.arange(n, device=self.device)[None]
 
-    def _chain_steps(self, frames: list, imgs, T_init) -> Optional[tuple[list, dict]]:
-        """Run the window program (`_window_steps`) over `imgs` from the chain
-        of the arena's last keyframe; None when there is no keyframe yet."""
+    def _chain_steps(self, frames: list, imgs, T_init) -> Optional[tuple]:
+        """Run the window program (`_run_window`) over `imgs` from the chain
+        of the arena's last keyframe -> (per-frame rows, stats [K, 6], final
+        state, launches of one promotion); None when there is no keyframe
+        yet."""
         kf_idx = self.keyframes.last_index()
         if kf_idx is None:
             return None
@@ -571,21 +654,23 @@ class FrameTracker:
         st = dict(kf_feat=chain["feat"], kf_pos=chain["pos"], idx=self._warm_idx(),
                   kf_X=chain["X"], kf_C=chain["C"], kN=chain["N"], T_prev=T_WCf,
                   kf_T=chain["T"])
-        rows, st = self._window_steps(imgs, st)
+        stacked, st, promotion = self._run_window(imgs, st)
         self.idx_f2k = st["idx"]
         self._chain = dict(kf_idx=chain["kf_idx"], feat=st["kf_feat"], pos=st["kf_pos"],
                            X=st["kf_X"], C=st["kf_C"], N=st["kN"], T=st["kf_T"],
                            T_prev=st["T_prev"])
-        return rows, st
+        rows = [{k: v[j] for k, v in stacked.items()} for j in range(len(stacked["stats"]))]
+        return rows, stacked["stats"], st, promotion
 
     def dispatch(self, frame: Frame, T_init: Optional[torch.Tensor] = None):
-        """One chained step for `frame`; the keyframe/skip decision and any
-        promotion happen inside it. Returns a handle (None without a
-        keyframe); `sync_chain` reads its stats."""
+        """One chained step for `frame` (a window of one); the keyframe/skip
+        decision and any promotion happen inside it. Returns a handle (None
+        without a keyframe); `sync_chain` reads its stats."""
         res = self._chain_steps([frame], [frame.img], T_init)
         if res is None:
             return None
-        return dict(frame=frame, out=res[0][0], corr=(self._chain_gen, self._corr_cum))
+        return dict(frame=frame, out=res[0][0], promotion_launches=res[3],
+                    corr=(self._chain_gen, self._corr_cum))
 
     def dispatch_window(self, frames: list, imgs: torch.Tensor,
                         T_init: Optional[torch.Tensor] = None):
@@ -597,15 +682,21 @@ class FrameTracker:
         res = self._chain_steps(frames, imgs, T_init)
         if res is None:
             return None
-        rows, st = res
-        out = dict(rows=rows, stats=torch.stack([r["stats"] for r in rows]),
-                   final={k: st[k] for k in _STATE})
-        return dict(frames=frames, out=out, window=True, corr=(self._chain_gen, self._corr_cum))
+        rows, stats, st, promotion = res
+        out = dict(rows=rows, stats=stats, final={k: st[k] for k in _STATE})
+        return dict(frames=frames, out=out, window=True, promotion_launches=promotion,
+                    corr=(self._chain_gen, self._corr_cum))
 
     def sync_chain(self, handles: list) -> np.ndarray:
-        """The handles' stats bundles, [K, 6] (match_frac, match_frac_k,
-        unique_frac_f, event, kf_N_next, retired_N), in one host read."""
-        return torch.stack([h["out"]["stats"] for h in handles]).cpu().numpy()
+        """The drain: the handles' stats bundles, [K, 6] (match_frac,
+        match_frac_k, unique_frac_f, event, kf_N_next, retired_N) each, in
+        one host read; counts the launches of the promotions their graphs
+        ran (once per handle)."""
+        stats = torch.stack([h["out"]["stats"] for h in handles]).cpu().numpy()  # the drain
+        for h, s in zip(handles, stats):
+            graphs.add_launches(h.pop("promotion_launches", {}),
+                                int((s[..., 3] == EVENT_NEW_KF).sum()))
+        return stats
 
     def commit_chain_frame(self, frame: Frame, row: dict, stats_row, tracked: bool = True):
         """Record one chained frame's results on its Frame (no device read:
