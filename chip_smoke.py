@@ -259,8 +259,10 @@ Phases, in order; any failure exits non-zero before the result line:
                from dispatch through the drain (median, quartiles, range),
                peak memory, host-side launches per window (copies in, the
                replay, clones out); the IF node timed with its body skipped
-               and taken beside the select form; a replayed window's
-               kernels and device busy time from a trace.
+               and taken beside the select form; the traced window
+               (runtime.trace: the stamps' launches, rows and host spans);
+               a replayed window's kernels and device busy time from a
+               trace.
 Then it prints the kernels JSON line, the card line, and last
 {"ok": true, "device": {...}}.
 """
@@ -3508,6 +3510,81 @@ def _compare_windows(tag: str, stats: dict, outs: dict) -> float:
     return gap
 
 
+def traced_window_check(tracker, wins: list) -> dict:
+    """The tracer's device stamps in the main path's window (`tracker` at
+    bench.py's settings, windows `wins` of K = 8): with ``runtime.trace`` on
+    and the tracer started, the first window captures the traced graph and
+    the others replay it. The traced graph's launches are the untraced
+    graph's plus exactly its stamp kernels, and the untraced graph has none;
+    the replays read nothing back to the host but the drain's read, once a
+    window; each replay's row of stamps never goes backwards, begins after
+    its ``graph.replay`` span opened and ends before its drain's read
+    returned, within the calibration's uncertainty (the larger half round
+    trip of the two pairs, plus the drift between them); no row is
+    dropped."""
+    import numpy as np
+
+    from mast3r_slam_torch import graphs
+    from mast3r_slam_torch.config import get_config, set_config
+    from mast3r_slam_torch.profile_step import count_syncs
+    from mast3r_slam_torch.utils.profiling import TRACER
+
+    cfg = get_config()
+    plain = [g for g in tracker.graphs.graphs.values()]
+    set_config(dataclasses.replace(cfg, runtime=dataclasses.replace(cfg.runtime, trace=True)))
+    TRACER.start("cuda")
+    try:
+        tracker.sync_window(tracker.track_window(wins[0]))  # captures the traced graph
+        first, spans = len(TRACER.rows), len(TRACER.spans)
+        syncs = count_syncs(lambda: [tracker.sync_window(tracker.track_window(x))
+                                     for x in wins[1:]])
+    finally:
+        TRACER.stop()
+        set_config(cfg)
+    check(len(plain) == 1 and not plain[0].stamps
+          and "trace_stamp" not in plain[0].launches, "the untraced graph holds stamps")
+    stamped = [g for g in tracker.graphs.graphs.values() if g.stamps]
+    check(len(stamped) == 1, f"{len(stamped)} traced graphs")
+    plain, stamped = plain[0], stamped[0]
+    n = len(stamped.stamps)
+    extra = graphs.launch_delta(plain.launches, stamped.launches)
+    check(extra == {"trace_stamp": n} and plain.host_launches == stamped.host_launches,
+          f"the traced graph's launches less the untraced graph's: {extra}, not {n} stamps")
+    check(n == 2 + 12 * WINDOW, f"{n} stamps in a window of {WINDOW}")
+    site = [s for s in syncs if s.startswith("mast3r_slam_torch/tracker.py")]
+    check(len(syncs) == 1 and len(site) == 1 and syncs[site[0]] == len(wins) - 1,
+          f"traced windows' host syncs other than the drain's, once a window: {syncs}")
+    clock = TRACER.clock()
+    tol = clock["uncertainty_ns"] + abs(clock["drift_ns"])
+    rows = {r["index"]: r for r in TRACER.device_rows()}
+    replays = [s for s in TRACER.spans[spans:] if s.name == "graph.replay"]
+    drains = [s for s in TRACER.spans[spans:] if s.name == "tracker.drain_read"]
+    dropped = TRACER.counters["trace.rows_dropped"]
+    check(dropped == 0 and len(TRACER.rows) == first + len(wins) - 1
+          and sorted(rows)[-len(wins) + 1:] == list(range(first, first + len(wins) - 1))
+          and len(replays) == len(drains) == len(wins) - 1,
+          f"rows {len(TRACER.rows)} (from {first}), written {sorted(rows)}, dropped {dropped}, "
+          f"replays {len(replays)}, drains {len(drains)}")
+    # ns by which the rows keep inside their spans (below 0: outside) and never go backwards
+    after = before = step = float("inf")
+    for i, rs, dr in zip(range(first, first + len(wins) - 1), replays, drains):
+        t = np.array([st[3] for st in rows[i]["stamps"]])
+        step = min(step, float(np.diff(t).min()))
+        after = min(after, t[0] - rs.t0)
+        before = min(before, dr.t1 - t[-1])
+    print(f"[program] traced window (runtime.trace): {n} stamps a replay, launches the untraced "
+          f"graph's plus {extra}; {len(wins) - 1} replays' rows begin at least {after / 1e3:.1f} "
+          f"us after their replay span opened and end at least {before / 1e3:.1f} us before "
+          f"their drain's read returned, least step {step / 1e3:.3f} us, tolerance "
+          f"{tol / 1e3:.1f} us; clock {clock}; host syncs {syncs}", flush=True)
+    check(step >= 0 and after >= -tol and before >= -tol,
+          f"stamps outside their host spans: begin {after} ns after the replay span, end "
+          f"{before} ns before the drain's read returned, least step {step} ns (tolerance {tol} "
+          f"ns)")
+    return dict(stamps_per_window=n, rows=len(wins) - 1, rows_dropped=dropped,
+                after_replay_ns=after, before_drain_ns=before, clock=clock)
+
+
 def window_timing() -> dict:
     """In a process of its own (`--window-timing`), so that no torch.profiler
     session has run before the clocks (after one, every skipped IF node of
@@ -3515,8 +3592,8 @@ def window_timing() -> dict:
     settings, 1 + PROGRAM_WINDOWS windows of K = 8 through the captured and
     the eager window, interleaved (ms/frame, peak memory, events and
     statistics captured vs eager); the IF node's times (`graph_cond_times`);
-    then one replay and its drain under torch.profiler -> device work per
-    frame from the trace."""
+    the traced window (`traced_window_check`); then one replay and its drain
+    under torch.profiler -> device work per frame from the trace."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -3538,6 +3615,7 @@ def window_timing() -> dict:
            for kind, v in ms.items()}
     cond = graph_cond_times(model)
     tracker = trackers["captured"]
+    traced = traced_window_check(tracker, wins[:5])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         tracker.sync_window(tracker.track_window(wins[1]))
@@ -3548,16 +3626,13 @@ def window_timing() -> dict:
         runtime = collections.Counter(e["name"] for e in json.load(f)["traceEvents"]
                                       if e.get("cat") == "cuda_runtime")
     trace = summarize_trace(path, WINDOW)
-    for key in ("stage_device_busy_ms_per_frame", "stage_kernels_per_frame",
-                "stage_host_ms_per_frame"):
-        trace.pop(key)  # the tracker's spans fire only at a capture
     trace.update(graph_launches=runtime["cudaGraphLaunch"],
                  memcpy_calls=sum(n for k, n in runtime.items() if "Memcpy" in k),
                  kernel_launch_calls=sum(n for k, n in runtime.items() if "LaunchKernel" in k))
     return dict(ms_frame=pct, peak_allocated_bytes=peak, stats_gap=gap,
                 host_launches=graph.host_launches, launches_per_replay=graph.launches,
                 launches_per_promotion=graph.body_launches, graph_cond=cond, trace=trace,
-                card=card_line())
+                traced=traced, card=card_line())
 
 
 def window_program_phase(model) -> dict:
@@ -3572,8 +3647,9 @@ def window_program_phase(model) -> dict:
     runs eager (by design); the IF node against the select form
     (`graph_cond_check`). In a fresh process (`window_timing`): ms/frame of
     1 + 10 interleaved windows each way (median, quartiles, range), peak
-    memory, host-side launches per window, the IF node's times, and a
-    replay's device work from a trace."""
+    memory, host-side launches per window, the IF node's times, the traced
+    window's checks (`traced_window_check`), and a replay's device work from
+    a trace."""
     import torch
 
     from mast3r_slam_torch.config import set_config
@@ -3635,6 +3711,8 @@ def window_program_phase(model) -> dict:
     print(f"[program] graph_cond_if: device ms per IF node, body skipped {row['ms']:.5f}, taken "
           f"{row['taken_ms']:.4f}; the select form {row['plain_ms']:.4f} ms; bound "
           f"{row['bound_ms']:.5f} ms (bytes)", flush=True)
+    print(f"[program] the traced window (runtime.trace), in the same process: "
+          f"{json.dumps(timing['traced'])}", flush=True)
     print(f"[program] a replayed window's trace: {json.dumps(trace)}", flush=True)
     check(trace["graph_launches"] == 1, f"{trace['graph_launches']} graph launches in a window")
     busy = trace["device_busy_ms_per_frame"]
@@ -3646,7 +3724,7 @@ def window_program_phase(model) -> dict:
                 body_runs=body_runs, host_launches=timing["host_launches"],
                 launches_per_replay=timing["launches_per_replay"],
                 launches_per_promotion=timing["launches_per_promotion"], host_syncs=syncs,
-                trace=trace, graph_cond=row)
+                trace=trace, graph_cond=row, traced=timing["traced"])
 
 
 # -- phase 16 --------------------------------------------------------------
@@ -4717,6 +4795,19 @@ def main(argv=None) -> int:
         bound_by=cond["bound_by"],
         library_ms=cond["library_ms"],
         shape=cond["shape"],
+    ))
+    traced = program["traced"]
+    kernels.append(dict(
+        name="trace_stamp",
+        route="cuda",
+        source="mast3r_slam_torch/csrc/trace_stamp.cu",
+        replaces=None,
+        replaces_note="the tracer's device clock (utils/profiling.py), on the traced window "
+                      "path only: the JAX package has no counterpart",
+        launches=traced["stamps_per_window"] * traced["rows"],
+        stamps_per_window=traced["stamps_per_window"],
+        rows_dropped=traced["rows_dropped"],
+        shape=f"one thread; a window of K={WINDOW} frames",
     ))
     for name, row in probe.items():
         kernels.append(dict(

@@ -155,6 +155,11 @@ class RuntimeConfig:
     metrics_path: str = ""
     viewer_port: int = 0
     viewer_refresh: int = 10
+    # the port's tracer over each SLAM.run (utils/profiling.py): host spans,
+    # per-frame timestamps, counters and device stamps captured into the
+    # window graphs; with trace_path, a Chrome trace written at the run's end
+    trace: bool = False
+    trace_path: str = ""
 
 
 @dataclass

@@ -19,6 +19,7 @@ from typing import Iterator
 import numpy as np
 
 from mast3r_slam_torch.config import get_config
+from mast3r_slam_torch.utils.profiling import span
 
 IMG_EXTS = {".png", ".jpg", ".jpeg", ".bmp", ".tiff", ".webp"}
 
@@ -225,7 +226,8 @@ class PrefetchLoader:
         )
         self._thread.start()
         while True:
-            item = q.get()
+            with span("loader.wait"):
+                item = q.get()
             if item is self._ERROR:
                 raise q.get()
             if item is self._STOP:

@@ -44,6 +44,8 @@ import torch
 
 from mast3r_slam_torch.config import get_config
 from mast3r_slam_torch.ops import attention, lane_shift
+from mast3r_slam_torch.utils import profiling
+from mast3r_slam_torch.utils.profiling import TRACER, span
 
 
 # ----------------------------------------------------------- launch counts
@@ -51,9 +53,9 @@ from mast3r_slam_torch.ops import attention, lane_shift
 def launch_counts() -> dict[str, int]:
     """Every kernel wrapper's launch count, flat: "flash_attention",
     "flash_attention_backward.<symbol>", "lane_shift.<symbol>",
-    "graph_cond"."""
+    "graph_cond", "trace_stamp"."""
     counts = {"flash_attention": attention.flash_attention.launches,
-              "graph_cond": if_node.launches}
+              "graph_cond": if_node.launches, **profiling.launches}
     for sym, n in attention.flash_attention_backward.launches.items():
         counts[f"flash_attention_backward.{sym}"] = n
     for sym, n in lane_shift.launches.items():
@@ -75,6 +77,8 @@ def add_launches(delta: dict[str, int], times: int = 1) -> None:
             attention.flash_attention.launches += n
         elif name == "graph_cond":
             if_node.launches += n
+        elif name in profiling.launches:
+            profiling.launches[name] += n
         elif group == "flash_attention_backward":
             attention.flash_attention_backward.launches[sym] += n
         elif group == "lane_shift":
@@ -160,7 +164,9 @@ class _CaptureBranch:
         body = self.cache.bodies.get(key)
         if not self.capturing:
             if body is None:
-                body = self.cache.bodies[key] = _Body(self.cache, fn, args)
+                with span("graph.capture", body=fn.__qualname__):
+                    body = self.cache.bodies[key] = _Body(self.cache, fn, args)
+                TRACER.count("graph.captures")
             return select(pred, fn(*args), keep)
         if body is None:
             raise RuntimeError("a branch the capture reached was not reached by its warm-up")
@@ -180,7 +186,10 @@ class WindowGraph:
     `launches` and returns clones of the outputs. `body_launches` are the
     launches of one run of the branch body (at most one body per window), for
     the drain to count per promotion. `host_launches` is what one `run`
-    issues from the host: copies in, the replay, clones out."""
+    issues from the host: copies in, the replay, clones out. `stamps` are the
+    labels of the tracer's stamps captured into it (`profiling.Tracer.window`;
+    empty when it was captured with the tracer off): each replay fills one
+    row."""
 
     def __init__(self, cache: "GraphCache", fn: Callable, inputs: dict):
         before = launch_counts()
@@ -194,9 +203,11 @@ class WindowGraph:
         self.graph = torch.cuda.CUDAGraph()
         cond.capturing = True
         mark = launch_counts()
-        with torch.cuda.graph(self.graph, pool=cache.pool, stream=cache.stream,
-                              capture_error_mode="thread_local"):
+        with TRACER.capture() as stamps, torch.cuda.graph(
+                self.graph, pool=cache.pool, stream=cache.stream,
+                capture_error_mode="thread_local"):
             self.outputs = fn(self.inputs, cond)
+        self.stamps = list(stamps)
         self.launches = launch_delta(mark, launch_counts())
         if len(cond.used) > 1:
             raise RuntimeError(f"a window graph with {len(cond.used)} branch bodies")
@@ -206,11 +217,17 @@ class WindowGraph:
         self.host_launches = len(self.inputs) + 1 + len(self.outputs)
 
     def run(self, inputs: dict) -> dict:
-        for k, v in inputs.items():
-            self.inputs[k].copy_(v)
-        self.graph.replay()
+        with span("graph.copy_in"):
+            for k, v in inputs.items():
+                self.inputs[k].copy_(v)
+        with span("graph.replay"):
+            self.graph.replay()
+        if self.stamps:
+            TRACER.replayed(self.stamps)
+        TRACER.count("graph.replays")
         add_launches(self.launches)
-        return {k: v.clone() for k, v in self.outputs.items()}
+        with span("graph.clone_out"):
+            return {k: v.clone() for k, v in self.outputs.items()}
 
 
 def _on(device: torch.device, x: torch.Tensor) -> torch.Tensor:
@@ -221,7 +238,9 @@ def _on(device: torch.device, x: torch.Tensor) -> torch.Tensor:
 def window_key(imgs: torch.Tensor, calib: bool, out_hw: tuple) -> tuple:
     """What a captured window program is specific to: the window's length
     and image shape and dtype, the core (calibrated or rays), the decode's
-    output shape, and the config the step reads while it is captured."""
+    output shape, and the config the step reads while it is captured
+    (``runtime.trace`` in it keeps traced graphs, which hold the tracer's
+    stamps, apart from untraced ones)."""
     return (tuple(imgs.shape), imgs.dtype, calib, tuple(out_hw), repr(get_config()))
 
 
@@ -275,9 +294,13 @@ class GraphCache:
             self.signature = signature
         return self.graphs.get(key)
 
-    def window(self, key, signature: tuple, fn: Callable, inputs: dict) -> WindowGraph:
-        """The graph of `key`, captured from `fn` at `inputs` on first use."""
+    def window(self, key, signature: tuple, fn: Callable, inputs: dict,
+               shape: Optional[tuple] = None) -> WindowGraph:
+        """The graph of `key`, captured from `fn` at `inputs` on first use
+        (inside a ``graph.capture`` span that carries `shape`)."""
         graph = self.lookup(key, signature)
         if graph is None:
-            graph = self.graphs[key] = WindowGraph(self, fn, inputs)
+            with span("graph.capture", shape=shape):
+                graph = self.graphs[key] = WindowGraph(self, fn, inputs)
+            TRACER.count("graph.captures")
         return graph

@@ -41,7 +41,8 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 GXX_FLAGS = ["-O3", "-fopenmp", "-shared", "-fPIC"]
-KERNEL_SOURCES = ("flash_attention", "flash_attention_bwd", "lane_shift", "graph_cond")
+KERNEL_SOURCES = ("flash_attention", "flash_attention_bwd", "lane_shift", "graph_cond",
+                  "trace_stamp")
 NATIVE_SOURCES = ("preprocess",)
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)

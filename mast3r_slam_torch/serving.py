@@ -48,7 +48,6 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from mast3r_slam_torch.config import get_config
 from mast3r_slam_torch.frame import fuse_pointmap_masked
@@ -56,6 +55,7 @@ from mast3r_slam_torch.lie import core as lie
 from mast3r_slam_torch.matching import match
 from mast3r_slam_torch.parallel.mesh import all_gather, axis_rank, axis_size
 from mast3r_slam_torch.tracker import _rays_cfg_key, _to_unit_image, _track_core_rays
+from mast3r_slam_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -227,12 +227,12 @@ class BatchTracker:
         b, mb = feats.shape[0], self.microbatch // self.dp
         args = (feats, poss, s.kf_feat, s.kf_pos, s.kf_X, s.kf_C, s.kf_N, s.T_WC, s.kf_T)
         if mb <= 0 or mb >= b or b % mb:
-            with record_function("serving.chunk"):
+            with span("serving.chunk"):
                 out = self._step(*args)
         else:
             chunks = []
             for c0 in range(0, b, mb):
-                with record_function("serving.chunk"):
+                with span("serving.chunk"):
                     chunks.append(self._step(*(a[c0:c0 + mb] for a in args)))
             out = {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}
         self.state = dataclasses.replace(s, **{k: out[k] for k in _STEP_STATE})
@@ -257,7 +257,7 @@ class BatchTracker:
         loop (the encoder's token activations are small; only the decoder's
         need the microbatch bound)."""
         self._require_state("step_images_async")
-        with record_function("serving.encode"):
+        with span("serving.encode"):
             x = _to_unit_image(imgs[self.rows] if self.dp > 1 else imgs, self.device)
             feats, poss = self.model.encode(x * 2.0 - 1.0)
         return self._run(feats, poss)

@@ -46,6 +46,13 @@ eviction to `runtime.metrics_path`, summarised at the end of `run`
 the window's one stats read, so metrics add no host read; a snapshot reads
 the device state once (one wait per snapshot).
 
+Tracing (`runtime.trace`): the run starts the port's tracer
+(`utils.profiling.TRACER`) and stops it at its end; the loop stamps each
+frame when it is taken from the loader, and `runtime.trace_path` receives
+the Chrome trace. Spans: ``loader.wait``, ``slam.upload``,
+``slam.drain_window`` with ``slam.bookkeep`` inside, ``slam.backend`` (one
+a backend task), and the tracker's and graphs' own.
+
 `runtime.weight_quant: int8` holds the model's large weights as int8
 (`models.quant`); `runtime.viewer_port` serves the live viewer (`viewer`),
 which reads the device only on the frames it publishes (a promotion, and
@@ -75,6 +82,7 @@ from mast3r_slam_torch.tracker import EVENT_NEW_KF, EVENT_SKIP, FrameTracker
 from mast3r_slam_torch.utils.export import save_ply, save_trajectory_kitti, save_trajectory_tum
 from mast3r_slam_torch.utils.intrinsics import estimate_intrinsics
 from mast3r_slam_torch.utils.metrics import MetricsLogger, summarize
+from mast3r_slam_torch.utils.profiling import TRACER, span, traced
 from mast3r_slam_torch.utils.snapshot import load_snapshot, save_snapshot
 from mast3r_slam_torch.viewer import LiveViewer
 
@@ -223,12 +231,14 @@ class SLAM:
             if not raw:
                 return
             entries, raw[:] = list(raw), []
-            upload_q.append((entries, self._upload(entries)))
+            with span("slam.upload", frames=tuple(e[0] for e in entries)):
+                upload_q.append((entries, self._upload(entries)))
             while len(upload_q) > 1:
                 process_batch(*upload_q.pop(0))
 
-        with torch.no_grad():
+        with torch.no_grad(), TRACER.running(self.device, self.config.runtime.trace):
             for i, (timestamp, processed) in enumerate(loader(max_frames=n_frames)):
+                TRACER.mark((i,), "taken")
                 raw.append((i, timestamp, processed["unnormalized_img"]))
                 if len(raw) >= sync_every:
                     enqueue_batch()
@@ -239,6 +249,9 @@ class SLAM:
             self._run_backend(budget=0)  # drain any deferred backend tasks
             if self.viewer is not None:
                 self._publish_viewer()  # with the backend's last corrections
+        if self.config.runtime.trace and self.config.runtime.trace_path:
+            TRACER.write_chrome(self.config.runtime.trace_path)
+            print(f"Trace: {self.config.runtime.trace_path}")
         print(f"Done! {len(self.keyframes)} keyframes, {len(self.poses)} poses")
         if self.metrics:
             self.metrics.close()
@@ -252,14 +265,17 @@ class SLAM:
 
     def _step_sync(self, frame: Frame, timestamp: float) -> None:
         """Synchronous per-frame step (INIT, RELOC, no pipeline)."""
+        TRACER.mark((frame.frame_id,), "dispatched")
         if self.state.mode == Mode.INIT:
             self._process_init(frame)
         elif self.state.mode == Mode.TRACKING:
             self._process_tracking(frame)
         elif self.state.mode == Mode.RELOC:
             self._process_reloc(frame)
+        TRACER.mark((frame.frame_id,), "drained")
         self._bookkeep(frame, timestamp)
 
+    @traced("slam.drain_window")
     def _drain_window(self, entries: list[tuple], stats: np.ndarray, corr) -> None:
         """Resolve a window of chained results, frame by frame, from the
         event codes (0 tracked / 1 promoted / 2 skipped). `entries` is
@@ -360,6 +376,7 @@ class SLAM:
             self.metrics.log(dict(event="eviction", victim=victim, degree=int(deg[victim])))
         return victim
 
+    @traced("slam.bookkeep")
     def _bookkeep(self, frame: Frame, timestamp: float) -> int:
         """Per-frame records and the backend drain; returns solves run."""
         self.timestamps.append(timestamp)
@@ -367,6 +384,7 @@ class SLAM:
         self._last_T_WC = frame.T_WC
         if self._callback:
             self._callback(frame, self.keyframes)
+        TRACER.mark((frame.frame_id,), "committed")
         solves = self._run_backend()
         if self.metrics:
             self._log_frame(frame, timestamp, solves)
@@ -523,11 +541,12 @@ class SLAM:
             idx = self.state.dequeue_global_optimization()
             if idx is None:
                 break
-            ii = list(range(max(0, idx - 3), idx))
-            if ii:
-                self.factor_graph.add_factors(ii, [idx] * len(ii),
-                                              min_match_frac=self.config.local_opt.min_match_frac)
-            self._solve_graph()
+            with span("slam.backend", keyframe=idx):
+                ii = list(range(max(0, idx - 3), idx))
+                if ii:
+                    self.factor_graph.add_factors(
+                        ii, [idx] * len(ii), min_match_frac=self.config.local_opt.min_match_frac)
+                self._solve_graph()
             solves += 1
         self.events["backend_solve"] += solves
         return solves

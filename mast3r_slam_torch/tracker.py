@@ -30,11 +30,12 @@ against the window's first keyframe in chunks of
 ``runtime.window_decode_microbatch``; after a promotion the rest of the
 window decodes live, so both are exact.
 
-Each stage of the step runs inside a ``torch.profiler.record_function``
-span (track.encode / decode / match / pose / fuse / promote), so a profile
-of an eager window attributes device time to stages; outside a profile a
-span costs a few microseconds, and in a captured window the spans fire only
-at the capture.
+Each stage of the step runs inside the tracer's `stage` (`utils.profiling`:
+track.encode / decode / match / pose / fuse / promote, the last from the
+keyframe decision through the promotion's IF node). With ``runtime.trace``
+on, a window on the card stamps the device clock at each stage boundary
+(in a captured window the stamps are kernel nodes of its graph, so they
+fire on every replay); off, a stage is one shared null context.
 
 Every tracking path runs on `make_track_step`: the window program
 (`track_window`, `dispatch_window`, `dispatch`), and the synchronous
@@ -57,7 +58,6 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from mast3r_slam_torch import graphs
 from mast3r_slam_torch.config import Config, get_config
@@ -69,6 +69,7 @@ from mast3r_slam_torch.lie import core as lie
 from mast3r_slam_torch.matching import hit_mask, match
 from mast3r_slam_torch.ops.gauss_newton import (GNParams, gauss_newton_pose_calib,
                                                 gauss_newton_pose_rays)
+from mast3r_slam_torch.utils.profiling import TRACER, span, stage
 
 # Event codes per chained frame (stats slot 3).
 EVENT_TRACKED = 0
@@ -277,14 +278,14 @@ def make_track_step(model, cfg, filtering_mode: str, img_downsample: int = 1,
     @torch.no_grad()
     def step(img_f, st, promote: bool = True, enc=None, dec=None, K=None, frame=None,
              branch=graphs.branch):
-        with record_function("track.encode"):
+        with stage("track.encode"):
             if enc is None:
                 img = _to_unit_image(img_f, dev)
                 feat_f, pos_f = model.encode(img[None] * 2.0 - 1.0)
             else:
                 feat_f, pos_f = enc[0][None], enc[1][None]
         if dec is None:
-            with record_function("track.decode"):
+            with stage("track.decode"):
                 out_f, out_k = model.decode(feat_f, pos_f, st["kf_feat"][None],
                                             st["kf_pos"][None])
         else:
@@ -299,63 +300,64 @@ def make_track_step(model, cfg, filtering_mode: str, img_downsample: int = 1,
         if frame is None:
             fX2, fC2, fN2, fC_avg = Xff, Cff, None, Cff
         else:
-            with record_function("track.fuse"):
+            with stage("track.fuse"):
                 fX2, fC2, fN2 = fuse_pointmap_masked(*frame, Xff, Cff, filtering_mode)
                 fC_avg = fC2 / torch.clamp(fN2, min=1.0)
         if use_calib:
             # The calibrated core puts the points on their rays before it
             # selects, so the matcher carries no payload.
-            with record_function("track.match"):
+            with stage("track.match"):
                 idx, valid = match(Xs_f, Xs_k, Ds_f, Ds_k, st["idx"])
-            with record_function("track.pose"):
+            with stage("track.pose"):
                 core = _track_core_calib(
                     idx[0], valid[0], Qff, Qkf, fX2, fC_avg, kX, kC / torch.clamp(kN, min=1.0),
                     Xkf, T_WCf, T_WCk, K, tuple(Xs_f.shape[1:3]), cfg_key,
                 )
         else:
-            with record_function("track.match"):
+            with stage("track.match"):
                 # The (Q, C, X) payload rides the matcher's tap streams; the
                 # hit mask comes back with the match.
                 pay_img = torch.cat([Qff, fC_avg, fX2], dim=-1).reshape(*Xs_f.shape[:3], 5)
                 idx, valid, pay_g, hit = match(
                     Xs_f, Xs_k, Ds_f, Ds_k, st["idx"], payload=pay_img, want_hit=True
                 )
-            with record_function("track.pose"):
+            with stage("track.pose"):
                 core = _track_core_rays(
                     idx[0], valid[0], Qff, Qkf, fX2, fC_avg, kX, kC / torch.clamp(kN, min=1.0),
                     Xkf, T_WCf, T_WCk, cfg_key, pay_g=pay_g[0], unique_hit=hit[0],
                 )
-        with record_function("track.fuse"):
+        with stage("track.fuse"):
             kX2, kC2, kN2 = fuse_pointmap_masked(kX, kC, kN, core["Xkk"], Ckf, filtering_mode)
 
-        match_frac, match_frac_k, unique_frac_f = core["stats"].unbind()
-        skip = match_frac < min_match_frac
-        new_kf = ~skip & (torch.minimum(match_frac_k, unique_frac_f) < match_frac_thresh)
-        ret_X = torch.where(skip, kX, kX2)
-        ret_C = torch.where(skip, kC, kC2)
-        ret_N = torch.where(skip, kN, kN2)
+        with stage("track.promote"):
+            match_frac, match_frac_k, unique_frac_f = core["stats"].unbind()
+            skip = match_frac < min_match_frac
+            new_kf = ~skip & (torch.minimum(match_frac_k, unique_frac_f) < match_frac_thresh)
+            ret_X = torch.where(skip, kX, kX2)
+            ret_C = torch.where(skip, kC, kC2)
+            ret_N = torch.where(skip, kN, kN2)
 
-        if promote:
-            def promote_fn(feat, pos):
-                with record_function("track.promote"):
+            if promote:
+                def promote_fn(feat, pos):
                     return _mono_pointmap(model, feat, pos, f)
 
-            nX, nC = branch(new_kf, promote_fn, (feat_f[0], pos_f[0]), (ret_X, ret_C))
-            nfeat, npos, nN, nT = graphs.select(
-                new_kf, (feat_f[0], pos_f[0], torch.ones_like(ret_N), core["T_WCf"]),
-                (st["kf_feat"], st["kf_pos"], ret_N, T_WCk))
-        else:
-            nfeat, npos, nX, nC, nN, nT = st["kf_feat"], st["kf_pos"], ret_X, ret_C, ret_N, T_WCk
+                nX, nC = branch(new_kf, promote_fn, (feat_f[0], pos_f[0]), (ret_X, ret_C))
+                nfeat, npos, nN, nT = graphs.select(
+                    new_kf, (feat_f[0], pos_f[0], torch.ones_like(ret_N), core["T_WCf"]),
+                    (st["kf_feat"], st["kf_pos"], ret_N, T_WCk))
+            else:
+                nfeat, npos, nX, nC, nN, nT = (st["kf_feat"], st["kf_pos"], ret_X, ret_C, ret_N,
+                                               T_WCk)
 
-        T_out = torch.where(skip, T_WCf, core["T_WCf"])
-        iota = torch.arange(n, device=dev)[None]
-        idx_next = torch.where(skip | new_kf, iota, idx)
-        event = torch.where(
-            skip, float(EVENT_SKIP), torch.where(new_kf, float(EVENT_NEW_KF), float(EVENT_TRACKED))
-        )
-        stats = [match_frac, match_frac_k, unique_frac_f, event, nN, ret_N]
+            T_out = torch.where(skip, T_WCf, core["T_WCf"])
+            iota = torch.arange(n, device=dev)[None]
+            idx_next = torch.where(skip | new_kf, iota, idx)
+            event = torch.where(skip, float(EVENT_SKIP),
+                                torch.where(new_kf, float(EVENT_NEW_KF), float(EVENT_TRACKED)))
+            stats = [match_frac, match_frac_k, unique_frac_f, event, nN, ret_N]
+            stats = torch.stack(stats if fN2 is None else stats + [fN2])
         out = dict(
-            stats=torch.stack(stats if fN2 is None else stats + [fN2]), T_WCf=T_out,
+            stats=stats, T_WCf=T_out,
             frame_X=fX2, frame_C=fC2, feat=feat_f[0], pos=pos_f[0], ret_X=ret_X, ret_C=ret_C,
             kf_X=nX, kf_C=nC, kf_T=nT, idx=idx, Qkf=Qkf[None], Qff=Qff[None],
         )
@@ -474,14 +476,17 @@ class FrameTracker:
         drain (`sync_window`) counts per NEW_KF event."""
         if self.state is None:
             raise RuntimeError("init_keyframe() must be called before track_window()")
-        stacked, final, promotion = self._run_window(imgs, self.state)
+        with span("tracker.dispatch_window", window=TRACER.next_window()):
+            stacked, final, promotion = self._run_window(imgs, self.state)
         self.state = dict(final)
         return dict(stacked, final=final, promotion_launches=promotion)
 
     def sync_window(self, result: dict) -> np.ndarray:
         """The drain of a `track_window` result: its [K, 6] stats in one host
         read; counts the launches of the promotions its graph ran."""
-        stats = result["stats"].cpu().numpy()  # the window's one host read
+        with span("tracker.drain_read"):
+            stats = result["stats"].cpu().numpy()  # the window's one host read
+        TRACER.count("tracker.drain_reads")
         graphs.add_launches(result.pop("promotion_launches", {}),
                             int((stats[:, 3] == EVENT_NEW_KF).sum()))
         return stats
@@ -502,21 +507,25 @@ class FrameTracker:
         Otherwise (the CPU, a knob on, or `capture_windows` False)
         `_window_steps` eagerly, with `branch`'s select form; nothing is
         left to count at the drain then."""
-        K = self.keyframes.K if self._calib_live() else None
-        rt = get_config().runtime
-        knobs = rt.window_batched_encode or (rt.window_spec_decode and K is None)
-        x = torch.stack([torch.as_tensor(i) for i in imgs]) if isinstance(imgs, (list, tuple)) \
-            else torch.as_tensor(imgs)
-        inputs = dict(imgs=x, **{k: st[k] for k in _STATE})
-        if K is not None:
-            inputs["K"] = K
+        with span("tracker.prepare"):
+            K = self.keyframes.K if self._calib_live() else None
+            rt = get_config().runtime
+            knobs = rt.window_batched_encode or (rt.window_spec_decode and K is None)
+            x = torch.stack([torch.as_tensor(i) for i in imgs]) \
+                if isinstance(imgs, (list, tuple)) else torch.as_tensor(imgs)
+            inputs = dict(imgs=x, **{k: st[k] for k in _STATE})
+            if K is not None:
+                inputs["K"] = K
+            graph = None
+            if self.device.type == "cuda" and not knobs and self.capture_windows:
+                graph = self.graphs.window(
+                    graphs.window_key(x, K is not None, self.model.out_hw),
+                    graphs.param_signature(getattr(self.model, "net", None)),
+                    self._program, inputs, shape=tuple(x.shape))
         promotion = {}
-        if self.device.type != "cuda" or knobs or not self.capture_windows:
+        if graph is None:
             out = self._program(inputs, graphs.branch)
         else:
-            graph = self.graphs.window(graphs.window_key(x, K is not None, self.model.out_hw),
-                                       graphs.param_signature(getattr(self.model, "net", None)),
-                                       self._program, inputs)
             out, promotion = graph.run(inputs), graph.body_launches
         return ({k: out[k] for k in _PER_FRAME}, {k: out[f"final.{k}"] for k in _STATE},
                 promotion)
@@ -525,10 +534,12 @@ class FrameTracker:
         """The window as `WindowGraph` captures it (and the eager window):
         `_window_steps` over `inputs` (imgs, the ``_STATE`` keys and, for
         the calibrated core, K), the per-frame outputs stacked and the final
-        state under "final.<key>"."""
-        rows, st = self._window_steps(inputs["imgs"], {k: inputs[k] for k in _STATE}, branch,
-                                      inputs.get("K"))
-        out = {k: torch.stack([r[k] for r in rows]) for k in _PER_FRAME}
+        state under "final.<key>"; inside the tracer's `window` (its stamps,
+        when it is on)."""
+        with TRACER.window():
+            rows, st = self._window_steps(inputs["imgs"], {k: inputs[k] for k in _STATE},
+                                          branch, inputs.get("K"))
+            out = {k: torch.stack([r[k] for r in rows]) for k in _PER_FRAME}
         out.update({f"final.{k}": st[k] for k in _STATE})
         return out
 
@@ -559,15 +570,16 @@ class FrameTracker:
         encs = decs = None
         if rt.window_batched_encode or spec:
             x = torch.stack([_to_unit_image(img, self.device) for img in imgs])
-            with record_function("track.encode"):
+            with stage("track.encode"):
                 feat, pos = self.model.encode(x * 2.0 - 1.0)
             encs = list(zip(feat, pos))
             if spec:
-                with record_function("track.decode"):
+                with stage("track.decode"):
                     decs = self._spec_decode(feat, pos, st["kf_feat"], st["kf_pos"],
                                              rt.window_decode_microbatch)
         rows = []
         for j, img in enumerate(imgs):
+            TRACER.slot = j
             out, st = step(img, st, enc=None if encs is None else encs[j],
                            dec=None if decs is None else decs[j], branch=branch, **kw)
             if decs is not None and bool(out["stats"][3] == EVENT_NEW_KF):
@@ -647,7 +659,8 @@ class FrameTracker:
         kf_idx = self.keyframes.last_index()
         if kf_idx is None:
             return None
-        chain = self._ensure_chain(kf_idx)
+        with span("tracker.prepare"):
+            chain = self._ensure_chain(kf_idx)
         T_WCf = chain["T_prev"]
         if T_WCf is None:
             T_WCf = T_init if T_init is not None else frames[0].T_WC
@@ -666,11 +679,14 @@ class FrameTracker:
         """One chained step for `frame` (a window of one); the keyframe/skip
         decision and any promotion happen inside it. Returns a handle (None
         without a keyframe); `sync_chain` reads its stats."""
-        res = self._chain_steps([frame], [frame.img], T_init)
+        wid = TRACER.next_window()
+        with span("tracker.dispatch_window", window=wid, frames=(frame.frame_id,)):
+            TRACER.mark((frame.frame_id,), "dispatched")
+            res = self._chain_steps([frame], [frame.img], T_init)
         if res is None:
             return None
         return dict(frame=frame, out=res[0][0], promotion_launches=res[3],
-                    corr=(self._chain_gen, self._corr_cum))
+                    corr=(self._chain_gen, self._corr_cum), trace_window=wid)
 
     def dispatch_window(self, frames: list, imgs: torch.Tensor,
                         T_init: Optional[torch.Tensor] = None):
@@ -679,20 +695,29 @@ class FrameTracker:
         per-frame results under "rows", their stats stacked [K, 6] under
         "stats" and the final chain state under "final"; None without a
         keyframe."""
-        res = self._chain_steps(frames, imgs, T_init)
+        fids = tuple(f.frame_id for f in frames)
+        wid = TRACER.next_window()
+        with span("tracker.dispatch_window", window=wid, frames=fids):
+            TRACER.mark(fids, "dispatched")
+            res = self._chain_steps(frames, imgs, T_init)
         if res is None:
             return None
         rows, stats, st, promotion = res
         out = dict(rows=rows, stats=stats, final={k: st[k] for k in _STATE})
         return dict(frames=frames, out=out, window=True, promotion_launches=promotion,
-                    corr=(self._chain_gen, self._corr_cum))
+                    corr=(self._chain_gen, self._corr_cum), trace_window=wid)
 
     def sync_chain(self, handles: list) -> np.ndarray:
         """The drain: the handles' stats bundles, [K, 6] (match_frac,
         match_frac_k, unique_frac_f, event, kf_N_next, retired_N) each, in
         one host read; counts the launches of the promotions their graphs
         ran (once per handle)."""
-        stats = torch.stack([h["out"]["stats"] for h in handles]).cpu().numpy()  # the drain
+        fids = tuple(f.frame_id for h in handles for f in h.get("frames", [h.get("frame")])
+                     if f is not None) if TRACER.on else ()
+        with span("tracker.drain_read", window=handles[-1].get("trace_window"), frames=fids):
+            stats = torch.stack([h["out"]["stats"] for h in handles]).cpu().numpy()  # the drain
+        TRACER.count("tracker.drain_reads")
+        TRACER.mark(fids, "drained")
         for h, s in zip(handles, stats):
             graphs.add_launches(h.pop("promotion_launches", {}),
                                 int((s[..., 3] == EVENT_NEW_KF).sum()))

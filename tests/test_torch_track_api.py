@@ -35,7 +35,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.profiler import record_function
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from mast3r_slam_tpu.frame import Keyframes as JaxKeyframes
@@ -46,6 +45,7 @@ from mast3r_slam_tpu.tracker import FrameTracker as JaxFrameTracker
 from mast3r_slam_torch.frame import Keyframes, create_frame, fuse_pointmap_masked
 from mast3r_slam_torch.inference import mast3r_inference_mono, mast3r_match_asymmetric
 from mast3r_slam_torch.tracker import FrameTracker, make_track_step
+from mast3r_slam_torch.utils.profiling import stage
 from test_torch_helpers import BENCH_SETTINGS, both_configs, tiny_pair
 
 BAND = dict(atol=1e-4, rtol=1e-5)
@@ -215,7 +215,7 @@ def test_fresh_step_issues_the_ops_it_issued_before(models, use_calib):
         held = (torch.zeros(n, 3), torch.zeros(n, 1), torch.zeros(()))
         with _OpLog() as held_log:
             step(img, st, promote=False, K=K, frame=held)
-        with _OpLog() as fold_log, record_function("track.fuse"):
+        with _OpLog() as fold_log, stage("track.fuse"):
             _, fC2, fN2 = fuse_pointmap_masked(*held, fresh["frame_X"], fresh["frame_C"],
                                                cfg.tracking.filtering_mode)
             fC2 / torch.clamp(fN2, min=1.0)
