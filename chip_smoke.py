@@ -75,7 +75,8 @@ Phases, in order; any failure exits non-zero before the result line:
                drained by one stats read. Checks finiteness, events, and
                that every kernel of the path was launched as often as
                predicted (the attention's promotions counted at the drain,
-               one IF node per frame).
+               one IF node per frame, 1 + max_iters pose_gn launches a
+               frame).
   7. slam    - SLAM.run, the system's entry point, at the same width over an
                in-memory sequence of 640x480 uint8 frames (the TUM size; the
                native host pipeline crops them to 512x384), twice:
@@ -263,6 +264,27 @@ Phases, in order; any failure exits non-zero before the result line:
                (runtime.trace: the stamps' launches, rows and host spans);
                a replayed window's kernels and device busy time from a
                trace.
+ 19. pose-gn - run after phase 4: the ray-distance pose Gauss-Newton kernel
+               (csrc/pose_gn.cu) at the main path's shapes, (1, 196,608)
+               (vitl), (1, 84,672) (dune) and the serving batch (8,
+               196,608), on phase 10's well-posed geometry (each stream's
+               keyframe points on `_surface`, seen from a camera one step of
+               `posed_problem`'s walk away, matched pixel to pixel, with
+               1 mm of noise, 5% outliers and 10% of the points off, the
+               matcher's [N, 5] payload read through its [..., 2:5] view):
+               the wrapper raises on a float64 CUDA tensor; each stream's
+               pose error against the plain loop in float64 on the CPU at
+               most twice the plain loop's on the card plus 1e-6, the final
+               cost within 1e-4 (relative) of the plain loop's, its
+               iteration count (JAX's), two solves bit-equal; launches a
+               solve; device ms a solve in a graph, warm (inputs
+               L2-resident) and cold (a rotation of copies beyond the 50 MB
+               L2), the plain loop's in a graph, and the byte bound (11 f32
+               a point an iteration run, over 3.35 TB/s).
+Every phase that tracks also holds its pose_gn launches to a prediction:
+1 + max_iters a rays pose solve (a tracked frame, a chunk of serving
+streams, a batch of offline chain pairs), none in calibrated mode or on the
+CPU; the kernels line reports them by path.
 Then it prints the kernels JSON line, the card line, and last
 {"ok": true, "device": {...}}.
 """
@@ -385,6 +407,10 @@ IF_NODES = 20  # phase 18: IF nodes in the graph that times graph_cond_if
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 TRACK_API_TIMED = 20  # phase 17: timed track calls of each kind, the kinds interleaved
 GN_ATOL = 1e-5  # phase 17: GaussNewtonSolver card vs CPU
+POSE_GN_SHAPES = ((1, 384 * 512), (1, 252 * 336), (8, 384 * 512))  # phase 19: vitl, dune, serving
+POSE_GN_F32 = 11  # f32 an iteration reads a point: Xf 3, rd_k 4, sqrt_info 4
+POSE_GN_SLACK = 1e-6  # phase 19: pose error the kernel may add beyond twice the plain loop's
+POSE_GN_COST_RTOL = 1e-4  # phase 19: the kernel's final cost against the plain loop's (relative)
 
 
 class SmokeFailure(Exception):
@@ -973,6 +999,112 @@ def probe_phase() -> dict:
     return rows
 
 
+# -- phase 19 --------------------------------------------------------------
+
+
+def pose_gn_problem(b: int, n: int, rng) -> tuple:
+    """b streams of n points of phase 10's well-posed geometry: the keyframe's
+    points on `_surface` (rows of 512 pixels, cut to n), the frame's camera
+    one step of `posed_problem`'s walk away, the frame's points that camera's
+    view of the same surface, matched pixel to pixel, with 1 mm of noise, 5%
+    outliers (0.2 m) and 10% of the points switched off, confidences 2 ->
+    (T_init, Xf, rd_k, sqrt_info) on the card, Xf a [.., n, 3] view of a
+    [.., n, 5] payload as the matcher leaves it. The noise puts the cost's
+    minimum away from zero, where it is flat: the final cost then depends on
+    the order of the f32 sums only at their rounding."""
+    import numpy as np
+    import torch
+
+    from mast3r_slam_torch.geometry import point_to_ray_dist
+    from mast3r_slam_torch.lie import core as lie
+
+    w = 512
+    phases = torch.from_numpy(rng.uniform(0, 2 * np.pi, (b, 4)).astype(np.float32)).cuda()
+    Xk = _surface(phases, -(-n // w), w).reshape(b, -1, 3)[:, :n]
+    xi = rng.normal(size=(b, 7)) * ([3e-3] * 3 + [2e-3] * 3 + [1e-3])
+    T_true = lie.sim3_exp(torch.from_numpy(xi.astype(np.float32)).cuda())
+    noise = rng.normal(0, 1e-3, (b, n, 3))
+    bad = rng.uniform(size=(b, n)) < 0.05
+    noise[bad] += rng.normal(0, 0.2, (int(bad.sum()), 3))
+    on = rng.uniform(size=(b, n, 1)) > 0.1
+    payload = torch.zeros(b, n, 5, device="cuda")
+    payload[..., 2:5] = (lie.sim3_act(lie.sim3_inv(T_true)[:, None], Xk)
+                         + torch.from_numpy(noise.astype(np.float32)).cuda())
+    wgt = torch.from_numpy((on * 2.0 ** 0.5).astype(np.float32)).cuda()  # sqrt(Qk), Qk = 2
+    sqrt_info = torch.cat([(wgt / 0.003).expand(b, n, 3), wgt / 10.0], -1)
+    T0 = lie.sim3_identity((b,), device="cuda")
+    return T0, payload[..., 2:5], point_to_ray_dist(Xk), sqrt_info
+
+
+def pose_gn_row(b: int, n: int, rng) -> dict:
+    """The kernel at (b, n): checked, counted and timed (see phase 19)."""
+    import torch
+
+    from mast3r_slam_torch.ops import gauss_newton as gn
+    from mast3r_slam_torch.ops import pose_gn
+
+    p = gn.GNParams()
+    args = pose_gn_problem(b, n, rng)
+    before = pose_gn.pose_gn_rays.launches
+    T, cost, iters = pose_gn.pose_gn_rays(*args, p)
+    launches = pose_gn.pose_gn_rays.launches - before
+    T2, cost2, iters2 = pose_gn.pose_gn_rays(*args, p)
+    T0, X, rd, w = args
+    T_plain, cost_plain, iters_plain = gn._pose_gn_loop_rays_soa(T0, X.mT, rd.mT, w.mT, p,
+                                                                 count=True)
+    T64, X64, rd64, w64 = (a.double().cpu() for a in args)
+    T_ref = gn._pose_gn_loop_rays_soa(T64, X64.mT, rd64.mT, w64.mT, p)[0]
+    err = (T.double().cpu() - T_ref).abs().amax(-1)
+    err_plain = (T_plain.double().cpu() - T_ref).abs().amax(-1)
+    cost_gap = ((cost - cost_plain).abs() / cost_plain.abs()).max().item()
+    check(torch.equal(T, T2) and torch.equal(cost, cost2) and torch.equal(iters, iters2),
+          f"pose_gn ({b}, {n}): two solves differ")
+    check(bool((err <= 2 * err_plain + POSE_GN_SLACK).all()),
+          f"pose_gn ({b}, {n}): poses {err.tolist()} from the float64 solve, the plain loop's "
+          f"{err_plain.tolist()}")
+    check(torch.equal(iters, iters_plain), f"pose_gn ({b}, {n}): iterations {iters.tolist()}, "
+          f"the plain loop's {iters_plain.tolist()}")
+    check(cost_gap < POSE_GN_COST_RTOL,
+          f"pose_gn ({b}, {n}): final cost {cost_gap:.3e} (relative) from the plain loop's")
+    check(launches == 1 + p.max_iter, f"pose_gn ({b}, {n}): {launches} launches a solve")
+
+    ms = time_graph_calls(lambda: pose_gn.pose_gn_rays(*args, p))
+    copies = -(-120_000_000 // (b * n * 4 * (5 + 4 + 4)))  # > 2x the L2
+    xs = [args] + [pose_gn_problem(b, n, rng) for _ in range(copies - 1)]
+    cold_ms = time_cold(lambda a: pose_gn.pose_gn_rays(*a, p), xs, reps=5)
+    plain_ms = time_graph_calls(lambda: gn._pose_gn_loop_rays_soa(T0, X.mT, rd.mT, w.mT, p),
+                                iters=1, reps=3)
+    bound = POSE_GN_F32 * 4 * n * int(iters.sum()) / HBM_BYTES_PER_S * 1e3
+    row = dict(shape=f"({b}, {n})", launches=launches, iterations=iters.tolist(),
+               pose_err=err.max().item(), plain_pose_err=err_plain.max().item(),
+               cost_gap=cost_gap, ms=ms, cold_ms=cold_ms, plain_ms=plain_ms, bound_ms=bound,
+               bound_by="bytes", library_ms=None)
+    print(f"[pose_gn] ({b}, {n}): iterations {iters.tolist()} (the plain loop's), poses "
+          f"{row['pose_err']:.3e} from the float64 solve (plain loop {row['plain_pose_err']:.3e}),"
+          f" final cost {cost_gap:.3e} (relative) from the plain loop's, {launches} launches a "
+          f"solve; device ms a solve in a graph: warm {ms:.5f}, cold {cold_ms:.5f} ({copies} "
+          f"copies), plain loop {plain_ms:.5f}; bound {bound:.5f} (bytes)", flush=True)
+    return row
+
+
+def pose_gn_phase() -> list:
+    import numpy as np
+    import torch
+
+    from mast3r_slam_torch.ops import gauss_newton as gn
+    from mast3r_slam_torch.ops import pose_gn
+
+    # On the card the wrapper launches its kernel or raises; it never falls back.
+    x = torch.zeros(1, 16, 4, dtype=torch.float64, device="cuda")
+    try:
+        pose_gn.pose_gn_rays(x[0, 0, :1].expand(8), x[..., :3], x, x, gn.GNParams())
+        check(False, "pose_gn_rays took float64 CUDA tensors instead of raising")
+    except TypeError:
+        pass
+    rng = np.random.default_rng(19)
+    return [pose_gn_row(b, n, rng) for b, n in POSE_GN_SHAPES]
+
+
 # -- phase 5 ---------------------------------------------------------------
 
 
@@ -1045,6 +1177,7 @@ def main_path_phase(cfg) -> dict:
 
     from mast3r_slam_torch import graphs
     from mast3r_slam_torch.models import MASt3RModel
+    from mast3r_slam_torch.ops import pose_gn
     from mast3r_slam_torch.ops.attention import flash_attention
     from mast3r_slam_torch.tracker import EVENT_NEW_KF, EVENT_TRACKED, FrameTracker
     from mast3r_slam_torch.workload import drift_frames
@@ -1060,7 +1193,7 @@ def main_path_phase(cfg) -> dict:
     base = rng.uniform(0, 1, (h, w, 3)).astype(np.float32)
     imgs = drift_frames(base, 2 * WINDOW + PROMOTION_FRAMES, rng)
 
-    flash_attention.launches = graphs.if_node.launches = 0
+    flash_attention.launches = graphs.if_node.launches = pose_gn.pose_gn_rays.launches = 0
     tracker = FrameTracker(model, cfg)
     tracker.init_keyframe(base)
     win1 = tracker.track_window(imgs[:WINDOW])
@@ -1076,6 +1209,7 @@ def main_path_phase(cfg) -> dict:
     promo.sync_window(win3)
     torch.cuda.synchronize()
     launches, if_launches = flash_attention.launches, graphs.if_node.launches
+    pose_launches = pose_gn.pose_gn_rays.launches
 
     n = h * w
     for name, win, want in (("window 1", win1, EVENT_TRACKED), ("window 2", win2, EVENT_TRACKED)):
@@ -1105,11 +1239,15 @@ def main_path_phase(cfg) -> dict:
     check(len(tracker.graphs.graphs) == 1 and len(promo.graphs.graphs) == 1,
           "the main path's windows were not captured")
     check(if_launches == frames, f"graph_cond_if launched {if_launches} times for {frames} frames")
+    # each frame's pose solve: one setup launch and max_iters iterations of csrc/pose_gn.cu
+    per_solve = 1 + cfg.tracking.max_iters
+    check(pose_launches == frames * per_solve,
+          f"pose_gn launched {pose_launches} times for {frames} frames, not {per_solve} each")
     print(f"[main] {ms_frame:.2f} ms/frame (window 2, K={WINDOW}, a graph replay and its drain), "
           f"promotions {promotions}/{PROMOTION_FRAMES}, IF nodes run {if_launches}, stats frame "
           f"16 {win2['stats'][-1].tolist()}", flush=True)
-    return dict(launches=launches, if_launches=if_launches, ms_frame=ms_frame,
-                promotions=promotions)
+    return dict(launches=launches, if_launches=if_launches, pose_gn_launches=pose_launches,
+                ms_frame=ms_frame, promotions=promotions)
 
 
 # -- phase 7 ---------------------------------------------------------------
@@ -1127,6 +1265,17 @@ def predicted_attention(events, n_decodes: int, model_cfg) -> tuple[int, str]:
     how = (f"{enc + dec}*{steps} steps + {dec}*{monos} mono decodes + {enc}*"
            f"{events['reloc_encode']} reloc encodes + {dec}*{n_decodes} backend decodes")
     return total, how
+
+
+def predicted_pose_gn(slam) -> tuple[int, str]:
+    """pose_gn launches that a SLAM.run must make, from its event log: every
+    tracked step, chained or synchronous, is one rays pose solve of a setup
+    launch and max_iters iterations (csrc/pose_gn.cu); a calibrated run's
+    steps take the calibrated solve and launch none."""
+    ev = slam.events
+    steps = ev["chained_step"] + ev["sync_step"]
+    per = 0 if slam.config.use_calib else 1 + slam.config.tracking.max_iters
+    return per * steps, f"{per}*{steps} steps"
 
 
 def frames_dataset(imgs: list):
@@ -1154,6 +1303,7 @@ def slam_phase() -> dict:
     from mast3r_slam_torch.config import Config, set_config
     from mast3r_slam_torch.global_opt import FactorGraph
     from mast3r_slam_torch.ops.attention import flash_attention
+    from mast3r_slam_torch.ops.pose_gn import pose_gn_rays
     from mast3r_slam_torch.profile_step import count_syncs
     from mast3r_slam_torch.slam import SLAM
     from mast3r_slam_torch.workload import BENCH_SETTINGS, drift_frames
@@ -1195,17 +1345,18 @@ def slam_phase() -> dict:
             slam = SLAM(model=model)
         solves.clear()
         torch.cuda.synchronize()
-        flash_attention.launches = 0
+        flash_attention.launches = pose_gn_rays.launches = 0
         t0 = time.perf_counter()
         results = []
         syncs = count_syncs(lambda: results.append(slam.run(frames_dataset(imgs[:n]))))
         res = results[0]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = flash_attention.launches
+        launches, pose_launches = flash_attention.launches, pose_gn_rays.launches
         n_syncs = sum(syncs.values())
         ev, fg = slam.events, slam.factor_graph
         predicted, how = predicted_attention(ev, fg.n_decodes, slam.model.cfg)
+        pose_predicted, pose_how = predicted_pose_gn(slam)
         solve_ms = [a.elapsed_time(b) for a, b in solves]
         print(f"[slam {name}] {n} frames in {wall:.2f} s = {wall / n * 1e3:.1f} ms/frame; "
               f"events {dict(sorted(ev.items()))}; keyframes {res['keyframe_indices']}; "
@@ -1216,8 +1367,11 @@ def slam_phase() -> dict:
               f"median {np.median(solve_ms) if solve_ms else float('nan'):.2f} max "
               f"{max(solve_ms, default=float('nan')):.2f}; attention launches {launches}, "
               f"predicted {how} = {predicted}; backend's {4 * slam.model.cfg.dec_depth} per "
-              f"decode = {4 * slam.model.cfg.dec_depth * fg.n_decodes}", flush=True)
+              f"decode = {4 * slam.model.cfg.dec_depth * fg.n_decodes}; pose_gn launches "
+              f"{pose_launches}, predicted {pose_how} = {pose_predicted}", flush=True)
         check(launches == predicted, f"{name}: attention launched {launches}, predicted {predicted}")
+        check(pose_launches == pose_predicted,
+              f"{name}: pose_gn launched {pose_launches}, predicted {pose_predicted}")
         check(res["poses"].shape == (n, 4, 4), f"{name}: poses {res['poses'].shape}")
         check(bool(np.isfinite(res["poses"]).all()), f"{name}: non-finite poses")
         check(len(res["points"]) > 0 and bool(np.isfinite(res["points"]).all()),
@@ -1225,7 +1379,8 @@ def slam_phase() -> dict:
         check(ev["init"] == 1, f"{name}: {ev['init']} inits")
         check(ev["chained_step"] >= 1, f"{name}: the chained path never ran")
         return slam, res, dict(frames=n, wall_s=wall, ms_frame=wall / n * 1e3, launches=launches,
-                               predicted=predicted, solves=len(solve_ms), solve_ms=solve_ms,
+                               predicted=predicted, pose_gn_launches=pose_launches,
+                               solves=len(solve_ms), solve_ms=solve_ms,
                                host_syncs=n_syncs, host_sync_sites=syncs, events=dict(ev),
                                decodes=fg.n_decodes)
 
@@ -1482,6 +1637,7 @@ def calib_runs(model) -> dict:
     from mast3r_slam_torch import global_opt
     from mast3r_slam_torch import slam as slam_mod
     from mast3r_slam_torch.ops.attention import flash_attention
+    from mast3r_slam_torch.ops.pose_gn import pose_gn_rays
     from mast3r_slam_torch.profile_step import count_syncs
     from mast3r_slam_torch.utils.intrinsics import estimate_intrinsics
     from mast3r_slam_torch.workload import drift_frames
@@ -1516,14 +1672,14 @@ def calib_runs(model) -> dict:
             solves.clear()
             first_pointmap.clear()
             torch.cuda.synchronize()
-            flash_attention.launches = 0
+            flash_attention.launches = pose_gn_rays.launches = 0
             t0 = time.perf_counter()
             results = []
             syncs = count_syncs(lambda: results.append(slam.run(frames_dataset(imgs[:n]))))
             res = results[0]
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = flash_attention.launches
+            launches, pose_launches = flash_attention.launches, pose_gn_rays.launches
             ev, fg, kfs = slam.events, slam.factor_graph, slam.keyframes
             predicted, how = predicted_attention(ev, fg.n_decodes, slam.model.cfg)
             modes = sorted({m for m, _ in solves})
@@ -1545,6 +1701,9 @@ def calib_runs(model) -> dict:
                   f"launches {launches}, predicted {how} = {predicted}", flush=True)
             check(launches == predicted, f"{name}: attention launched {launches}, "
                   f"predicted {predicted}")
+            # the calibrated tracker solves with its own loop, never the rays kernel
+            check(pose_launches == predicted_pose_gn(slam)[0] == 0,
+                  f"{name}: pose_gn launched {pose_launches} times in calibrated mode")
             check(res["poses"].shape == (n, 4, 4), f"{name}: poses {res['poses'].shape}")
             check(bool(np.isfinite(res["poses"]).all()), f"{name}: non-finite poses")
             check(len(res["points"]) > 0 and bool(np.isfinite(res["points"]).all()),
@@ -1554,6 +1713,7 @@ def calib_runs(model) -> dict:
             check(K is not None and fg.K is K, f"{name}: no intrinsics in the arena and graph")
             row = dict(config=config_file, matcher=matcher, frames=n, wall_s=wall,
                        ms_frame=wall / n * 1e3, launches=launches, predicted=predicted,
+                       pose_gn_launches=pose_launches,
                        calib_solves=len(solves), solve_ms=solve_ms, events=dict(ev),
                        keyframes=len(kfs), edges=fg.n_edges, K=K.tolist(),
                        host_syncs=sum(syncs.values()))
@@ -1768,6 +1928,7 @@ def config_runs(model) -> tuple[dict, dict]:
     from mast3r_slam_torch import slam as slam_mod
     from mast3r_slam_torch.models import asmk
     from mast3r_slam_torch.ops.attention import flash_attention
+    from mast3r_slam_torch.ops.pose_gn import pose_gn_rays
     from mast3r_slam_torch.profile_step import count_syncs
     from mast3r_slam_torch.workload import drift_frames
 
@@ -1820,16 +1981,17 @@ def config_runs(model) -> tuple[dict, dict]:
             fits.clear()
             queries.clear()
             torch.cuda.synchronize()
-            flash_attention.launches = 0
+            flash_attention.launches = pose_gn_rays.launches = 0
             t0 = time.perf_counter()
             results = []
             syncs = count_syncs(lambda: results.append(slam.run(frames_dataset(imgs[:n]))))
             res = results[0]
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = flash_attention.launches
+            launches, pose_launches = flash_attention.launches, pose_gn_rays.launches
             ev, fg, kfs, db = slam.events, slam.factor_graph, slam.keyframes, slam.retrieval_db
             predicted, how = predicted_attention(ev, fg.n_decodes, slam.model.cfg)
+            pose_predicted, pose_how = predicted_pose_gn(slam)
             strides = sorted({st for st, _ in solves})
             solve_ms = [a.elapsed_time(b) for _, (a, b) in solves]
             n_syncs = sum(syncs.values())
@@ -1838,7 +2000,8 @@ def config_runs(model) -> tuple[dict, dict]:
                        f"{c.enc_num_heads} patch {c.patch_size}", hw=[kfs.h, kfs.w],
                        matcher=cfg.matching.method, retrieval=cfg.retrieval.method, wall_s=wall,
                        ms_frame=wall / n * 1e3, launches=launches, predicted=predicted,
-                       solves=len(solve_ms), solve_ms=solve_ms, strides=strides,
+                       pose_gn_launches=pose_launches, solves=len(solve_ms), solve_ms=solve_ms,
+                       strides=strides,
                        host_syncs=n_syncs, host_syncs_per_frame=n_syncs / n,
                        host_sync_sites=syncs, events=dict(ev), keyframes=len(kfs),
                        edges=fg.n_edges, decodes=fg.n_decodes, asmk_fits=list(fits),
@@ -1854,9 +2017,12 @@ def config_runs(model) -> tuple[dict, dict]:
                   f"{np.median(solve_ms) if solve_ms else float('nan'):.2f} max "
                   f"{max(solve_ms, default=float('nan')):.2f}; ASMK fits at {fits} keyframes, "
                   f"{len(queries)} queries answered by ASMK; attention launches {launches}, "
-                  f"predicted {how} = {predicted}", flush=True)
+                  f"predicted {how} = {predicted}; pose_gn launches {pose_launches}, predicted "
+                  f"{pose_how} = {pose_predicted}", flush=True)
             check(launches == predicted, f"{name}: attention launched {launches}, "
                   f"predicted {predicted}")
+            check(pose_launches == pose_predicted,
+                  f"{name}: pose_gn launched {pose_launches}, predicted {pose_predicted}")
             check(res["poses"].shape == (n, 4, 4), f"{name}: poses {res['poses'].shape}")
             check(bool(np.isfinite(res["poses"]).all()), f"{name}: non-finite poses")
             check(len(res["points"]) > 0 and bool(np.isfinite(res["points"]).all()),
@@ -2237,6 +2403,7 @@ def serving_phase(model) -> dict:
     from mast3r_slam_torch.config import Config, set_config
     from mast3r_slam_torch.lie import core as lie
     from mast3r_slam_torch.ops.attention import flash_attention
+    from mast3r_slam_torch.ops.pose_gn import pose_gn_rays
     from mast3r_slam_torch.profile_step import count_syncs
     from mast3r_slam_torch.serving import BatchTracker
     from mast3r_slam_torch.workload import BENCH_SETTINGS, drift_frames
@@ -2308,23 +2475,29 @@ def serving_phase(model) -> dict:
         for handle in stats:
             bt.resolve_stats(handle)
         torch.cuda.synchronize()
-        flash_attention.launches = 0
+        flash_attention.launches = pose_gn_rays.launches = 0
         t1 = time.perf_counter()
         chain = [bt.step_async(feats[t][:b], pos[:b]) for t in range(SERVING_WARM, steps)]
         torch.stack(chain).cpu()  # the chain's one stats fetch
         ms_batch = (time.perf_counter() - t1) / SERVING_CHAIN * 1e3
-        launches = flash_attention.launches
+        launches, pose_launches = flash_attention.launches, pose_gn_rays.launches
         chunks = b // SERVING_MB
         predicted = SERVING_CHAIN * chunks * 4 * c.dec_depth
         check(launches == predicted, f"serving B {b}: attention launched {launches}, predicted "
               f"{SERVING_CHAIN} batches x {chunks} chunks x {4 * c.dec_depth} = {predicted}")
+        # one pose solve a chunk, over its streams: a setup launch and max_iters iterations
+        pose_predicted = SERVING_CHAIN * chunks * (1 + bt.cfg.max_iters)
+        check(pose_launches == pose_predicted, f"serving B {b}: pose_gn launched "
+              f"{pose_launches}, predicted {SERVING_CHAIN} batches x {chunks} chunks x "
+              f"{1 + bt.cfg.max_iters} = {pose_predicted}")
         rec = _record(bt, stats + chain)
         check(bool(torch.isfinite(rec["stats"]).all() and torch.isfinite(rec["T_WC"]).all()),
               f"serving B {b}: non-finite stats or poses")
         row["vs_alone"] = compare_streams(f"B {b}, network: each stream against itself alone",
                                           rec, net_alone, lanes(b), NETWORK_BANDS)
         row.update(ms_batch=ms_batch, fps=b / (ms_batch / 1e3),
-                   attention_launches_per_batch=launches / SERVING_CHAIN)
+                   attention_launches_per_batch=launches / SERVING_CHAIN,
+                   pose_gn_launches_per_batch=pose_launches / SERVING_CHAIN)
         # the counter's own line (set_sync_debug_mode) reports one at times,
         # here as in every phase; it is no sync of the step
         syncs = {s: n for s, n in count_syncs(lambda: bt.step_async(feats[0][:b], pos[:b])).items()
@@ -2343,19 +2516,22 @@ def serving_phase(model) -> dict:
         for t in range(SERVING_WARM):
             bti.resolve_stats(bti.step_images_async(u8[t, :b]))
         torch.cuda.synchronize()
-        flash_attention.launches = 0
+        flash_attention.launches = pose_gn_rays.launches = 0
         t1 = time.perf_counter()
         chain_i = [bti.step_images_async(u8[t, :b]) for t in range(SERVING_WARM, steps)]
         stats_i = torch.stack(chain_i).cpu()
         ms_img = (time.perf_counter() - t1) / SERVING_CHAIN * 1e3
-        launches_i = flash_attention.launches
+        launches_i, pose_launches_i = flash_attention.launches, pose_gn_rays.launches
         predicted_i = predicted + SERVING_CHAIN * c.enc_depth
         check(launches_i == predicted_i, f"serving images B {b}: attention launched "
               f"{launches_i}, predicted {predicted} + {SERVING_CHAIN} x {c.enc_depth}")
+        check(pose_launches_i == pose_predicted, f"serving images B {b}: pose_gn launched "
+              f"{pose_launches_i}, predicted {pose_predicted}")
         check(bool(torch.isfinite(stats_i).all()), f"serving images B {b}: non-finite stats")
         prof_i = profile_batch(bti, (u8[0, :b],), f"images_b{b}", images=True)
         row["images"] = dict(ms_batch=ms_img, fps=b / (ms_img / 1e3),
                              attention_launches_per_batch=launches_i / SERVING_CHAIN,
+                             pose_gn_launches_per_batch=pose_launches_i / SERVING_CHAIN,
                              profile=prof_i,
                              device_idle_share=1.0 - prof_i["device_busy_ms"] / ms_img)
         print(f"[serving] B {b} microbatch {SERVING_MB}: features {row['fps']:.1f} tracked "
@@ -2603,12 +2779,14 @@ def state_phase(model) -> dict:
 def _window_run(model, settings: dict, imgs: list, base, windows: int) -> dict:
     """`FrameTracker.track_window` over `windows` windows of WINDOW frames
     from a fresh keyframe `base`, under `settings` (bench.py's updated) ->
-    per-window outputs, attention launches over the windows, ms/frame of the
-    last window, and the encoder / decoder calls by batch size."""
+    per-window outputs, attention and pose_gn launches over the windows,
+    ms/frame of the last window, and the encoder / decoder calls by batch
+    size."""
     import torch
 
     from mast3r_slam_torch.config import Config, set_config
     from mast3r_slam_torch.ops.attention import flash_attention
+    from mast3r_slam_torch.ops.pose_gn import pose_gn_rays
     from mast3r_slam_torch.tracker import FrameTracker
 
     cfg = set_config(Config.from_dict(settings))
@@ -2627,16 +2805,17 @@ def _window_run(model, settings: dict, imgs: list, base, windows: int) -> dict:
     outs = []
     try:
         torch.cuda.synchronize()
-        flash_attention.launches = 0
+        flash_attention.launches = pose_gn_rays.launches = 0
         for j in range(windows):
             t0 = time.perf_counter()
             outs.append(tracker.track_window(imgs[j * WINDOW:(j + 1) * WINDOW]))
             tracker.sync_window(outs[-1])  # the drain
             ms = (time.perf_counter() - t0) / WINDOW * 1e3
-        launches = flash_attention.launches
+        launches, pose_launches = flash_attention.launches, pose_gn_rays.launches
     finally:
         del model.encode, model.decode
-    return dict(outs=outs, launches=launches, ms_frame=ms, calls=dict(calls),
+    return dict(outs=outs, launches=launches, pose_gn_launches=pose_launches,
+                pose_gn_per_solve=1 + cfg.tracking.max_iters, ms_frame=ms, calls=dict(calls),
                 captured=bool(tracker.graphs.graphs))
 
 
@@ -2707,15 +2886,20 @@ def window_phase(model) -> dict:
               f"{'captured' if run['captured'] else 'eager'}, {run['ms_frame']:.2f} ms/frame "
               f"(last window); events {events}; model calls (a captured window's: while "
               f"capturing) {run['calls']}; attention "
-              f"launches {run['launches']}, predicted {predicted}", flush=True)
+              f"launches {run['launches']}, predicted {predicted}; pose_gn launches "
+              f"{run['pose_gn_launches']}", flush=True)
         check(run["launches"] == predicted,
               f"window {name}: attention launched {run['launches']}, predicted {predicted}")
+        pose_predicted = windows * WINDOW * run["pose_gn_per_solve"]  # one solve a frame
+        check(run["pose_gn_launches"] == pose_predicted, f"window {name}: pose_gn launched "
+              f"{run['pose_gn_launches']}, predicted {pose_predicted}")
         for o in run["outs"]:
             check(bool(torch.isfinite(o["stats"]).all() and torch.isfinite(o["T_WCf"]).all()),
                   f"window {name}: non-finite statistics or poses")
         runs[name] = run
         results[name] = dict(ms_frame=run["ms_frame"], launches=run["launches"],
-                             predicted=predicted, events=events, model_calls=run["calls"])
+                             predicted=predicted, pose_gn_launches=run["pose_gn_launches"],
+                             events=events, model_calls=run["calls"])
     for on, off in (("spec", "plain"), ("spec promoting", "plain promoting")):
         for a, b in zip(runs[on]["outs"], runs[off]["outs"]):
             check(torch.equal(a["stats"][:, 3], b["stats"][:, 3]),
@@ -2754,6 +2938,7 @@ def offline_phase(model) -> dict:
     from mast3r_slam_torch.frame import create_frame
     from mast3r_slam_torch.offline import OfflineReconstructor
     from mast3r_slam_torch.ops.attention import flash_attention
+    from mast3r_slam_torch.ops.pose_gn import pose_gn_rays
     from mast3r_slam_torch.retrieval_db import select_pairs_from_retrieval
     from mast3r_slam_torch.workload import BENCH_SETTINGS, drift_frames
 
@@ -2776,13 +2961,13 @@ def offline_phase(model) -> dict:
     global_opt.gauss_newton_graph = capturing_solve
     try:
         torch.cuda.synchronize()
-        flash_attention.launches = 0
+        flash_attention.launches = pose_gn_rays.launches = 0
         t1 = time.perf_counter()
-        out = OfflineReconstructor(model, pair_k=3, pair_batch=OFFLINE_PAIR_BATCH).reconstruct(
-            frames)
+        recon = OfflineReconstructor(model, pair_k=3, pair_batch=OFFLINE_PAIR_BATCH)
+        out = recon.reconstruct(frames)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
-        launches = flash_attention.launches
+        launches, pose_launches = flash_attention.launches, pose_gn_rays.launches
     finally:
         global_opt.gauss_newton_graph = graph_solve
     f = OFFLINE_FRAMES
@@ -2794,12 +2979,17 @@ def offline_phase(model) -> dict:
     n_sym = -(-len(pairs) // OFFLINE_PAIR_BATCH)
     n_chain = -(-(f - 1) // OFFLINE_PAIR_BATCH)
     predicted = enc * f + dec * (f + n_sym + n_chain)
+    # the chain's pose initialisation: one batched pose solve a chain decode
+    per_solve = 1 + recon.cfg.tracking.max_iters
     print(f"[offline] {f} frames in {wall:.2f} s; {len(pairs)} pairs {pairs}; edges "
           f"{out['n_edges']}; attention launches {launches}, predicted {enc}*{f} encodes + "
-          f"{dec}*({f} mono + {n_sym} symmetric + {n_chain} chain decodes) = {predicted}",
+          f"{dec}*({f} mono + {n_sym} symmetric + {n_chain} chain decodes) = {predicted}; "
+          f"pose_gn launches {pose_launches}, predicted {per_solve}*{n_chain} chain solves",
           flush=True)
     check(pairs == want, f"offline pairs {pairs} != float64 host selection {want}")
     check(launches == predicted, f"offline: attention launched {launches}, predicted {predicted}")
+    check(pose_launches == per_solve * n_chain,
+          f"offline: pose_gn launched {pose_launches}, predicted {per_solve * n_chain}")
     check(out["poses"].shape == (f, 8) and bool(np.isfinite(out["poses"]).all()),
           "offline: non-finite poses")
     check(len(captured) == 1, f"offline: {len(captured)} graph solves")
@@ -2815,7 +3005,8 @@ def offline_phase(model) -> dict:
     print(f"[offline] graph solve repeated twice bit-equal; phase "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return dict(frames=f, wall_s=wall, pairs=len(pairs), edges=out["n_edges"],
-                launches=launches, predicted=predicted, attention=rows)
+                launches=launches, predicted=predicted, pose_gn_launches=pose_launches,
+                attention=rows)
 
 
 # -- phase 17 --------------------------------------------------------------
@@ -2834,6 +3025,7 @@ def _track_run(model, settings: dict, fused: bool, imgs: tuple) -> dict:
     from mast3r_slam_torch.frame import Keyframes, create_frame
     from mast3r_slam_torch.inference import mast3r_inference_mono, mast3r_match_asymmetric
     from mast3r_slam_torch.ops.attention import flash_attention
+    from mast3r_slam_torch.ops.pose_gn import pose_gn_rays
     from mast3r_slam_torch.tracker import FrameTracker
 
     cfg = set_config(Config.from_dict(settings))
@@ -2856,15 +3048,20 @@ def _track_run(model, settings: dict, fused: bool, imgs: tuple) -> dict:
     tracker._use_fused = fused and tracker._use_fused
     check(tracker._use_fused == fused, f"track: fused {fused} not available")
     frame = create_frame(1, img_f, device=dev)
+    # a rays track on the card is one pose solve through the kernel; on the
+    # CPU, or calibrated, it launches none
+    per_solve = 1 + cfg.tracking.max_iters if dev.type == "cuda" and not cfg.use_calib else 0
     calls = []
     for call in range(2):
         if call:
             add_keyframe(2, img_kf2)
-        flash_attention.launches = 0
+        flash_attention.launches = pose_gn_rays.launches = 0
         new_kf, info, reloc = tracker.track(frame, mast3r_match_asymmetric)
+        check(pose_gn_rays.launches == per_solve, f"track on {dev.type} (use_calib "
+              f"{cfg.use_calib}): pose_gn launched {pose_gn_rays.launches}, not {per_solve}")
         calls.append(dict(flags=(new_kf, reloc), stats=dict(tracker.last_stats), N=frame.N,
                           info=info, launches=flash_attention.launches,
-                          T=frame.T_WC.float().cpu()))
+                          pose_gn_launches=pose_gn_rays.launches, T=frame.T_WC.float().cpu()))
     return dict(calls=calls, n=frame.X_canon.shape[0], N_after=frame.N, tracker=tracker,
                 frame=frame)
 
@@ -2956,7 +3153,7 @@ def track_api_phase(model) -> dict:
     from mast3r_slam_torch.workload import BENCH_SETTINGS
 
     t0 = time.perf_counter()
-    out = dict(launches={})
+    out = dict(launches={}, pose_gn_launches={})
     dev = model.device
 
     def settings(use_calib: bool = False) -> dict:
@@ -2988,6 +3185,8 @@ def track_api_phase(model) -> dict:
         check(all(bool(torch.isfinite(cl["T"]).all()) for cl in run["calls"]),
               f"track {name}: non-finite pose")
         out["launches"][f"track_{name}"] = sum(got)
+        out["pose_gn_launches"][f"track_{name}"] = sum(cl["pose_gn_launches"]
+                                                       for cl in run["calls"])
     gap = _compare_track_runs("track fused vs unfused", runs["fused"], runs["unfused"])
     ms = _track_times(runs, imgs[1], dev, TRACK_API_TIMED)
     out["full"] = dict(
@@ -3129,6 +3328,7 @@ def quant_phase(model) -> dict:
     from mast3r_slam_torch.models.quant import (is_quantized_param, quantize_tensor,
                                                 resident_bytes)
     from mast3r_slam_torch.ops.attention import flash_attention
+    from mast3r_slam_torch.ops.pose_gn import pose_gn_rays
     from mast3r_slam_torch.profile_step import count_syncs
     from mast3r_slam_torch.slam import SLAM
     from mast3r_slam_torch.workload import BENCH_SETTINGS, drift_frames
@@ -3219,13 +3419,13 @@ def quant_phase(model) -> dict:
     slam._publish_viewer = counted_publish
     results = []
     torch.cuda.synchronize()
-    flash_attention.launches = 0
+    flash_attention.launches = pose_gn_rays.launches = 0
     t1 = time.perf_counter()
     try:
         syncs = count_syncs(lambda: results.append(slam.run(frames_dataset(imgs))))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
-        launches = flash_attention.launches
+        launches, pose_launches = flash_attention.launches, pose_gn_rays.launches
         page = _get(slam.viewer.port, "/")
         state = _json.loads(_get(slam.viewer.port, "/state.json"))
     finally:
@@ -3233,12 +3433,14 @@ def quant_phase(model) -> dict:
             slam.viewer.close()
     res, ev = results[0], slam.events
     predicted, how = predicted_attention(ev, slam.factor_graph.n_decodes, model.cfg)
+    pose_predicted, pose_how = predicted_pose_gn(slam)
     viewer_lines = _viewer_sync_lines()
     on_viewer = sum(v for k, v in syncs.items() if k in viewer_lines)
     total = sum(syncs.values())
     print(f"[quant] SLAM.run int8, run (i)'s settings: {n} frames in {wall:.2f} s = "
           f"{wall / n * 1e3:.1f} ms/frame; events {dict(sorted(ev.items()))}; attention launches "
-          f"{launches}, predicted {how} = {predicted}", flush=True)
+          f"{launches}, predicted {how} = {predicted}; pose_gn launches {pose_launches}, "
+          f"predicted {pose_how} = {pose_predicted}", flush=True)
     print(f"[viewer] {len(publishes)} publishes over {n} frames; GET / {len(page)} bytes, "
           f"/state.json seq {state['seq']}: {len(state['traj'])} poses, {len(state['points'])} "
           f"points, {state['n_keyframes']} keyframes; host syncs {total} = "
@@ -3248,6 +3450,8 @@ def quant_phase(model) -> dict:
           f"{(total - on_viewer) / n:.2f} per frame; sites "
           f"{dict(sorted(syncs.items(), key=lambda kv: -kv[1]))}", flush=True)
     check(launches == predicted, f"quant SLAM: attention launched {launches}, predicted {predicted}")
+    check(pose_launches == pose_predicted,
+          f"quant SLAM: pose_gn launched {pose_launches}, predicted {pose_predicted}")
     check(ev["init"] == 1 and ev["chained_step"] >= 1, f"quant SLAM: events {dict(ev)}")
     check(res["poses"].shape == (n, 4, 4) and bool(np.isfinite(res["poses"]).all()),
           "quant SLAM: non-finite poses")
@@ -3259,7 +3463,8 @@ def quant_phase(model) -> dict:
     return dict(weights=n_q, values=n_el, bytes_int8=bytes_int8, bytes_bf16=bytes_bf16,
                 desc_dev=d_desc, pts_dev=d_pts, depth2_desc_dev=cut_desc, depth2_pts_dev=cut_pts,
                 scale_div_scalar_mismatch=by_scalar, frames=n, wall_s=wall, ms_frame=wall / n * 1e3,
-                launches=launches, predicted=predicted, events=dict(ev),
+                launches=launches, predicted=predicted, pose_gn_launches=pose_launches,
+                events=dict(ev),
                 viewer=dict(publishes=len(publishes), syncs=total, syncs_in_publish=on_viewer,
                             syncs_per_frame=total / n))
 
@@ -4018,12 +4223,13 @@ def parallel_serving_run(model, mesh, inputs: dict) -> dict:
     import torch
 
     from mast3r_slam_torch.ops.attention import flash_attention
+    from mast3r_slam_torch.ops.pose_gn import pose_gn_rays
     from mast3r_slam_torch.serving import BatchTracker
 
     x = {k: v.cuda() for k, v in inputs.items()}
     bt = BatchTracker(model, mesh=mesh, microbatch=PAR_MB)
     bt.init_from_keyframes(x["kf_feat"], x["kf_pos"], x["kf_X"], x["kf_C"])
-    flash_attention.launches = 0
+    flash_attention.launches = pose_gn_rays.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     stats, tracked, poses = [], [], []
@@ -4036,7 +4242,8 @@ def parallel_serving_run(model, mesh, inputs: dict) -> dict:
         poses.append(r["poses"].cpu())
     seconds = time.perf_counter() - t0
     return dict(stats=torch.stack(stats), tracked=torch.stack(tracked), poses=torch.stack(poses),
-                launches=flash_attention.launches, seconds=seconds,
+                launches=flash_attention.launches, pose_gn_launches=pose_gn_rays.launches,
+                pose_gn_per_solve=1 + bt.cfg.max_iters, seconds=seconds,
                 enc_heads=model.net.enc_blocks[0].attn.num_heads,
                 dec_heads=model.net.dec_blocks[0].attn.num_heads)
 
@@ -4322,6 +4529,12 @@ def parallel_phase() -> dict:
     predicted = predicted_parallel_launches(c)
     check(want["launches"] == predicted,
           f"world-1 serving: {want['launches']} attention launches, predicted {predicted}")
+    # one pose solve a chunk (dp keeps the chunk count: B / dp streams, PAR_MB / dp a chunk)
+    pose_predicted = (PAR_STEPS + 1) * (PAR_B // PAR_MB) * want["pose_gn_per_solve"]
+    for label, r in [("world 1", want)] + [(f"{k} rank {i}", t[k]) for i, t in enumerate(two)
+                                           for k in ("dp2", "tp2")]:
+        check(r["pose_gn_launches"] == pose_predicted, f"serving {label}: pose_gn launched "
+              f"{r['pose_gn_launches']}, predicted {pose_predicted}")
     serving = {}
     for key, label in (("dp2", "(dp, tp) = (2, 1)"), ("tp2", "(dp, tp) = (1, 2)")):
         for rank, r in enumerate(two):
@@ -4458,6 +4671,9 @@ def parallel_phase() -> dict:
                 train={k: v for k, v in tr.items()}, card_cpu=cc,
                 launches=dict(world1=want["launches"], dp2=two[0]["dp2"]["launches"],
                               tp2=two[0]["tp2"]["launches"], training=tr["launches"]),
+                pose_gn_launches=dict(world1=want["pose_gn_launches"],
+                                      dp2=two[0]["dp2"]["pose_gn_launches"],
+                                      tp2=two[0]["tp2"]["pose_gn_launches"]),
                 seconds=seconds)
 
 
@@ -4678,6 +4894,7 @@ def main(argv=None) -> int:
         own = [time_other(REPO)] if parent else []
         kern = kernel_phase(MASt3RConfig.mast3r_full())
         probe = probe_phase()
+        pose_rows = pose_gn_phase()
         if parent:
             own.append(time_other(REPO))
             runs.append(time_other(parent))
@@ -4808,6 +5025,37 @@ def main(argv=None) -> int:
         stamps_per_window=traced["stamps_per_window"],
         rows_dropped=traced["rows_dropped"],
         shape=f"one thread; a window of K={WINDOW} frames",
+    ))
+    kernels.append(dict(
+        name="pose_gn",
+        route="cuda",
+        source="mast3r_slam_torch/csrc/pose_gn.cu",
+        replaces=None,
+        replaces_note="the ray-distance pose Gauss-Newton loop that the JAX package leaves to "
+                      "XLA (mast3r_slam_tpu/ops/gauss_newton.py gauss_newton_pose_rays, "
+                      "_pose_gn_loop_rays_soa): no Pallas kernel",
+        launches=main["pose_gn_launches"],
+        launches_by_path=dict(tracking=main["pose_gn_launches"],
+                              slam_i=slam["i"]["pose_gn_launches"],
+                              slam_ii=slam["ii"]["pose_gn_launches"],
+                              slam_iii=calib["runs"]["iii"]["pose_gn_launches"],
+                              slam_iv=calib["runs"]["iv"]["pose_gn_launches"],
+                              **{f"slam_{k}": r["pose_gn_launches"]
+                                 for k, r in configs["runs"].items()},
+                              **{f"serving_b{b}_per_batch": r["pose_gn_launches_per_batch"]
+                                 for b, r in serving["by_b"].items()},
+                              **{f"serving_images_b{b}_per_batch":
+                                 r["images"]["pose_gn_launches_per_batch"]
+                                 for b, r in serving["by_b"].items()},
+                              **{f"window_{k.replace(' ', '_')}": r["pose_gn_launches"]
+                                 for k, r in window.items()},
+                              offline=offline["pose_gn_launches"],
+                              slam_int8=quant["pose_gn_launches"],
+                              **track_api["pose_gn_launches"],
+                              **{f"parallel_{k}": v
+                                 for k, v in parallel["pose_gn_launches"].items()}),
+        **{k: v for k, v in pose_rows[0].items() if k != "launches"},
+        by_shape=pose_rows,
     ))
     for name, row in probe.items():
         kernels.append(dict(

@@ -13,7 +13,11 @@ Residual r_n = rd_k[n] - rd(T . Xf[n]) in R^4 (unit ray + distance), or
 calibrated mode, whitened per point, IRLS-reweighted (Huber or Tukey), with
 the chain rule folded analytically in structure-of-arrays layout ([*, N]):
 the normal equations are one [7, RN] x [RN, 7] product, left to
-`torch.matmul` as the JAX package leaves it to XLA.
+`torch.matmul` as the JAX package leaves it to XLA. On the card the
+ray-distance solve is instead one hand-written kernel launch an iteration
+(``ops/pose_gn.py``, ``csrc/pose_gn.cu``): its plain loop issued ~650 PyTorch
+kernels an iteration and was bound by their launches. `_pose_gn_loop_rays_soa`
+stays its plain version, which CPU tensors take.
 
 Loop design. JAX runs a ``lax.while_loop`` that stops when the relative cost
 change is below ``rel_error`` or the step norm below ``delta_thresh``. Here
@@ -40,6 +44,7 @@ import numpy as np
 import torch
 
 from mast3r_slam_torch.lie import core as lie
+from mast3r_slam_torch.ops import pose_gn
 from mast3r_slam_torch.ops.linalg import cholesky_solve
 
 
@@ -90,8 +95,14 @@ def gauss_newton_pose_rays(
     params: GNParams = GNParams(),
 ):
     """-> (T [..., 8], final cost [...]): the tracker's ray-distance pose
-    solve, over optional leading batch dimensions (one stream each)."""
-    return _pose_gn_loop_rays_soa(T_init, Xf.mT, rd_k.mT, sqrt_info.mT, params)
+    solve, over optional leading batch dimensions (one stream each). CUDA
+    tensors go to the kernel (`pose_gn.pose_gn_rays`, which takes float32
+    only), CPU tensors to the plain loop."""
+    if Xf.is_cuda:
+        T, cost, _ = pose_gn.pose_gn_rays(T_init, Xf, rd_k, sqrt_info, params)
+    else:
+        T, cost, _ = _pose_gn_loop_rays_soa(T_init, Xf.mT, rd_k.mT, sqrt_info.mT, params)
+    return T, cost
 
 
 def _cross_soa(a, b):
@@ -101,8 +112,10 @@ def _cross_soa(a, b):
     return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0], dim=-2)
 
 
-def _pose_gn_loop_rays_soa(T_init, Xt, rdk_t, w_t, p: GNParams, rel_error: float = 1e-3):
-    """Xt [..., 3, N], rdk_t / w_t [..., 4, N]. With P = d*r the chained
+def _pose_gn_loop_rays_soa(T_init, Xt, rdk_t, w_t, p: GNParams,
+                           rel_error: float = pose_gn.REL_ERROR, count: bool = False):
+    """Xt [..., 3, N], rdk_t / w_t [..., 4, N] -> (T, final cost,
+    iterations or None: `_pose_gn_iterate`'s). With P = d*r the chained
     Jacobian is
         drd/dX @ [I | -[P]x | P] = [ d^-1(I - r r^T) | -[r]x | 0 ]
                                    [       r^T       |   0   | d ]
@@ -140,8 +153,7 @@ def _pose_gn_loop_rays_soa(T_init, Xt, rdk_t, w_t, p: GNParams, rel_error: float
         tau = torch.where(torch.isfinite(tau).all(-1, keepdim=True), tau, torch.zeros_like(tau))
         return lie.sim3_retract(T, tau), tau, cost
 
-    T, cost, _ = _pose_gn_iterate(solve_step, T_init, p, rel_error)
-    return T, cost
+    return _pose_gn_iterate(solve_step, T_init, p, rel_error, count)
 
 
 def _pose_gn_iterate(solve_step, T_init, p: GNParams, rel_error: float,
