@@ -281,10 +281,27 @@ Phases, in order; any failure exits non-zero before the result line:
                L2-resident) and cold (a rotation of copies beyond the 50 MB
                L2), the plain loop's in a graph, and the byte bound (11 f32
                a point an iteration run, over 3.35 TB/s).
+ 20. match-taps - run after phase 19: the dense matcher's kernel
+               (csrc/match_taps.cu) over the benchmark's lattice (radius 3,
+               dilations (2, 1)) at (1, 384, 512) (vitl), (1, 252, 336)
+               (dune) and the serving batch (8, 384, 512), on
+               tests/test_torch_match_taps.py's scenes: the wrapper raises on
+               a float64 CUDA tensor; held to the plain loop on the card and
+               to a float64 recomputation of every tap's cost by that file's
+               `compare_to_plain` (the card tests' rules); two calls
+               bit-equal; launches a call; device ms in a graph of the kernel
+               alone, warm and cold (a rotation of copies beyond the 50 MB
+               L2), of the whole call (ray streams, hit zeroed, kernel) and
+               its kernels, and of the plain loop; the bounds: bytes read and
+               written once over 3.35 TB/s, f32 operations over 67 TFLOP/s,
+               shared-memory reads over 128 bytes a clock an SM.
 Every phase that tracks also holds its pose_gn launches to a prediction:
 1 + max_iters a rays pose solve (a tracked frame, a chunk of serving
 streams, a batch of offline chain pairs), none in calibrated mode or on the
-CPU; the kernels line reports them by path.
+CPU; and its match_taps launches: with the dense matcher one a tracked
+frame (rays or calibrated), a chunk of serving streams, an offline decode
+and a decode of keyframe pairs (backend, relocalisation), none with
+another matcher or on the CPU. The kernels line reports both by path.
 Then it prints the kernels JSON line, the card line, and last
 {"ok": true, "device": {...}}.
 """
@@ -411,6 +428,18 @@ POSE_GN_SHAPES = ((1, 384 * 512), (1, 252 * 336), (8, 384 * 512))  # phase 19: v
 POSE_GN_F32 = 11  # f32 an iteration reads a point: Xf 3, rd_k 4, sqrt_info 4
 POSE_GN_SLACK = 1e-6  # phase 19: pose error the kernel may add beyond twice the plain loop's
 POSE_GN_COST_RTOL = 1e-4  # phase 19: the kernel's final cost against the plain loop's (relative)
+MATCH_SHAPES = ((1, 384, 512), (1, 252, 336), (8, 384, 512))  # phase 20: vitl, dune, serving
+MATCH_LATTICE = (3, (2, 1))  # the benchmark's and configs/base.yaml's: radius 3, dilations (2, 1)
+MATCH_DIST = 0.002  # phase 20: splits its scenes' pixels (a correct match lies ~1.7 mm off)
+# bytes a pixel the kernel reads or writes once: rays 2 x 6, descriptors 2 x 96, points 2 x 12,
+# payload 20; idx 8, valid 1, payload out 10, hit 1
+MATCH_BYTES_PER_PX = 2 * 6 + 2 * 96 + 2 * 12 + 20 + 8 + 1 + 10 + 1
+# f32 operations a tap a pixel at 24 channels: ray 3 sub + 3 mul + 2 add, 24 multiply-adds (2
+# each), the weight's mul and sub, the compare
+MATCH_OPS_PER_TAP = 8 + 2 * 24 + 2 + 1
+MATCH_SHARED_PER_TAP = 8 + 48  # shared-memory bytes a tap a pixel reads: rays 8, descriptors 48
+F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores: 132 SMs x 128 lanes x 2 x 1.98 GHz
+SHARED_BYTES_PER_S = 132 * 128 * 1.98e9  # H100 SXM shared memory: 128 bytes a clock an SM
 
 
 class SmokeFailure(Exception):
@@ -1105,6 +1134,101 @@ def pose_gn_phase() -> list:
     return [pose_gn_row(b, n, rng) for b, n in POSE_GN_SHAPES]
 
 
+# -- phase 20 --------------------------------------------------------------
+
+
+def match_taps_row(b: int, h: int, w: int, seed: int) -> dict:
+    """The kernel at (b, h, w) over MATCH_LATTICE: checked, counted and
+    timed (see phase 20)."""
+    import torch
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from test_torch_match_taps import compare_to_plain, scene, tap_costs64
+
+    from mast3r_slam_torch.ops import match_taps as mt
+    from mast3r_slam_torch.ops.dense_match import _match_dense_loop
+
+    radius, dilations = MATCH_LATTICE
+    kw = dict(radius=radius, dilations=dilations, desc_weight=1.0, dist_thresh=MATCH_DIST)
+    inputs = tuple(t.cuda() for t in scene(b, h, w, seed=seed))
+    X11, X21, D11, D21, pay = inputs
+
+    def call():
+        return mt.match_taps(X11, X21, D11, D21, payload=pay, want_hit=True, **kw)
+
+    before = mt.match_taps.launches
+    got = call()
+    launches = mt.match_taps.launches - before
+    again = call()
+    want = _match_dense_loop(X11, X21, D11, D21, payload=pay, want_hit=True, **kw)
+    check(all(torch.equal(a, c) for a, c in zip(got, again)), f"match_taps {(b, h, w)}: two "
+          "calls differ")
+    check(launches == 1, f"match_taps {(b, h, w)}: {launches} launches a call")
+    costs = tap_costs64(X11, X21, D11, D21, radius, dilations, 1.0)
+    try:
+        figures = compare_to_plain(got, want, costs, inputs, radius, dilations, MATCH_DIST,
+                                   True, True)
+    except AssertionError as e:
+        check(False, f"match_taps {(b, h, w)} against the plain loop and float64: {e}")
+    del costs
+
+    du, dv = mt.tap_table(radius, dilations)
+    chunks = -(-D11.shape[-1] // 8)
+
+    def alone(x):  # the kernel alone: the ray streams made once, the outputs given
+        ins, outs = x
+        mt._launch(ins, outs, du, dv, chunks, 1.0, MATCH_DIST)
+        return outs
+
+    rays = (mt.ray_stream(X11), mt.ray_stream(X21))
+    one = ((X11, X21, D11, D21, pay, *rays), tuple(torch.empty_like(t) for t in got))
+    ms = time_graph_calls(lambda: alone(one))
+    per_copy = b * h * w * MATCH_BYTES_PER_PX
+    copies = max(2, -(-120_000_000 // per_copy))  # > 2x the L2
+    xs = [one] + [(tuple(t.clone() for t in one[0]), tuple(torch.empty_like(t) for t in got))
+                  for _ in range(copies - 1)]
+    cold_ms = time_cold(alone, xs, reps=5)
+    call_ms = time_graph_calls(call)
+    plain_ms = time_graph_calls(
+        lambda: _match_dense_loop(X11, X21, D11, D21, payload=pay, want_hit=True, **kw),
+        iters=1, reps=3)
+    prof = profile_solve("match_taps", f"match_taps_{b}x{h}x{w}", call)
+    px, taps = b * h * w, len(du)
+    bound_bytes = per_copy / HBM_BYTES_PER_S * 1e3
+    bound_ops = px * taps * MATCH_OPS_PER_TAP / F32_FLOPS_PER_S * 1e3
+    bound_shared = px * taps * MATCH_SHARED_PER_TAP / SHARED_BYTES_PER_S * 1e3
+    row = dict(shape=f"({b}, {h}, {w})", taps=taps, launches=launches, **figures, ms=ms,
+               cold_ms=cold_ms, call_ms=call_ms, call_kernels=prof["kernels"],
+               plain_ms=plain_ms, bound_ms=max(bound_bytes, bound_ops),
+               bound_by="operations" if bound_ops > bound_bytes else "bytes",
+               bytes_bound_ms=bound_bytes, ops_bound_ms=bound_ops, shared_bound_ms=bound_shared,
+               library_ms=None)
+    print(f"[match_taps] ({b}, {h}, {w}), {taps} taps: idx equal to the plain loop's on "
+          f"{figures['agree']:.6f} of pixels, picks within {figures['gap']:.3e} of the float64 "
+          f"minimum, valid {figures['valid']:.4f} ({figures['valid_flips']} flips at the gate); "
+          f"{launches} launch a call; device ms in a graph: kernel warm {ms:.5f}, cold "
+          f"{cold_ms:.5f} ({copies} copies), the call (ray streams, hit zeroed, kernel: "
+          f"{prof['kernels']:.0f} kernels) {call_ms:.5f}, plain loop {plain_ms:.5f}; bounds: bytes "
+          f"{bound_bytes:.5f}, f32 operations {bound_ops:.5f}, shared memory {bound_shared:.5f}",
+          flush=True)
+    return row
+
+
+def match_taps_phase() -> list:
+    import torch
+
+    from mast3r_slam_torch.ops import match_taps as mt
+
+    # On the card the wrapper launches its kernel or raises; it never falls back.
+    x = torch.zeros(1, 8, 8, 3, dtype=torch.float64, device="cuda")
+    try:
+        mt.match_taps(x, x, x, x)
+        check(False, "match_taps took float64 CUDA tensors instead of raising")
+    except TypeError:
+        pass
+    return [match_taps_row(b, h, w, seed=20 + i) for i, (b, h, w) in enumerate(MATCH_SHAPES)]
+
+
 # -- phase 5 ---------------------------------------------------------------
 
 
@@ -1177,7 +1301,7 @@ def main_path_phase(cfg) -> dict:
 
     from mast3r_slam_torch import graphs
     from mast3r_slam_torch.models import MASt3RModel
-    from mast3r_slam_torch.ops import pose_gn
+    from mast3r_slam_torch.ops import match_taps, pose_gn
     from mast3r_slam_torch.ops.attention import flash_attention
     from mast3r_slam_torch.tracker import EVENT_NEW_KF, EVENT_TRACKED, FrameTracker
     from mast3r_slam_torch.workload import drift_frames
@@ -1194,6 +1318,7 @@ def main_path_phase(cfg) -> dict:
     imgs = drift_frames(base, 2 * WINDOW + PROMOTION_FRAMES, rng)
 
     flash_attention.launches = graphs.if_node.launches = pose_gn.pose_gn_rays.launches = 0
+    match_taps.match_taps.launches = 0
     tracker = FrameTracker(model, cfg)
     tracker.init_keyframe(base)
     win1 = tracker.track_window(imgs[:WINDOW])
@@ -1210,6 +1335,7 @@ def main_path_phase(cfg) -> dict:
     torch.cuda.synchronize()
     launches, if_launches = flash_attention.launches, graphs.if_node.launches
     pose_launches = pose_gn.pose_gn_rays.launches
+    match_launches = match_taps.match_taps.launches
 
     n = h * w
     for name, win, want in (("window 1", win1, EVENT_TRACKED), ("window 2", win2, EVENT_TRACKED)):
@@ -1243,11 +1369,13 @@ def main_path_phase(cfg) -> dict:
     per_solve = 1 + cfg.tracking.max_iters
     check(pose_launches == frames * per_solve,
           f"pose_gn launched {pose_launches} times for {frames} frames, not {per_solve} each")
+    # each frame's dense match: one launch of csrc/match_taps.cu
+    check_match_taps("main", match_launches, frames, f"1*{frames} frames")
     print(f"[main] {ms_frame:.2f} ms/frame (window 2, K={WINDOW}, a graph replay and its drain), "
           f"promotions {promotions}/{PROMOTION_FRAMES}, IF nodes run {if_launches}, stats frame "
           f"16 {win2['stats'][-1].tolist()}", flush=True)
     return dict(launches=launches, if_launches=if_launches, pose_gn_launches=pose_launches,
-                ms_frame=ms_frame, promotions=promotions)
+                match_taps_launches=match_launches, ms_frame=ms_frame, promotions=promotions)
 
 
 # -- phase 7 ---------------------------------------------------------------
@@ -1278,6 +1406,23 @@ def predicted_pose_gn(slam) -> tuple[int, str]:
     return per * steps, f"{per}*{steps} steps"
 
 
+def predicted_match_taps(slam) -> tuple[int, str]:
+    """match_taps launches that a SLAM.run must make, from its event log: with
+    the dense matcher, one a tracked step (chained or synchronous, rays or
+    calibrated) and one a decode of keyframe pairs (`add_factors`: the
+    backend and relocalisation); none with another matcher."""
+    ev = slam.events
+    steps = ev["chained_step"] + ev["sync_step"]
+    decodes = slam.factor_graph.n_decodes
+    per = int(slam.config.matching.method == "dense")
+    return per * (steps + decodes), f"{per}*({steps} steps + {decodes} decodes)"
+
+
+def check_match_taps(name: str, launches: int, predicted: int, how: str) -> None:
+    print(f"[{name}] match_taps launches {launches}, predicted {how} = {predicted}", flush=True)
+    check(launches == predicted, f"{name}: match_taps launched {launches}, predicted {predicted}")
+
+
 def frames_dataset(imgs: list):
     """In-memory uint8 frames [H, W, 3] as a dataset of the port: no image
     files, no PIL."""
@@ -1303,6 +1448,7 @@ def slam_phase() -> dict:
     from mast3r_slam_torch.config import Config, set_config
     from mast3r_slam_torch.global_opt import FactorGraph
     from mast3r_slam_torch.ops.attention import flash_attention
+    from mast3r_slam_torch.ops.match_taps import match_taps
     from mast3r_slam_torch.ops.pose_gn import pose_gn_rays
     from mast3r_slam_torch.profile_step import count_syncs
     from mast3r_slam_torch.slam import SLAM
@@ -1345,7 +1491,7 @@ def slam_phase() -> dict:
             slam = SLAM(model=model)
         solves.clear()
         torch.cuda.synchronize()
-        flash_attention.launches = pose_gn_rays.launches = 0
+        flash_attention.launches = pose_gn_rays.launches = match_taps.launches = 0
         t0 = time.perf_counter()
         results = []
         syncs = count_syncs(lambda: results.append(slam.run(frames_dataset(imgs[:n]))))
@@ -1353,6 +1499,7 @@ def slam_phase() -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches, pose_launches = flash_attention.launches, pose_gn_rays.launches
+        match_launches = match_taps.launches
         n_syncs = sum(syncs.values())
         ev, fg = slam.events, slam.factor_graph
         predicted, how = predicted_attention(ev, fg.n_decodes, slam.model.cfg)
@@ -1372,6 +1519,7 @@ def slam_phase() -> dict:
         check(launches == predicted, f"{name}: attention launched {launches}, predicted {predicted}")
         check(pose_launches == pose_predicted,
               f"{name}: pose_gn launched {pose_launches}, predicted {pose_predicted}")
+        check_match_taps(f"slam {name}", match_launches, *predicted_match_taps(slam))
         check(res["poses"].shape == (n, 4, 4), f"{name}: poses {res['poses'].shape}")
         check(bool(np.isfinite(res["poses"]).all()), f"{name}: non-finite poses")
         check(len(res["points"]) > 0 and bool(np.isfinite(res["points"]).all()),
@@ -1380,6 +1528,7 @@ def slam_phase() -> dict:
         check(ev["chained_step"] >= 1, f"{name}: the chained path never ran")
         return slam, res, dict(frames=n, wall_s=wall, ms_frame=wall / n * 1e3, launches=launches,
                                predicted=predicted, pose_gn_launches=pose_launches,
+                               match_taps_launches=match_launches,
                                solves=len(solve_ms), solve_ms=solve_ms,
                                host_syncs=n_syncs, host_sync_sites=syncs, events=dict(ev),
                                decodes=fg.n_decodes)
@@ -1637,6 +1786,7 @@ def calib_runs(model) -> dict:
     from mast3r_slam_torch import global_opt
     from mast3r_slam_torch import slam as slam_mod
     from mast3r_slam_torch.ops.attention import flash_attention
+    from mast3r_slam_torch.ops.match_taps import match_taps
     from mast3r_slam_torch.ops.pose_gn import pose_gn_rays
     from mast3r_slam_torch.profile_step import count_syncs
     from mast3r_slam_torch.utils.intrinsics import estimate_intrinsics
@@ -1672,7 +1822,7 @@ def calib_runs(model) -> dict:
             solves.clear()
             first_pointmap.clear()
             torch.cuda.synchronize()
-            flash_attention.launches = pose_gn_rays.launches = 0
+            flash_attention.launches = pose_gn_rays.launches = match_taps.launches = 0
             t0 = time.perf_counter()
             results = []
             syncs = count_syncs(lambda: results.append(slam.run(frames_dataset(imgs[:n]))))
@@ -1680,6 +1830,7 @@ def calib_runs(model) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches, pose_launches = flash_attention.launches, pose_gn_rays.launches
+            match_launches = match_taps.launches
             ev, fg, kfs = slam.events, slam.factor_graph, slam.keyframes
             predicted, how = predicted_attention(ev, fg.n_decodes, slam.model.cfg)
             modes = sorted({m for m, _ in solves})
@@ -1704,6 +1855,8 @@ def calib_runs(model) -> dict:
             # the calibrated tracker solves with its own loop, never the rays kernel
             check(pose_launches == predicted_pose_gn(slam)[0] == 0,
                   f"{name}: pose_gn launched {pose_launches} times in calibrated mode")
+            # the dense matcher of (iv) takes the kernel in calibrated mode too
+            check_match_taps(f"calib {name}", match_launches, *predicted_match_taps(slam))
             check(res["poses"].shape == (n, 4, 4), f"{name}: poses {res['poses'].shape}")
             check(bool(np.isfinite(res["poses"]).all()), f"{name}: non-finite poses")
             check(len(res["points"]) > 0 and bool(np.isfinite(res["points"]).all()),
@@ -1713,7 +1866,7 @@ def calib_runs(model) -> dict:
             check(K is not None and fg.K is K, f"{name}: no intrinsics in the arena and graph")
             row = dict(config=config_file, matcher=matcher, frames=n, wall_s=wall,
                        ms_frame=wall / n * 1e3, launches=launches, predicted=predicted,
-                       pose_gn_launches=pose_launches,
+                       pose_gn_launches=pose_launches, match_taps_launches=match_launches,
                        calib_solves=len(solves), solve_ms=solve_ms, events=dict(ev),
                        keyframes=len(kfs), edges=fg.n_edges, K=K.tolist(),
                        host_syncs=sum(syncs.values()))
@@ -1928,6 +2081,7 @@ def config_runs(model) -> tuple[dict, dict]:
     from mast3r_slam_torch import slam as slam_mod
     from mast3r_slam_torch.models import asmk
     from mast3r_slam_torch.ops.attention import flash_attention
+    from mast3r_slam_torch.ops.match_taps import match_taps
     from mast3r_slam_torch.ops.pose_gn import pose_gn_rays
     from mast3r_slam_torch.profile_step import count_syncs
     from mast3r_slam_torch.workload import drift_frames
@@ -1981,7 +2135,7 @@ def config_runs(model) -> tuple[dict, dict]:
             fits.clear()
             queries.clear()
             torch.cuda.synchronize()
-            flash_attention.launches = pose_gn_rays.launches = 0
+            flash_attention.launches = pose_gn_rays.launches = match_taps.launches = 0
             t0 = time.perf_counter()
             results = []
             syncs = count_syncs(lambda: results.append(slam.run(frames_dataset(imgs[:n]))))
@@ -1989,6 +2143,7 @@ def config_runs(model) -> tuple[dict, dict]:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches, pose_launches = flash_attention.launches, pose_gn_rays.launches
+            match_launches = match_taps.launches
             ev, fg, kfs, db = slam.events, slam.factor_graph, slam.keyframes, slam.retrieval_db
             predicted, how = predicted_attention(ev, fg.n_decodes, slam.model.cfg)
             pose_predicted, pose_how = predicted_pose_gn(slam)
@@ -2000,8 +2155,8 @@ def config_runs(model) -> tuple[dict, dict]:
                        f"{c.enc_num_heads} patch {c.patch_size}", hw=[kfs.h, kfs.w],
                        matcher=cfg.matching.method, retrieval=cfg.retrieval.method, wall_s=wall,
                        ms_frame=wall / n * 1e3, launches=launches, predicted=predicted,
-                       pose_gn_launches=pose_launches, solves=len(solve_ms), solve_ms=solve_ms,
-                       strides=strides,
+                       pose_gn_launches=pose_launches, match_taps_launches=match_launches,
+                       solves=len(solve_ms), solve_ms=solve_ms, strides=strides,
                        host_syncs=n_syncs, host_syncs_per_frame=n_syncs / n,
                        host_sync_sites=syncs, events=dict(ev), keyframes=len(kfs),
                        edges=fg.n_edges, decodes=fg.n_decodes, asmk_fits=list(fits),
@@ -2023,6 +2178,7 @@ def config_runs(model) -> tuple[dict, dict]:
                   f"predicted {predicted}")
             check(pose_launches == pose_predicted,
                   f"{name}: pose_gn launched {pose_launches}, predicted {pose_predicted}")
+            check_match_taps(f"configs {name}", match_launches, *predicted_match_taps(slam))
             check(res["poses"].shape == (n, 4, 4), f"{name}: poses {res['poses'].shape}")
             check(bool(np.isfinite(res["poses"]).all()), f"{name}: non-finite poses")
             check(len(res["points"]) > 0 and bool(np.isfinite(res["points"]).all()),
@@ -2119,11 +2275,12 @@ def iterative_vs_dense(captured) -> dict:
     ITER_AGREE), then its ms between CUDA events per eager call (5 calls
     after 2: host launch gaps included), device-busy ms and kernel launches
     (one profiled call) beside the dense matcher's at the same shape
-    (radius 3, dilations (2, 1), as tum.yaml)."""
+    (radius 3, dilations (2, 1), as tum.yaml): its kernel (csrc/match_taps.cu,
+    what the card runs) and its plain loop."""
     import torch
 
     from mast3r_slam_torch.matching import match_iterative_proj
-    from mast3r_slam_torch.ops.dense_match import match_dense_window
+    from mast3r_slam_torch.ops.dense_match import _match_dense_loop, match_dense_window
 
     args, kw = captured[0]
     X11, X21, D11, D21 = args[:4]
@@ -2148,18 +2305,24 @@ def iterative_vs_dense(captured) -> dict:
         return match_dense_window(X11, X21, D11, D21, radius=3, dilations=(2, 1),
                                   dist_thresh=kw["dist_thresh"])
 
+    def dense_plain():
+        return _match_dense_loop(X11, X21, D11, D21, radius=3, dilations=(2, 1),
+                                 dist_thresh=kw["dist_thresh"])
+
     out = dict(shape=list(X11.shape), idx_agree=agree, valid_agree=valid_agree,
                valid_frac=valid_card.float().mean().item(),
                iterative_ms=device_ms(lambda: match_iterative_proj(*args, **kw)),
-               dense_ms=device_ms(dense),
+               dense_ms=device_ms(dense), dense_plain_ms=device_ms(dense_plain),
                iterative=profile_solve("configs", "iterative_match",
                                        lambda: match_iterative_proj(*args, **kw)),
-               dense=profile_solve("configs", "dense_match", dense))
+               dense=profile_solve("configs", "dense_match", dense),
+               dense_plain=profile_solve("configs", "dense_match_plain", dense_plain))
     print(f"[configs vii] iterative match {list(X11.shape)}: idx card vs CPU agree on "
           f"{agree:.6f} of pixels (valid {valid_agree:.6f}); ms between CUDA events per eager "
-          f"call iterative {out['iterative_ms']:.3f}, dense {out['dense_ms']:.3f}; kernels per "
-          f"call iterative {out['iterative']['kernels']:.0f}, dense "
-          f"{out['dense']['kernels']:.0f}", flush=True)
+          f"call iterative {out['iterative_ms']:.3f}, dense (match_taps) {out['dense_ms']:.3f}, "
+          f"dense plain loop {out['dense_plain_ms']:.3f}; kernels per call iterative "
+          f"{out['iterative']['kernels']:.0f}, dense (match_taps) {out['dense']['kernels']:.0f}, "
+          f"dense plain loop {out['dense_plain']['kernels']:.0f}", flush=True)
     check(agree >= ITER_AGREE, f"iterative match card vs CPU: idx agree on {agree:.6f}")
     return out
 
@@ -2400,9 +2563,10 @@ def serving_phase(model) -> dict:
     import numpy as np
     import torch
 
-    from mast3r_slam_torch.config import Config, set_config
+    from mast3r_slam_torch.config import Config, get_config, set_config
     from mast3r_slam_torch.lie import core as lie
     from mast3r_slam_torch.ops.attention import flash_attention
+    from mast3r_slam_torch.ops.match_taps import match_taps
     from mast3r_slam_torch.ops.pose_gn import pose_gn_rays
     from mast3r_slam_torch.profile_step import count_syncs
     from mast3r_slam_torch.serving import BatchTracker
@@ -2475,12 +2639,13 @@ def serving_phase(model) -> dict:
         for handle in stats:
             bt.resolve_stats(handle)
         torch.cuda.synchronize()
-        flash_attention.launches = pose_gn_rays.launches = 0
+        flash_attention.launches = pose_gn_rays.launches = match_taps.launches = 0
         t1 = time.perf_counter()
         chain = [bt.step_async(feats[t][:b], pos[:b]) for t in range(SERVING_WARM, steps)]
         torch.stack(chain).cpu()  # the chain's one stats fetch
         ms_batch = (time.perf_counter() - t1) / SERVING_CHAIN * 1e3
         launches, pose_launches = flash_attention.launches, pose_gn_rays.launches
+        match_launches = match_taps.launches
         chunks = b // SERVING_MB
         predicted = SERVING_CHAIN * chunks * 4 * c.dec_depth
         check(launches == predicted, f"serving B {b}: attention launched {launches}, predicted "
@@ -2490,6 +2655,10 @@ def serving_phase(model) -> dict:
         check(pose_launches == pose_predicted, f"serving B {b}: pose_gn launched "
               f"{pose_launches}, predicted {SERVING_CHAIN} batches x {chunks} chunks x "
               f"{1 + bt.cfg.max_iters} = {pose_predicted}")
+        # one dense match a chunk, over its streams
+        match_predicted = SERVING_CHAIN * chunks * int(get_config().matching.method == "dense")
+        check_match_taps(f"serving B {b}", match_launches, match_predicted,
+                         f"{SERVING_CHAIN} batches x {chunks} chunks")
         rec = _record(bt, stats + chain)
         check(bool(torch.isfinite(rec["stats"]).all() and torch.isfinite(rec["T_WC"]).all()),
               f"serving B {b}: non-finite stats or poses")
@@ -2497,7 +2666,8 @@ def serving_phase(model) -> dict:
                                           rec, net_alone, lanes(b), NETWORK_BANDS)
         row.update(ms_batch=ms_batch, fps=b / (ms_batch / 1e3),
                    attention_launches_per_batch=launches / SERVING_CHAIN,
-                   pose_gn_launches_per_batch=pose_launches / SERVING_CHAIN)
+                   pose_gn_launches_per_batch=pose_launches / SERVING_CHAIN,
+                   match_taps_launches_per_batch=match_launches / SERVING_CHAIN)
         # the counter's own line (set_sync_debug_mode) reports one at times,
         # here as in every phase; it is no sync of the step
         syncs = {s: n for s, n in count_syncs(lambda: bt.step_async(feats[0][:b], pos[:b])).items()
@@ -2516,12 +2686,14 @@ def serving_phase(model) -> dict:
         for t in range(SERVING_WARM):
             bti.resolve_stats(bti.step_images_async(u8[t, :b]))
         torch.cuda.synchronize()
-        flash_attention.launches = pose_gn_rays.launches = 0
+        flash_attention.launches = pose_gn_rays.launches = match_taps.launches = 0
         t1 = time.perf_counter()
         chain_i = [bti.step_images_async(u8[t, :b]) for t in range(SERVING_WARM, steps)]
         stats_i = torch.stack(chain_i).cpu()
         ms_img = (time.perf_counter() - t1) / SERVING_CHAIN * 1e3
         launches_i, pose_launches_i = flash_attention.launches, pose_gn_rays.launches
+        check_match_taps(f"serving images B {b}", match_taps.launches, match_predicted,
+                         f"{SERVING_CHAIN} batches x {chunks} chunks")
         predicted_i = predicted + SERVING_CHAIN * c.enc_depth
         check(launches_i == predicted_i, f"serving images B {b}: attention launched "
               f"{launches_i}, predicted {predicted} + {SERVING_CHAIN} x {c.enc_depth}")
@@ -2786,6 +2958,7 @@ def _window_run(model, settings: dict, imgs: list, base, windows: int) -> dict:
 
     from mast3r_slam_torch.config import Config, set_config
     from mast3r_slam_torch.ops.attention import flash_attention
+    from mast3r_slam_torch.ops.match_taps import match_taps
     from mast3r_slam_torch.ops.pose_gn import pose_gn_rays
     from mast3r_slam_torch.tracker import FrameTracker
 
@@ -2805,16 +2978,18 @@ def _window_run(model, settings: dict, imgs: list, base, windows: int) -> dict:
     outs = []
     try:
         torch.cuda.synchronize()
-        flash_attention.launches = pose_gn_rays.launches = 0
+        flash_attention.launches = pose_gn_rays.launches = match_taps.launches = 0
         for j in range(windows):
             t0 = time.perf_counter()
             outs.append(tracker.track_window(imgs[j * WINDOW:(j + 1) * WINDOW]))
             tracker.sync_window(outs[-1])  # the drain
             ms = (time.perf_counter() - t0) / WINDOW * 1e3
         launches, pose_launches = flash_attention.launches, pose_gn_rays.launches
+        match_launches = match_taps.launches
     finally:
         del model.encode, model.decode
     return dict(outs=outs, launches=launches, pose_gn_launches=pose_launches,
+                match_taps_launches=match_launches,
                 pose_gn_per_solve=1 + cfg.tracking.max_iters, ms_frame=ms, calls=dict(calls),
                 captured=bool(tracker.graphs.graphs))
 
@@ -2893,12 +3068,15 @@ def window_phase(model) -> dict:
         pose_predicted = windows * WINDOW * run["pose_gn_per_solve"]  # one solve a frame
         check(run["pose_gn_launches"] == pose_predicted, f"window {name}: pose_gn launched "
               f"{run['pose_gn_launches']}, predicted {pose_predicted}")
+        check_match_taps(f"window {name}", run["match_taps_launches"], windows * WINDOW,
+                         f"1*{windows * WINDOW} frames")
         for o in run["outs"]:
             check(bool(torch.isfinite(o["stats"]).all() and torch.isfinite(o["T_WCf"]).all()),
                   f"window {name}: non-finite statistics or poses")
         runs[name] = run
         results[name] = dict(ms_frame=run["ms_frame"], launches=run["launches"],
                              predicted=predicted, pose_gn_launches=run["pose_gn_launches"],
+                             match_taps_launches=run["match_taps_launches"],
                              events=events, model_calls=run["calls"])
     for on, off in (("spec", "plain"), ("spec promoting", "plain promoting")):
         for a, b in zip(runs[on]["outs"], runs[off]["outs"]):
@@ -2938,6 +3116,7 @@ def offline_phase(model) -> dict:
     from mast3r_slam_torch.frame import create_frame
     from mast3r_slam_torch.offline import OfflineReconstructor
     from mast3r_slam_torch.ops.attention import flash_attention
+    from mast3r_slam_torch.ops.match_taps import match_taps
     from mast3r_slam_torch.ops.pose_gn import pose_gn_rays
     from mast3r_slam_torch.retrieval_db import select_pairs_from_retrieval
     from mast3r_slam_torch.workload import BENCH_SETTINGS, drift_frames
@@ -2961,13 +3140,14 @@ def offline_phase(model) -> dict:
     global_opt.gauss_newton_graph = capturing_solve
     try:
         torch.cuda.synchronize()
-        flash_attention.launches = pose_gn_rays.launches = 0
+        flash_attention.launches = pose_gn_rays.launches = match_taps.launches = 0
         t1 = time.perf_counter()
         recon = OfflineReconstructor(model, pair_k=3, pair_batch=OFFLINE_PAIR_BATCH)
         out = recon.reconstruct(frames)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
         launches, pose_launches = flash_attention.launches, pose_gn_rays.launches
+        match_launches = match_taps.launches
     finally:
         global_opt.gauss_newton_graph = graph_solve
     f = OFFLINE_FRAMES
@@ -2990,6 +3170,10 @@ def offline_phase(model) -> dict:
     check(launches == predicted, f"offline: attention launched {launches}, predicted {predicted}")
     check(pose_launches == per_solve * n_chain,
           f"offline: pose_gn launched {pose_launches}, predicted {per_solve * n_chain}")
+    # one dense match a chain decode and a symmetric decode
+    dense = int(recon.cfg.matching.method == "dense")
+    check_match_taps("offline", match_launches, dense * (n_sym + n_chain),
+                     f"{dense}*({n_sym} symmetric + {n_chain} chain decodes)")
     check(out["poses"].shape == (f, 8) and bool(np.isfinite(out["poses"]).all()),
           "offline: non-finite poses")
     check(len(captured) == 1, f"offline: {len(captured)} graph solves")
@@ -3006,7 +3190,7 @@ def offline_phase(model) -> dict:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return dict(frames=f, wall_s=wall, pairs=len(pairs), edges=out["n_edges"],
                 launches=launches, predicted=predicted, pose_gn_launches=pose_launches,
-                attention=rows)
+                match_taps_launches=match_launches, attention=rows)
 
 
 # -- phase 17 --------------------------------------------------------------
@@ -3025,6 +3209,7 @@ def _track_run(model, settings: dict, fused: bool, imgs: tuple) -> dict:
     from mast3r_slam_torch.frame import Keyframes, create_frame
     from mast3r_slam_torch.inference import mast3r_inference_mono, mast3r_match_asymmetric
     from mast3r_slam_torch.ops.attention import flash_attention
+    from mast3r_slam_torch.ops.match_taps import match_taps
     from mast3r_slam_torch.ops.pose_gn import pose_gn_rays
     from mast3r_slam_torch.tracker import FrameTracker
 
@@ -3055,13 +3240,18 @@ def _track_run(model, settings: dict, fused: bool, imgs: tuple) -> dict:
     for call in range(2):
         if call:
             add_keyframe(2, img_kf2)
-        flash_attention.launches = pose_gn_rays.launches = 0
+        flash_attention.launches = pose_gn_rays.launches = match_taps.launches = 0
         new_kf, info, reloc = tracker.track(frame, mast3r_match_asymmetric)
         check(pose_gn_rays.launches == per_solve, f"track on {dev.type} (use_calib "
               f"{cfg.use_calib}): pose_gn launched {pose_gn_rays.launches}, not {per_solve}")
+        # one dense match a call on the card, rays or calibrated
+        per_match = int(dev.type == "cuda" and cfg.matching.method == "dense")
+        check(match_taps.launches == per_match, f"track on {dev.type} (use_calib "
+              f"{cfg.use_calib}): match_taps launched {match_taps.launches}, not {per_match}")
         calls.append(dict(flags=(new_kf, reloc), stats=dict(tracker.last_stats), N=frame.N,
                           info=info, launches=flash_attention.launches,
-                          pose_gn_launches=pose_gn_rays.launches, T=frame.T_WC.float().cpu()))
+                          pose_gn_launches=pose_gn_rays.launches,
+                          match_taps_launches=match_taps.launches, T=frame.T_WC.float().cpu()))
     return dict(calls=calls, n=frame.X_canon.shape[0], N_after=frame.N, tracker=tracker,
                 frame=frame)
 
@@ -3153,7 +3343,7 @@ def track_api_phase(model) -> dict:
     from mast3r_slam_torch.workload import BENCH_SETTINGS
 
     t0 = time.perf_counter()
-    out = dict(launches={}, pose_gn_launches={})
+    out = dict(launches={}, pose_gn_launches={}, match_taps_launches={})
     dev = model.device
 
     def settings(use_calib: bool = False) -> dict:
@@ -3187,6 +3377,8 @@ def track_api_phase(model) -> dict:
         out["launches"][f"track_{name}"] = sum(got)
         out["pose_gn_launches"][f"track_{name}"] = sum(cl["pose_gn_launches"]
                                                        for cl in run["calls"])
+        out["match_taps_launches"][f"track_{name}"] = sum(cl["match_taps_launches"]
+                                                          for cl in run["calls"])
     gap = _compare_track_runs("track fused vs unfused", runs["fused"], runs["unfused"])
     ms = _track_times(runs, imgs[1], dev, TRACK_API_TIMED)
     out["full"] = dict(
@@ -3328,6 +3520,7 @@ def quant_phase(model) -> dict:
     from mast3r_slam_torch.models.quant import (is_quantized_param, quantize_tensor,
                                                 resident_bytes)
     from mast3r_slam_torch.ops.attention import flash_attention
+    from mast3r_slam_torch.ops.match_taps import match_taps
     from mast3r_slam_torch.ops.pose_gn import pose_gn_rays
     from mast3r_slam_torch.profile_step import count_syncs
     from mast3r_slam_torch.slam import SLAM
@@ -3419,13 +3612,14 @@ def quant_phase(model) -> dict:
     slam._publish_viewer = counted_publish
     results = []
     torch.cuda.synchronize()
-    flash_attention.launches = pose_gn_rays.launches = 0
+    flash_attention.launches = pose_gn_rays.launches = match_taps.launches = 0
     t1 = time.perf_counter()
     try:
         syncs = count_syncs(lambda: results.append(slam.run(frames_dataset(imgs))))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
         launches, pose_launches = flash_attention.launches, pose_gn_rays.launches
+        match_launches = match_taps.launches
         page = _get(slam.viewer.port, "/")
         state = _json.loads(_get(slam.viewer.port, "/state.json"))
     finally:
@@ -3452,6 +3646,7 @@ def quant_phase(model) -> dict:
     check(launches == predicted, f"quant SLAM: attention launched {launches}, predicted {predicted}")
     check(pose_launches == pose_predicted,
           f"quant SLAM: pose_gn launched {pose_launches}, predicted {pose_predicted}")
+    check_match_taps("quant SLAM", match_launches, *predicted_match_taps(slam))
     check(ev["init"] == 1 and ev["chained_step"] >= 1, f"quant SLAM: events {dict(ev)}")
     check(res["poses"].shape == (n, 4, 4) and bool(np.isfinite(res["poses"]).all()),
           "quant SLAM: non-finite poses")
@@ -3464,7 +3659,7 @@ def quant_phase(model) -> dict:
                 desc_dev=d_desc, pts_dev=d_pts, depth2_desc_dev=cut_desc, depth2_pts_dev=cut_pts,
                 scale_div_scalar_mismatch=by_scalar, frames=n, wall_s=wall, ms_frame=wall / n * 1e3,
                 launches=launches, predicted=predicted, pose_gn_launches=pose_launches,
-                events=dict(ev),
+                match_taps_launches=match_launches, events=dict(ev),
                 viewer=dict(publishes=len(publishes), syncs=total, syncs_in_publish=on_viewer,
                             syncs_per_frame=total / n))
 
@@ -4223,13 +4418,14 @@ def parallel_serving_run(model, mesh, inputs: dict) -> dict:
     import torch
 
     from mast3r_slam_torch.ops.attention import flash_attention
+    from mast3r_slam_torch.ops.match_taps import match_taps
     from mast3r_slam_torch.ops.pose_gn import pose_gn_rays
     from mast3r_slam_torch.serving import BatchTracker
 
     x = {k: v.cuda() for k, v in inputs.items()}
     bt = BatchTracker(model, mesh=mesh, microbatch=PAR_MB)
     bt.init_from_keyframes(x["kf_feat"], x["kf_pos"], x["kf_X"], x["kf_C"])
-    flash_attention.launches = pose_gn_rays.launches = 0
+    flash_attention.launches = pose_gn_rays.launches = match_taps.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     stats, tracked, poses = [], [], []
@@ -4243,7 +4439,8 @@ def parallel_serving_run(model, mesh, inputs: dict) -> dict:
     seconds = time.perf_counter() - t0
     return dict(stats=torch.stack(stats), tracked=torch.stack(tracked), poses=torch.stack(poses),
                 launches=flash_attention.launches, pose_gn_launches=pose_gn_rays.launches,
-                pose_gn_per_solve=1 + bt.cfg.max_iters, seconds=seconds,
+                pose_gn_per_solve=1 + bt.cfg.max_iters, match_taps_launches=match_taps.launches,
+                seconds=seconds,
                 enc_heads=model.net.enc_blocks[0].attn.num_heads,
                 dec_heads=model.net.dec_blocks[0].attn.num_heads)
 
@@ -4535,6 +4732,9 @@ def parallel_phase() -> dict:
                                            for k in ("dp2", "tp2")]:
         check(r["pose_gn_launches"] == pose_predicted, f"serving {label}: pose_gn launched "
               f"{r['pose_gn_launches']}, predicted {pose_predicted}")
+        check_match_taps(f"serving {label}", r["match_taps_launches"],
+                         (PAR_STEPS + 1) * (PAR_B // PAR_MB), f"{PAR_STEPS + 1} steps x "
+                         f"{PAR_B // PAR_MB} chunks")
     serving = {}
     for key, label in (("dp2", "(dp, tp) = (2, 1)"), ("tp2", "(dp, tp) = (1, 2)")):
         for rank, r in enumerate(two):
@@ -4674,6 +4874,9 @@ def parallel_phase() -> dict:
                 pose_gn_launches=dict(world1=want["pose_gn_launches"],
                                       dp2=two[0]["dp2"]["pose_gn_launches"],
                                       tp2=two[0]["tp2"]["pose_gn_launches"]),
+                match_taps_launches=dict(world1=want["match_taps_launches"],
+                                         dp2=two[0]["dp2"]["match_taps_launches"],
+                                         tp2=two[0]["tp2"]["match_taps_launches"]),
                 seconds=seconds)
 
 
@@ -4895,6 +5098,7 @@ def main(argv=None) -> int:
         kern = kernel_phase(MASt3RConfig.mast3r_full())
         probe = probe_phase()
         pose_rows = pose_gn_phase()
+        match_rows = match_taps_phase()
         if parent:
             own.append(time_other(REPO))
             runs.append(time_other(parent))
@@ -5056,6 +5260,33 @@ def main(argv=None) -> int:
                                  for k, v in parallel["pose_gn_launches"].items()}),
         **{k: v for k, v in pose_rows[0].items() if k != "launches"},
         by_shape=pose_rows,
+    ))
+    kernels.append(dict(
+        name="match_taps",
+        route="cuda",
+        source="mast3r_slam_torch/csrc/match_taps.cu",
+        replaces=None,
+        replaces_note="the dense matcher's tap loop that the JAX package leaves to XLA "
+                      "(mast3r_slam_tpu/ops/dense_match.py match_dense_window): no Pallas kernel",
+        launches=main["match_taps_launches"],
+        launches_by_path=dict(tracking=main["match_taps_launches"],
+                              slam_i=slam["i"]["match_taps_launches"],
+                              slam_ii=slam["ii"]["match_taps_launches"],
+                              slam_iii=calib["runs"]["iii"]["match_taps_launches"],
+                              slam_iv=calib["runs"]["iv"]["match_taps_launches"],
+                              **{f"slam_{k}": r["match_taps_launches"]
+                                 for k, r in configs["runs"].items()},
+                              **{f"serving_b{b}_per_batch": r["match_taps_launches_per_batch"]
+                                 for b, r in serving["by_b"].items()},
+                              **{f"window_{k.replace(' ', '_')}": r["match_taps_launches"]
+                                 for k, r in window.items()},
+                              offline=offline["match_taps_launches"],
+                              slam_int8=quant["match_taps_launches"],
+                              **track_api["match_taps_launches"],
+                              **{f"parallel_{k}": v
+                                 for k, v in parallel["match_taps_launches"].items()}),
+        **{k: v for k, v in match_rows[0].items() if k != "launches"},
+        by_shape=match_rows,
     ))
     for name, row in probe.items():
         kernels.append(dict(

@@ -2,9 +2,11 @@
 
 For every view-2 pixel the candidates are its own coordinates displaced by a
 fixed tap lattice (`window_taps`); each tap is one dense comparison between
-the view-2 ray/descriptor images and a shifted view-1 image. Plain PyTorch
-ops for now: the JAX package left this loop to XLA, and a hand kernel for it
-is ROADMAP queue 2 work.
+the view-2 ray/descriptor images and a shifted view-1 image.
+`match_dense_window` sends CUDA tensors to the hand-written kernel
+(``ops/match_taps.py``, ``csrc/match_taps.cu``: the whole tap loop in one
+launch) and CPU tensors to `_match_dense_loop`, its plain PyTorch version
+(the JAX package leaves this loop to XLA).
 
 Numerics follow what the JAX program computes as XLA executes it: rays,
 descriptors and the payload are rounded to bf16 once (BIG = 1e30 marks
@@ -15,8 +17,8 @@ XLA is allowed excess precision there and does not round them (measured on
 the CPU backend: its argmin picks are those of the unrounded costs, and
 differ from a bf16-rounded reading at ~3% of pixels of a smooth scene). A
 tap replaces the best so far only if its cost is strictly lower, so the
-first tap in `window_taps` order wins ties. The view-1 images are padded
-once by the lattice's reach and each tap reads a slice of them.
+first tap in `window_taps` order wins ties. The plain loop pads the view-1
+images once by the lattice's reach and each tap reads a slice of them.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from mast3r_slam_torch.geometry import normalize_rays
+from mast3r_slam_torch.ops.match_taps import match_taps
 
 BIG = 1e30
 BIG_BF16 = torch.tensor(BIG, dtype=torch.bfloat16).item()  # BIG rounded to bf16, a Python float
@@ -73,6 +76,13 @@ def match_dense_window(
         (idx [B, H*W] int64, valid [B, H*W, 1] bool), then payload_g
         [B, H*W, P] and/or hit [B, H*W] when requested.
     """
+    args = (X11, X21, D11, D21, radius, dilations, desc_weight, dist_thresh, payload, want_hit)
+    return match_taps(*args) if X11.is_cuda else _match_dense_loop(*args)
+
+
+def _match_dense_loop(X11, X21, D11, D21, radius=6, dilations=(1,), desc_weight=1.0,
+                      dist_thresh=0.1, payload=None, want_hit=False):
+    """The plain version of `match_dense_window`: one dense comparison a tap."""
     b, h, w, _ = X11.shape
     n = h * w
     taps = window_taps(radius, dilations)
