@@ -25,10 +25,14 @@ hide a TPU link's round trip):
 * Upload. Each window's uint8 frames are stacked once in pinned host memory
   and copied to the card with ``non_blocking=True``; window n+1's copy is
   queued before window n is processed, as the JAX uploader does.
-* Drain. Window n's stats are read only after window n+1 has been run
-  (`drain_inflight`, the JAX order), so their bookkeeping follows in strict
-  window order. If that drain sends a frame into RELOC, the chain is aborted
-  and the window run against the old state is replayed synchronously.
+* Drain. Window n's stats are read only after window n+1 has been
+  dispatched (`drain_inflight`, the JAX order), so their bookkeeping follows
+  in strict window order. The read waits for window n's completion event,
+  not for window n+1 (`FrameTracker.sync_chain`): it returns when replay n
+  ends, and the host drains n, loads, uploads and dispatches window n+2
+  while replay n+1 runs, so the card goes from one replay to the next. If
+  that drain sends a frame into RELOC, the chain is aborted and the window
+  run against the old state is replayed synchronously.
 
 Host reads per chained window: none inside it (on the card a window is one
 replay of a captured CUDA graph, its promotions decided on the device,

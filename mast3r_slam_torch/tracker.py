@@ -23,10 +23,14 @@ The window program (`FrameTracker._run_window`, JAX's
 of K frames is one replay of a captured CUDA graph (`graphs.WindowGraph`,
 cached per tracker by window length, core and image dtype), and the host
 reads nothing until the drain (`sync_chain` / `sync_window`, one read per
-window). With JAX's knobs the window runs eagerly:
-``runtime.window_batched_encode`` encodes a window's frames in one batch
-before the chain, and ``runtime.window_spec_decode`` also decodes them
-against the window's first keyframe in chunks of
+window). The drain waits for its own window only: each dispatch records an
+event on the stream after the window's last op (its graph's clone-out, or
+the eager window's last kernel), and the read is issued on a side stream
+that waits for that event, so it is not queued behind the windows
+dispatched after it; on the CPU it is a plain read. With JAX's knobs the
+window runs eagerly: ``runtime.window_batched_encode`` encodes a window's
+frames in one batch before the chain, and ``runtime.window_spec_decode``
+also decodes them against the window's first keyframe in chunks of
 ``runtime.window_decode_microbatch``; after a promotion the rest of the
 window decodes live, so both are exact.
 
@@ -378,7 +382,8 @@ class FrameTracker:
     * The chain API of the SLAM loop, over the keyframe arena `keyframes`:
       `dispatch(frame)` / `dispatch_window(frames, imgs)` run chained steps
       against the chain's keyframe state (built from the arena on first use),
-      `sync_chain` reads a window's stats (the drain), `commit_chain_frame`,
+      `sync_chain` reads a window's stats (the drain, which waits for that
+      window's completion event only), `commit_chain_frame`,
       `abort_chain`, `refresh_chain`, `push_pose_delta` and
       `queue_arena_correction` keep the chain and the arena in step, and
       `track(frame, match_fn)` is the synchronous path.
@@ -434,6 +439,8 @@ class FrameTracker:
         self._use_fused = hasattr(model, "net") and self.cfg.filtering_mode in _ELEMENTWISE_FUSION
         self.graphs = graphs.GraphCache(self.device)  # the captured windows (card only)
         self.capture_windows = True  # False: every window eager (select form), to compare
+        self._last_done: Optional[torch.cuda.Event] = None  # the last window's (card only)
+        self._read_stream: Optional[torch.cuda.Stream] = None  # the drain's (card only)
 
     @property
     def can_pipeline(self) -> bool:
@@ -478,14 +485,16 @@ class FrameTracker:
             raise RuntimeError("init_keyframe() must be called before track_window()")
         with span("tracker.dispatch_window", window=TRACER.next_window()):
             stacked, final, promotion = self._run_window(imgs, self.state)
+            done = self._window_done()
         self.state = dict(final)
-        return dict(stacked, final=final, promotion_launches=promotion)
+        return dict(stacked, final=final, promotion_launches=promotion, done=done)
 
     def sync_window(self, result: dict) -> np.ndarray:
         """The drain of a `track_window` result: its [K, 6] stats in one host
-        read; counts the launches of the promotions its graph ran."""
+        read, which waits for that window only (`_read`); counts the
+        launches of the promotions its graph ran."""
         with span("tracker.drain_read"):
-            stats = result["stats"].cpu().numpy()  # the window's one host read
+            stats = self._read([result["stats"]], [result.get("done")])[0]
         TRACER.count("tracker.drain_reads")
         graphs.add_launches(result.pop("promotion_launches", {}),
                             int((stats[:, 3] == EVENT_NEW_KF).sum()))
@@ -683,10 +692,11 @@ class FrameTracker:
         with span("tracker.dispatch_window", window=wid, frames=(frame.frame_id,)):
             TRACER.mark((frame.frame_id,), "dispatched")
             res = self._chain_steps([frame], [frame.img], T_init)
-        if res is None:
-            return None
+            if res is None:
+                return None
+            done = self._window_done()
         return dict(frame=frame, out=res[0][0], promotion_launches=res[3],
-                    corr=(self._chain_gen, self._corr_cum), trace_window=wid)
+                    corr=(self._chain_gen, self._corr_cum), trace_window=wid, done=done)
 
     def dispatch_window(self, frames: list, imgs: torch.Tensor,
                         T_init: Optional[torch.Tensor] = None):
@@ -700,22 +710,59 @@ class FrameTracker:
         with span("tracker.dispatch_window", window=wid, frames=fids):
             TRACER.mark(fids, "dispatched")
             res = self._chain_steps(frames, imgs, T_init)
-        if res is None:
-            return None
+            if res is None:
+                return None
+            done = self._window_done()
         rows, stats, st, promotion = res
         out = dict(rows=rows, stats=stats, final={k: st[k] for k in _STATE})
         return dict(frames=frames, out=out, window=True, promotion_launches=promotion,
-                    corr=(self._chain_gen, self._corr_cum), trace_window=wid)
+                    corr=(self._chain_gen, self._corr_cum), trace_window=wid, done=done)
+
+    def _window_done(self) -> Optional[torch.cuda.Event]:
+        """The completion event of the window just dispatched, recorded on
+        the current stream after its last op; None off the card. Counts
+        ``tracker.dispatch_ahead`` when the previous window's event has not
+        fired yet (a query, not a wait): this window's replay was queued
+        behind a running one, so the card goes straight from one to the
+        next."""
+        if self.device.type != "cuda":
+            return None
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+        if TRACER.on and self._last_done is not None and not self._last_done.query():
+            TRACER.count("tracker.dispatch_ahead")
+        self._last_done = done
+        return done
+
+    def _read(self, stats: list, done: list) -> np.ndarray:
+        """`stats` (tensors of one shape) stacked, in one host read that
+        waits for the windows' completion events `done` only: on the card
+        it is issued on the tracker's side stream after that stream waits
+        for each event, so the blocking copy synchronises the side stream
+        and not the windows queued after these on the current stream. A
+        plain read where there is no event (the CPU)."""
+        events = [d for d in done if d is not None]
+        if not events:
+            return torch.stack(stats).cpu().numpy()
+        if self._read_stream is None:
+            self._read_stream = torch.cuda.Stream(self.device)
+        side = self._read_stream
+        for ev in events:
+            side.wait_event(ev)
+        with torch.cuda.stream(side):
+            return torch.stack(stats).cpu().numpy()  # the drain's one host read
 
     def sync_chain(self, handles: list) -> np.ndarray:
         """The drain: the handles' stats bundles, [K, 6] (match_frac,
         match_frac_k, unique_frac_f, event, kf_N_next, retired_N) each, in
-        one host read; counts the launches of the promotions their graphs
-        ran (once per handle)."""
+        one host read that waits for the handles' windows to complete, not
+        for what was dispatched after them (`_read`); counts the launches
+        of the promotions their graphs ran (once per handle)."""
         fids = tuple(f.frame_id for h in handles for f in h.get("frames", [h.get("frame")])
                      if f is not None) if TRACER.on else ()
         with span("tracker.drain_read", window=handles[-1].get("trace_window"), frames=fids):
-            stats = torch.stack([h["out"]["stats"] for h in handles]).cpu().numpy()  # the drain
+            stats = self._read([h["out"]["stats"] for h in handles],
+                               [h.get("done") for h in handles])
         TRACER.count("tracker.drain_reads")
         TRACER.mark(fids, "drained")
         for h, s in zip(handles, stats):

@@ -22,11 +22,12 @@
     traced window takes the next row of a store in pinned, mapped host
     memory, picked by a device counter at the window's first stamp, so the
     kernels write the host's memory directly: no copy is queued and no
-    host read is added; the rows are complete after the run's next wait (a
-    drain's read, or `stop`). The host keeps the rows' order (a row is
-    registered when an eager window starts and when a traced graph is
-    replayed, in stream order) and each row's labels (stage name, frame
-    slot, begin or end), which a graph records once, at its capture;
+    host read is added; a window's row is complete once its drain's read
+    returns (that read waits for the window), and every row after `stop`.
+    The host keeps the rows' order (a row is registered when an eager
+    window starts and when a traced graph is replayed, in stream order)
+    and each row's labels (stage name, frame slot, begin or end), which a
+    graph records once, at its capture;
   - one clock: `start` and `stop` each take a calibration pair (a clock
     kernel between two host reads around a synchronisation, the best of a
     few), which maps globaltimer onto `perf_counter_ns` with the pair's
