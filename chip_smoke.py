@@ -459,6 +459,26 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def create_frames(imgs, first: int = 1) -> list:
+    """The images imgs [K, H, W, 3] (a tensor or an array) as the frames
+    first, first + 1, ... that `FrameTracker.dispatch_window` takes."""
+    import torch
+
+    from mast3r_slam_torch.frame import create_frame
+
+    return [create_frame(first + j, x) for j, x in enumerate(torch.as_tensor(imgs))]
+
+
+def stacked(handle) -> dict:
+    """A window handle's per-frame rows stacked [K, ...], and its final chain
+    state under "final"."""
+    import torch
+
+    rows = handle["out"]["rows"]
+    return dict({k: torch.stack([r[k] for r in rows]) for k in rows[0]},
+                final=handle["out"]["final"])
+
+
 def _replay_ms(graph, calls: int, reps: int) -> float:
     """Device ms per call of a captured graph of `calls` calls, replayed
     `reps` times between CUDA events (after one replay not timed)."""
@@ -1280,7 +1300,9 @@ def reference_phase(cfg, device: str = "cuda") -> None:
     for model, dev in ((cpu, "cpu"), (gpu, device)):
         tr = FrameTracker(model, cfg, device=dev)
         tr.init_keyframe(base)
-        results.append(tr.track_window(torch.from_numpy(imgs)))
+        handle = tr.dispatch_window(create_frames(imgs), torch.from_numpy(imgs))
+        tr.sync_chain([handle])
+        results.append(stacked(handle))
     rc, rg = results
     check(torch.equal(rc["stats"][:, 3], rg["stats"][:, 3].cpu()), "events differ card vs CPU")
     dstats = (rc["stats"][:, :3] - rg["stats"][:, :3].cpu()).abs().max().item()
@@ -1319,20 +1341,23 @@ def main_path_phase(cfg) -> dict:
 
     flash_attention.launches = graphs.if_node.launches = pose_gn.pose_gn_rays.launches = 0
     match_taps.match_taps.launches = 0
+    frames = create_frames(imgs)
     tracker = FrameTracker(model, cfg)
     tracker.init_keyframe(base)
-    win1 = tracker.track_window(imgs[:WINDOW])
-    tracker.sync_window(win1)
+    win1 = tracker.dispatch_window(frames[:WINDOW], imgs[:WINDOW])
+    tracker.sync_chain([win1])
     t1 = time.perf_counter()
-    win2 = tracker.track_window(imgs[WINDOW: 2 * WINDOW])
-    tracker.sync_window(win2)  # the drain: the window's one host read
+    win2 = tracker.dispatch_window(frames[WINDOW:2 * WINDOW], imgs[WINDOW:2 * WINDOW])
+    tracker.sync_chain([win2])  # the drain: the window's one host read
     ms_frame = (time.perf_counter() - t1) / WINDOW * 1e3
     promo = FrameTracker(model, dataclasses.replace(
-        cfg, tracking=dataclasses.replace(cfg.tracking, match_frac_thresh=1.0)))
-    promo.state = tracker.state
-    win3 = promo.track_window(imgs[2 * WINDOW:])
-    promo.sync_window(win3)
+        cfg, tracking=dataclasses.replace(cfg.tracking, match_frac_thresh=1.0)),
+        keyframes=tracker.keyframes)
+    promo._chain, promo.idx_f2k = tracker._chain, tracker.idx_f2k  # the chain goes on
+    win3 = promo.dispatch_window(frames[2 * WINDOW:], imgs[2 * WINDOW:])
+    promo.sync_chain([win3])
     torch.cuda.synchronize()
+    win1, win2, win3 = stacked(win1), stacked(win2), stacked(win3)
     launches, if_launches = flash_attention.launches, graphs.if_node.launches
     pose_launches = pose_gn.pose_gn_rays.launches
     match_launches = match_taps.match_taps.launches
@@ -2949,7 +2974,7 @@ def state_phase(model) -> dict:
 
 
 def _window_run(model, settings: dict, imgs: list, base, windows: int) -> dict:
-    """`FrameTracker.track_window` over `windows` windows of WINDOW frames
+    """`FrameTracker.dispatch_window` over `windows` windows of WINDOW frames
     from a fresh keyframe `base`, under `settings` (bench.py's updated) ->
     per-window outputs, attention and pose_gn launches over the windows,
     ms/frame of the last window, and the encoder / decoder calls by batch
@@ -2974,6 +2999,7 @@ def _window_run(model, settings: dict, imgs: list, base, windows: int) -> dict:
             return fn(x, *rest)
         return wrapped
 
+    frames = create_frames(imgs)
     model.encode, model.decode = count("encode", enc), count("decode", dec)
     outs = []
     try:
@@ -2981,9 +3007,11 @@ def _window_run(model, settings: dict, imgs: list, base, windows: int) -> dict:
         flash_attention.launches = pose_gn_rays.launches = match_taps.launches = 0
         for j in range(windows):
             t0 = time.perf_counter()
-            outs.append(tracker.track_window(imgs[j * WINDOW:(j + 1) * WINDOW]))
-            tracker.sync_window(outs[-1])  # the drain
+            w = slice(j * WINDOW, (j + 1) * WINDOW)
+            handle = tracker.dispatch_window(frames[w], imgs[w])
+            tracker.sync_chain([handle])  # the drain
             ms = (time.perf_counter() - t0) / WINDOW * 1e3
+            outs.append(stacked(handle))
         launches, pose_launches = flash_attention.launches, pose_gn_rays.launches
         match_launches = match_taps.launches
     finally:
@@ -3838,8 +3866,9 @@ def graph_cond_times(model) -> dict:
 def _window_times(trackers: dict, wins: list) -> tuple:
     """Each tracker over the windows `wins` in turn (the order of the kinds
     swapped every window), each window timed on the host clock from its
-    dispatch through its drain (`sync_window`, the one read) -> (per kind:
-    ms/frame of each window after the first, stats, outputs, peak memory)."""
+    dispatch through its drain (`sync_chain`, the one read) -> (per kind:
+    ms/frame of each window after the first, stats, each window handle's
+    "out", peak memory)."""
     import torch
 
     ms = {k: [] for k in trackers}
@@ -3848,18 +3877,19 @@ def _window_times(trackers: dict, wins: list) -> tuple:
     peak = {k: 0 for k in trackers}
     kinds = list(trackers)
     for j, x in enumerate(wins):
+        frames = create_frames(x, 1 + j * len(x))
         for kind in (kinds if j % 2 else kinds[::-1]):
             tr = trackers[kind]
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            out = tr.track_window(x)
-            stats[kind].append(tr.sync_window(out))
+            out = tr.dispatch_window(frames, x)
+            stats[kind].append(tr.sync_chain([out]))
             torch.cuda.synchronize()
             if j:  # window 0 captures the graph
                 ms[kind].append((time.perf_counter() - t0) * 1e3 / len(x))
                 peak[kind] = max(peak[kind], torch.cuda.max_memory_allocated())
-            outs[kind].append(out)
+            outs[kind].append(out["out"])  # no copy: the peak of the next window holds it
     return ms, stats, outs, peak
 
 
@@ -3904,8 +3934,8 @@ def _compare_windows(tag: str, stats: dict, outs: dict) -> float:
         gap = max(gap, float(np.abs(a - b).max()))
     check(gap <= TRACK_STATS_ATOL, f"{tag}: statistics {gap:.3e} apart")
     for o in outs["captured"] + outs["eager"]:
-        check(bool(torch.isfinite(o["T_WCf"]).all() and torch.isfinite(o["frame_X"]).all()
-                   and torch.isfinite(o["final"]["kf_X"]).all()),
+        check(all(bool(torch.isfinite(r["T_WCf"]).all() and torch.isfinite(r["frame_X"]).all())
+                  for r in o["rows"]) and bool(torch.isfinite(o["final"]["kf_X"]).all()),
               f"{tag}: non-finite poses or pointmaps")
     return gap
 
@@ -3931,13 +3961,14 @@ def traced_window_check(tracker, wins: list) -> dict:
 
     cfg = get_config()
     plain = [g for g in tracker.graphs.graphs.values()]
+    frames = [create_frames(x, 1 + j * len(x)) for j, x in enumerate(wins)]
     set_config(dataclasses.replace(cfg, runtime=dataclasses.replace(cfg.runtime, trace=True)))
     TRACER.start("cuda")
     try:
-        tracker.sync_window(tracker.track_window(wins[0]))  # captures the traced graph
+        tracker.sync_chain([tracker.dispatch_window(frames[0], wins[0])])  # captures the graph
         first, spans = len(TRACER.rows), len(TRACER.spans)
-        syncs = count_syncs(lambda: [tracker.sync_window(tracker.track_window(x))
-                                     for x in wins[1:]])
+        syncs = count_syncs(lambda: [tracker.sync_chain([tracker.dispatch_window(f, x)])
+                                     for f, x in zip(frames[1:], wins[1:])])
     finally:
         TRACER.stop()
         set_config(cfg)
@@ -4016,9 +4047,10 @@ def window_timing() -> dict:
     cond = graph_cond_times(model)
     tracker = trackers["captured"]
     traced = traced_window_check(tracker, wins[:5])
+    frames = create_frames(wins[1])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        tracker.sync_window(tracker.track_window(wins[1]))
+        tracker.sync_chain([tracker.dispatch_window(frames, wins[1])])
     path = os.path.join(REPO, "build", "profile", "window_program.json")
     os.makedirs(os.path.dirname(path), exist_ok=True)
     prof.export_chrome_trace(path)
@@ -4063,7 +4095,9 @@ def window_program_phase(model) -> dict:
     cap = trackers["captured"]
     check(len(cap.graphs.graphs) == 1 and not trackers["eager"].graphs.graphs,
           f"graphs: captured {len(cap.graphs.graphs)}, eager {len(trackers['eager'].graphs.graphs)}")
-    syncs = count_syncs(lambda: [cap.sync_window(cap.track_window(x)) for x in wins])
+    frames = [create_frames(x, 1 + j * len(x)) for j, x in enumerate(wins)]
+    syncs = count_syncs(lambda: [cap.sync_chain([cap.dispatch_window(f, x)])
+                                 for f, x in zip(frames, wins)])
     site = [s for s in syncs if s.startswith("mast3r_slam_torch/tracker.py")]
     print(f"[program] {len(wins)} windows of K={WINDOW} each way: events equal, statistics "
           f"within {gap:.3e}; host syncs over {len(wins)} later windows by site: {syncs}",
@@ -4085,7 +4119,7 @@ def window_program_phase(model) -> dict:
     set_config(dataclasses.replace(cfg, runtime=dataclasses.replace(
         cfg.runtime, window_batched_encode=True)))  # the window reads its knobs from the config
     try:
-        knob.sync_window(knob.track_window(wins[0]))
+        knob.sync_chain([knob.dispatch_window(frames[0], wins[0])])
     finally:
         set_config(cfg)
     check(not knob.graphs.graphs, "a knob-on window was captured")

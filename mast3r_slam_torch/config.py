@@ -131,7 +131,7 @@ class RuntimeConfig:
     prefetch_depth: int = 2
     donate_buffers: bool = True
     pipeline: bool = True
-    sync_every: int = 8  # frames per tracking window (FrameTracker.track_window)
+    sync_every: int = 8  # frames per tracking window (FrameTracker.dispatch_window)
     snapshot_every: int = 0
     snapshot_path: str = "slam_state.npz"
     serving_microbatch: int = 4

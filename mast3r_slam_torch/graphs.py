@@ -31,7 +31,7 @@ counter's change during its capture (`launches`) and during its branch
 body's (`body_launches`), takes back what the warm-up and the captures
 counted, adds `launches` at each replay, and leaves `body_launches` to the
 drain, which adds it once per promotion the stats report
-(`FrameTracker.sync_chain`, `sync_window`).
+(`FrameTracker.sync_chain`).
 """
 
 from __future__ import annotations

@@ -151,6 +151,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from mast3r_slam_torch.config import Config, set_config
+    from mast3r_slam_torch.frame import create_frame
     from mast3r_slam_torch.models import MASt3RModel
     from mast3r_slam_torch.ops import build
     from mast3r_slam_torch.tracker import FrameTracker
@@ -178,21 +179,28 @@ def main() -> int:
     tracker = FrameTracker(model, cfg)
     tracker.init_keyframe(base)
     wins = imgs.split(k)
+    # each window's frames, made before any timing or trace
+    frames = [[create_frame(j * k + i, img) for i, img in enumerate(x)]
+              for j, x in enumerate(wins)]
 
-    def window(x) -> float:
-        """ms/frame of one window, dispatch through drain."""
+    def run(j) -> None:
+        """Window j dispatched (`dispatch_window`) and drained (`sync_chain`)."""
+        tracker.sync_chain([tracker.dispatch_window(frames[j], wins[j])])
+
+    def window(j) -> float:
+        """ms/frame of window j, dispatch through drain."""
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        tracker.sync_window(tracker.track_window(x))
+        run(j)
         torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / len(x)
+        return (time.perf_counter() - t0) * 1e3 / k
 
-    def profiled(x, name: str) -> tuple[dict, float]:
+    def profiled(j, name: str) -> tuple[dict, float]:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            ms = window(x)
+            ms = window(j)
         trace = os.path.join(args.out, name)
         prof.export_chrome_trace(trace)
-        return summarize_trace(trace, len(x)), ms
+        return summarize_trace(trace, k), ms
 
     traced_cfg = Config.from_dict({**BENCH_SETTINGS, "runtime": {**BENCH_SETTINGS["runtime"],
                                                                  "trace": True}})
@@ -202,39 +210,39 @@ def main() -> int:
         set_config(traced_cfg if on else cfg)
         TRACER.start("cuda") if on else TRACER.stop()
 
-    window(wins[0])  # captures the window's graph
-    ms_frame = window(wins[1])
+    window(0)  # captures the window's graph
+    ms_frame = window(1)
     # the traced window before any profiler session (after one, each skipped
     # IF node pays for its body: chip_smoke.py's window_timing)
     tracing(True)
-    window(wins[2])  # captures the traced graph
+    window(2)  # captures the traced graph
     first = len(TRACER.rows)
-    traced_ms = window(wins[3])
+    traced_ms = window(3)
     tracing(False)
     timed = [r for r in TRACER.device_rows() if r["index"] >= first]
     result = dict(card=card, frames=k, ms_per_frame=ms_frame, traced_ms_per_frame=traced_ms,
                   stage_device_busy_ms_per_frame=stage_table(timed, k * len(timed)),
                   clock=TRACER.clock())
 
-    captured, profiled_ms = profiled(wins[4], "trace.json")
+    captured, profiled_ms = profiled(4, "trace.json")
     with open(os.path.join(args.out, "trace.json")) as f:
         graph_launches = sum(e.get("name") == "cudaGraphLaunch" for e in json.load(f)["traceEvents"])
     result.update(profiled_ms_per_frame=profiled_ms, graph_launches_per_window=graph_launches,
                   **captured)
     result["device_idle_share"] = 1.0 - result["device_busy_ms_per_frame"] / ms_frame
-    syncs = count_syncs(lambda: tracker.sync_window(tracker.track_window(wins[5])))
+    syncs = count_syncs(lambda: run(5))
     result["host_syncs_per_frame"] = sum(syncs.values()) / k
     result["host_sync_sites_per_frame"] = {site: c / k for site, c in sorted(syncs.items())}
 
     tracing(True)
-    profiled(wins[6], "trace_traced.json")
+    profiled(6, "trace_traced.json")
     tracing(False)
     graph = next(g for g in tracker.graphs.graphs.values() if g.stamps)
     result.update(stage_kernels_per_frame=stage_kernels(
         os.path.join(args.out, "trace_traced.json"), graph.stamps, k),
         stamps_per_window=len(graph.stamps))
     tracker.capture_windows = False  # the eager window, for comparison
-    result["eager"] = dict(ms_per_frame=window(wins[7]))
+    result["eager"] = dict(ms_per_frame=window(7))
     print(json.dumps(result))
     return 0
 

@@ -4,12 +4,14 @@
     python -m mast3r_slam_torch.slam <dataset dir or video> --max-frames N
 
 `SLAM.run` consumes frames from the prefetching host loader in windows of
-`runtime.sync_every`. A TRACKING window goes through the tracker's chained
-steps (`FrameTracker.dispatch_window`), whose keyframe/skip decisions and
-promotions happen inside the steps; INIT, RELOC and windows that do not fit
-take the synchronous per-frame path (`_step_sync`). After each frame the
-backend drains its queue (`_run_backend`: symmetric matching of the new
-keyframe against up to three before it, then a graph solve, calibrated with
+`runtime.sync_every`. With `runtime.pipeline` on, a TRACKING window goes
+through the tracker's chained steps (`FrameTracker.dispatch_window`), whose
+keyframe/skip decisions and promotions happen inside the steps, and a
+TRACKING frame of a batch that is not a full window through a window of one
+(`FrameTracker.dispatch`); INIT, RELOC and frames without the pipeline take
+the synchronous per-frame path (`_step_sync`). After each frame the backend
+drains its queue (`_run_backend`: symmetric matching of the new keyframe
+against up to three before it, then a graph solve, calibrated with
 `use_calib` and rays-mode otherwise); a full arena evicts its
 lowest-covisibility keyframe (`_evict_if_full`).
 
@@ -25,14 +27,18 @@ hide a TPU link's round trip):
 * Upload. Each window's uint8 frames are stacked once in pinned host memory
   and copied to the card with ``non_blocking=True``; window n+1's copy is
   queued before window n is processed, as the JAX uploader does.
-* Drain. Window n's stats are read only after window n+1 has been
-  dispatched (`drain_inflight`, the JAX order), so their bookkeeping follows
-  in strict window order. The read waits for window n's completion event,
-  not for window n+1 (`FrameTracker.sync_chain`): it returns when replay n
-  ends, and the host drains n, loads, uploads and dispatches window n+2
-  while replay n+1 runs, so the card goes from one replay to the next. If
-  that drain sends a frame into RELOC, the chain is aborted and the window
-  run against the old state is replayed synchronously.
+* Drain. The loop has one drain (`drain` in `run`): one
+  `FrameTracker.sync_chain` over the pending window handles, then their
+  frames resolved in order (`_drain_window`). Window n's stats are read
+  only after window n+1 has been dispatched (the JAX order), so their
+  bookkeeping follows in strict window order; the windows of one of a
+  batch's tail are drained together, before the next synchronous step and
+  at the batch's end. The read waits for its own windows' completion
+  events, not for window n+1: it returns when replay n ends, and the host
+  drains n, loads, uploads and dispatches window n+2 while replay n+1
+  runs, so the card goes from one replay to the next. If that drain sends
+  a frame into RELOC, the chain is aborted and the window run against the
+  old state is read once more and replayed synchronously.
 
 Host reads per chained window: none inside it (on the card a window is one
 replay of a captured CUDA graph, its promotions decided on the device,
@@ -168,28 +174,22 @@ class SLAM:
         self._t_start = time.perf_counter()
         self._last_T_WC = None
 
-        window: list[tuple] = []  # per-frame handles (the tail path)
-        inflight: list = [None]  # one chained window awaiting its drain
+        # [(window handle, its frames' timestamps)] dispatched, awaiting the
+        # drain: one full window in flight, or the tail's windows of one
+        pending: list[tuple] = []
         sync_every = max(1, self.config.runtime.sync_every)
 
-        def flush_window() -> None:
-            if window:
-                entries, window[:] = list(window), []
-                stats = self.tracker.sync_chain([h for (_f, _t, h) in entries])
-                self._count_promotions(stats)
-                self._drain_window([(f, t, h["out"]) for (f, t, h) in entries], stats,
-                                   corr=entries[-1][2]["corr"])
-
-        def drain_inflight() -> None:
-            if inflight[0] is None:
+        def drain() -> None:
+            """The one drain: the pending windows' stats in one read, then
+            their frames resolved in order."""
+            if not pending:
                 return
-            frames_ts, handle = inflight[0]
-            inflight[0] = None
-            stats = self.tracker.sync_chain([handle])[0]  # the window's one stats read
+            held, pending[:] = list(pending), []
+            stats = self.tracker.sync_chain([h for h, _ts in held])
             self._count_promotions(stats)
-            rows = handle["out"]["rows"]
-            self._drain_window([(fr, ts, rows[j]) for j, (fr, ts) in enumerate(frames_ts)],
-                               stats, corr=handle["corr"])
+            self._drain_window([e for h, ts in held
+                                for e in zip(h["frames"], ts, h["out"]["rows"])],
+                               stats, corr=held[-1][0]["corr"])
 
         def process_batch(entries, batch_dev) -> None:
             if entries[0][0] == 0:
@@ -197,36 +197,34 @@ class SLAM:
                 self._initialize_state(h, w)
             use_pipeline = self.config.runtime.pipeline and self.tracker.can_pipeline
             if (use_pipeline and self.state.mode == Mode.TRACKING
-                    and len(entries) == sync_every
-                    and self.keyframes.last_index() is not None and not window):
+                    and len(entries) == sync_every and self.keyframes.last_index() is not None):
                 frames = [create_frame(i, batch_dev[j]) for j, (i, _t, _u) in enumerate(entries)]
                 handle = self.tracker.dispatch_window(frames, batch_dev, T_init=self._last_T_WC)
                 if handle is not None:
                     self.events["chained_step"] += len(frames)
-                    drain_inflight()
+                    drain()  # the window before this one
                     if self.tracker._chain is None:
                         # the drain went into RELOC and aborted the chain: this
                         # window ran against the old state; count what it ran
                         # (one more host read, on this rare path), replay it
-                        self._count_promotions(self.tracker.sync_chain([handle])[0])
+                        self._count_promotions(self.tracker.sync_chain([handle]))
                         for j, (_i, ts, _u) in enumerate(entries):
                             self._step_sync(frames[j], ts)
                     else:
-                        inflight[0] = ([(frames[j], entries[j][1]) for j in range(len(frames))],
-                                       handle)
+                        pending.append((handle, [ts for _i, ts, _u in entries]))
                     return
-            drain_inflight()
+            drain()
             for j, (i, timestamp, _u8) in enumerate(entries):
                 frame = create_frame(i, batch_dev[j])
                 if use_pipeline and self.state.mode == Mode.TRACKING:
                     handle = self.tracker.dispatch(frame, T_init=self._last_T_WC)
                     if handle is not None:
                         self.events["chained_step"] += 1
-                        window.append((frame, timestamp, handle))
+                        pending.append((handle, [timestamp]))
                         continue
-                flush_window()
+                drain()
                 self._step_sync(frame, timestamp)
-            flush_window()
+            drain()
 
         raw: list[tuple] = []  # [(frame index, timestamp, uint8 image)]
         upload_q: list[tuple] = []  # [(entries, device batch)], one ahead
@@ -249,7 +247,7 @@ class SLAM:
             enqueue_batch()
             while upload_q:
                 process_batch(*upload_q.pop(0))
-            drain_inflight()
+            drain()
             self._run_backend(budget=0)  # drain any deferred backend tasks
             if self.viewer is not None:
                 self._publish_viewer()  # with the backend's last corrections

@@ -19,18 +19,21 @@ it is the select form (decode, then ``torch.where``). The host learns of a
 promotion from the event in the window's stats at the drain.
 
 The window program (`FrameTracker._run_window`, JAX's
-``_make_fused_track_chain_scan``): on the card with both knobs off, a window
-of K frames is one replay of a captured CUDA graph (`graphs.WindowGraph`,
-cached per tracker by window length, core and image dtype), and the host
-reads nothing until the drain (`sync_chain` / `sync_window`, one read per
-window). The drain waits for its own window only: each dispatch records an
-event on the stream after the window's last op (its graph's clone-out, or
-the eager window's last kernel), and the read is issued on a side stream
-that waits for that event, so it is not queued behind the windows
-dispatched after it; on the CPU it is a plain read. With JAX's knobs the
-window runs eagerly: ``runtime.window_batched_encode`` encodes a window's
-frames in one batch before the chain, and ``runtime.window_spec_decode``
-also decodes them against the window's first keyframe in chunks of
+``_make_fused_track_chain_scan``) is driven one way: `dispatch_window` (and
+`dispatch`, a window of one) runs K chained steps from the chain of the
+arena's last keyframe and returns a window handle; `sync_chain`, the drain,
+reads the stats of any number of handles in one host read. On the card with
+both knobs off, a window is one replay of a captured CUDA graph
+(`graphs.WindowGraph`, cached per tracker by window length, core and image
+dtype), and the host reads nothing until the drain. The drain waits for its
+own windows only: each dispatch records an event on the stream after the
+window's last op (its graph's clone-out, or the eager window's last
+kernel), and the read is issued on a side stream that waits for those
+events, so it is not queued behind the windows dispatched after them; on
+the CPU it is a plain read. With JAX's knobs the window runs eagerly:
+``runtime.window_batched_encode`` encodes a window's frames in one batch
+before the chain, and ``runtime.window_spec_decode`` also decodes them
+against the window's first keyframe in chunks of
 ``runtime.window_decode_microbatch``; after a promotion the rest of the
 window decodes live, so both are exact.
 
@@ -42,7 +45,7 @@ on, a window on the card stamps the device clock at each stage boundary
 fire on every replay); off, a stage is one shared null context.
 
 Every tracking path runs on `make_track_step`: the window program
-(`track_window`, `dispatch_window`, `dispatch`), and the synchronous
+(`dispatch_window`, `dispatch`), and the synchronous
 `track(frame, match_fn)` of a MASt3R model, which runs the step with
 promotion left to the caller (the SLAM loop's ``_promote_keyframe``), as the
 JAX ``_track_fused`` program does. A model without a network (the oracle of
@@ -261,8 +264,8 @@ def make_track_step(model, cfg, filtering_mode: str, img_downsample: int = 1,
     the decode is fused into it (`fuse_pointmap_masked`) before the core,
     which then tracks the fused points and their average confidence;
     "frame_X" / "frame_C" are the fused pointmap and its count fN2 is
-    appended to stats (a seventh entry). With ``frame=None`` (the chain and
-    the window) the frame's pointmap is the decode itself, as after a first
+    appended to stats (a seventh entry). With ``frame=None`` (the window
+    program) the frame's pointmap is the decode itself, as after a first
     observation, at no extra launch. With ``promote=False`` the step does
     not promote (the chain keeps its keyframe); `enc` = (feat [S, D], pos
     [S, 2]) skips the encode of a frame already encoded, and `dec` =
@@ -377,28 +380,24 @@ def make_track_step(model, cfg, filtering_mode: str, img_downsample: int = 1,
 class FrameTracker:
     """Tracks frames against the current keyframe.
 
-    Two ways to drive it, both on `make_track_step`:
+    Driven one way, on `make_track_step`, over the keyframe arena `keyframes`:
+    `dispatch_window(frames, imgs)` (and `dispatch(frame)`, a window of
+    one) runs chained steps against the chain's keyframe state (built from
+    the arena's last keyframe on first use) and returns a window handle;
+    `sync_chain` reads the stats of a list of handles (the drain, which
+    waits for those windows' completion events only); `commit_chain_frame`,
+    `abort_chain`, `refresh_chain`, `push_pose_delta` and
+    `queue_arena_correction` keep the chain and the arena in step; and
+    `track(frame, match_fn)` is the synchronous path. `init_keyframe(img)`
+    appends `img` to the arena as a keyframe and starts the chain there; a
+    tracker built without an arena gets an arena of one slot from it.
 
-    * The chain API of the SLAM loop, over the keyframe arena `keyframes`:
-      `dispatch(frame)` / `dispatch_window(frames, imgs)` run chained steps
-      against the chain's keyframe state (built from the arena on first use),
-      `sync_chain` reads a window's stats (the drain, which waits for that
-      window's completion event only), `commit_chain_frame`,
-      `abort_chain`, `refresh_chain`, `push_pose_delta` and
-      `queue_arena_correction` keep the chain and the arena in step, and
-      `track(frame, match_fn)` is the synchronous path.
-    * Without an arena: `init_keyframe(img)` makes `img` the first keyframe
-      and `track_window(imgs [K, H, W, 3])` runs K chained steps and returns
-      the per-frame results stacked [K, ...] with the final chain state under
-      "final", as the JAX window program does; `sync_window` drains it.
-
-    On the card every window (`dispatch` is a window of one) replays the
-    tracker's captured graph of its length (`graphs`, a `GraphCache`);
-    ``capture_windows = False`` runs windows eagerly instead, to compare.
+    On the card every window replays the tracker's captured graph of its
+    length (`graphs`, a `GraphCache`); ``capture_windows = False`` runs
+    windows eagerly instead, to compare.
 
     With ``use_calib`` every step takes the calibrated objective once the
-    arena holds intrinsics K (`_calib_live`, checked per step); the
-    standalone API has no arena and tracks with rays.
+    arena holds intrinsics K (`_calib_live`, checked per step).
 
     Images are uint8 or float in [0, 1]. Runs on the model's device;
     `device` (default: the arena's, else the card, raising without CUDA)
@@ -425,7 +424,6 @@ class FrameTracker:
             model, cfg.tracking, cfg.tracking.filtering_mode, self._img_downsample,
             use_calib=True,
         ) if cfg.use_calib else None
-        self.state: dict | None = None  # chain state of init_keyframe / track_window
         self.idx_f2k: Optional[torch.Tensor] = None
         self.last_stats: Optional[dict] = None
         self._kf_cache: Optional[dict] = None
@@ -461,53 +459,14 @@ class FrameTracker:
             return self._step_calib(img, st, K=self.keyframes.K, **kw)
         return self._step(img, st, **kw)
 
-    # ------------------------------------------------ standalone window API
-
-    @torch.no_grad()
-    def init_keyframe(self, img, T_WC: torch.Tensor | None = None) -> None:
-        """Start the chain at keyframe `img` [H, W, 3] with pose `T_WC` [8]."""
-        x = _to_unit_image(img, self.device)
-        feat, pos = self.model.encode(x[None] * 2.0 - 1.0)
-        X, C = _mono_pointmap(self.model, feat[0], pos[0], self._img_downsample)
-        T = lie.sim3_identity(device=self.device) if T_WC is None else T_WC.to(self.device)
-        self.state = dict(
-            kf_feat=feat[0], kf_pos=pos[0], idx=torch.arange(X.shape[0], device=self.device)[None],
-            kf_X=X, kf_C=C, kN=torch.ones((), device=self.device), T_prev=T, kf_T=T,
-        )
-
-    def track_window(self, imgs) -> dict:
-        """K chained steps from the chain state of `init_keyframe` over imgs
-        [K, H, W, 3] -> the per-frame results of ``_PER_FRAME`` stacked [K,
-        ...], the final chain state under "final", and under
-        "promotion_launches" the kernel launches of one promotion that the
-        drain (`sync_window`) counts per NEW_KF event."""
-        if self.state is None:
-            raise RuntimeError("init_keyframe() must be called before track_window()")
-        with span("tracker.dispatch_window", window=TRACER.next_window()):
-            stacked, final, promotion = self._run_window(imgs, self.state)
-            done = self._window_done()
-        self.state = dict(final)
-        return dict(stacked, final=final, promotion_launches=promotion, done=done)
-
-    def sync_window(self, result: dict) -> np.ndarray:
-        """The drain of a `track_window` result: its [K, 6] stats in one host
-        read, which waits for that window only (`_read`); counts the
-        launches of the promotions its graph ran."""
-        with span("tracker.drain_read"):
-            stats = self._read([result["stats"]], [result.get("done")])[0]
-        TRACER.count("tracker.drain_reads")
-        graphs.add_launches(result.pop("promotion_launches", {}),
-                            int((stats[:, 3] == EVENT_NEW_KF).sum()))
-        return stats
-
     # --------------------------------------------------- the window program
 
     def _run_window(self, imgs, st: dict) -> tuple[dict, dict, dict]:
         """The window program (JAX ``_make_fused_track_chain_scan``) over imgs
-        [K, H, W, 3] (a tensor, an array or a list of images) from the chain
-        state `st` -> (per-frame outputs of ``_PER_FRAME`` stacked [K, ...],
-        final state of ``_STATE``, the launches of one promotion, which the
-        drain counts per NEW_KF event).
+        [K, H, W, 3] (a tensor or an array) from the chain state `st` ->
+        (per-frame outputs of ``_PER_FRAME`` stacked [K, ...], final state of
+        ``_STATE``, the launches of one promotion, which the drain counts per
+        NEW_KF event).
 
         On the card with both window knobs off, one replay of the tracker's
         captured graph for (K, image shape and dtype, core, decode shape,
@@ -520,8 +479,7 @@ class FrameTracker:
             K = self.keyframes.K if self._calib_live() else None
             rt = get_config().runtime
             knobs = rt.window_batched_encode or (rt.window_spec_decode and K is None)
-            x = torch.stack([torch.as_tensor(i) for i in imgs]) \
-                if isinstance(imgs, (list, tuple)) else torch.as_tensor(imgs)
+            x = torch.as_tensor(imgs)
             inputs = dict(imgs=x, **{k: st[k] for k in _STATE})
             if K is not None:
                 inputs["K"] = K
@@ -652,6 +610,7 @@ class FrameTracker:
                 chain["T_prev"] = lie.sim3_mul(delta, chain["T_prev"])
             self._pending_delta = None
             self._corr_cum = lie.sim3_mul(delta, self._corr_cum)
+        self._chain = chain
         return chain
 
     def _warm_idx(self) -> torch.Tensor:
@@ -660,63 +619,77 @@ class FrameTracker:
         n = self.keyframes.h * self.keyframes.w
         return torch.arange(n, device=self.device)[None]
 
-    def _chain_steps(self, frames: list, imgs, T_init) -> Optional[tuple]:
-        """Run the window program (`_run_window`) over `imgs` from the chain
-        of the arena's last keyframe -> (per-frame rows, stats [K, 6], final
-        state, launches of one promotion); None when there is no keyframe
-        yet."""
-        kf_idx = self.keyframes.last_index()
+    def _chain_state(self, T_init: torch.Tensor) -> Optional[dict]:
+        """The state (``_STATE``) the next window starts from: the chain of
+        the arena's last keyframe, from its previous frame's pose or, on a
+        new chain, from `T_init`; None without a keyframe."""
+        kf_idx = None if self.keyframes is None else self.keyframes.last_index()
         if kf_idx is None:
             return None
-        with span("tracker.prepare"):
-            chain = self._ensure_chain(kf_idx)
-        T_WCf = chain["T_prev"]
-        if T_WCf is None:
-            T_WCf = T_init if T_init is not None else frames[0].T_WC
-        st = dict(kf_feat=chain["feat"], kf_pos=chain["pos"], idx=self._warm_idx(),
-                  kf_X=chain["X"], kf_C=chain["C"], kN=chain["N"], T_prev=T_WCf,
-                  kf_T=chain["T"])
-        stacked, st, promotion = self._run_window(imgs, st)
-        self.idx_f2k = st["idx"]
-        self._chain = dict(kf_idx=chain["kf_idx"], feat=st["kf_feat"], pos=st["kf_pos"],
-                           X=st["kf_X"], C=st["kf_C"], N=st["kN"], T=st["kf_T"],
-                           T_prev=st["T_prev"])
-        rows = [{k: v[j] for k, v in stacked.items()} for j in range(len(stacked["stats"]))]
-        return rows, stacked["stats"], st, promotion
+        chain = self._ensure_chain(kf_idx)
+        return dict(kf_feat=chain["feat"], kf_pos=chain["pos"], idx=self._warm_idx(),
+                    kf_X=chain["X"], kf_C=chain["C"], kN=chain["N"],
+                    T_prev=T_init if chain["T_prev"] is None else chain["T_prev"],
+                    kf_T=chain["T"])
+
+    @torch.no_grad()
+    def init_keyframe(self, img, T_WC: torch.Tensor | None = None) -> None:
+        """Append `img` [H, W, 3] with its mono pointmap to the arena as its
+        last keyframe, at pose `T_WC` [8] (default the identity), and start
+        the chain there, its previous frame at the keyframe's pose. A
+        tracker built without an arena gets an arena of one slot first."""
+        x = _to_unit_image(img, self.device)
+        feat, pos = self.model.encode(x[None] * 2.0 - 1.0)
+        f = self._img_downsample
+        X, C = _mono_pointmap(self.model, feat[0], pos[0], f)
+        if self.keyframes is None:
+            h, w = self.model.out_hw
+            self.keyframes = Keyframes(-(-h // f), -(-w // f), capacity=1, device=self.device)
+        kf = Frame(0, x, T_WC=None if T_WC is None else T_WC.to(self.device), X_canon=X, C=C,
+                   feat=feat[0], pos=pos[0], N=1, N_updates=1)
+        self.abort_chain()
+        self._ensure_chain(self.keyframes.append(kf))["T_prev"] = kf.T_WC
 
     def dispatch(self, frame: Frame, T_init: Optional[torch.Tensor] = None):
-        """One chained step for `frame` (a window of one); the keyframe/skip
-        decision and any promotion happen inside it. Returns a handle (None
-        without a keyframe); `sync_chain` reads its stats."""
-        wid = TRACER.next_window()
-        with span("tracker.dispatch_window", window=wid, frames=(frame.frame_id,)):
-            TRACER.mark((frame.frame_id,), "dispatched")
-            res = self._chain_steps([frame], [frame.img], T_init)
-            if res is None:
-                return None
-            done = self._window_done()
-        return dict(frame=frame, out=res[0][0], promotion_launches=res[3],
-                    corr=(self._chain_gen, self._corr_cum), trace_window=wid, done=done)
+        """One chained step for `frame`: a window of one over the frame's
+        own image, with `dispatch_window`'s handle."""
+        return self._dispatch([frame], frame.img[None], T_init)
 
     def dispatch_window(self, frames: list, imgs: torch.Tensor,
                         T_init: Optional[torch.Tensor] = None):
         """Chained steps for a window of frames, `imgs` [K, H, W, 3] uint8 or
-        float on the device. Returns a window handle whose "out" holds the
-        per-frame results under "rows", their stats stacked [K, 6] under
-        "stats" and the final chain state under "final"; None without a
-        keyframe."""
+        float; the keyframe/skip decisions and any promotions happen inside
+        them. Returns the window handle, None without a keyframe: "frames";
+        "out", the per-frame results under "rows", their stats stacked
+        [K, 6] under "stats" and the final chain state under "final";
+        "corr", the chain's generation and correction at dispatch;
+        "trace_window"; "done", the completion event (the card's); and
+        "promotion_launches", the launches of one promotion, which the drain
+        (`sync_chain`) counts per NEW_KF event."""
+        return self._dispatch(frames, imgs, T_init)
+
+    def _dispatch(self, frames: list, imgs, T_init) -> Optional[dict]:
+        """The body of `dispatch` and `dispatch_window`: the window program
+        (`_run_window`) over `imgs` from `_chain_state` (a new chain starts
+        from `T_init`, else from the first frame's pose)."""
         fids = tuple(f.frame_id for f in frames)
         wid = TRACER.next_window()
         with span("tracker.dispatch_window", window=wid, frames=fids):
             TRACER.mark(fids, "dispatched")
-            res = self._chain_steps(frames, imgs, T_init)
-            if res is None:
+            with span("tracker.prepare"):
+                st = self._chain_state(frames[0].T_WC if T_init is None else T_init)
+            if st is None:
                 return None
+            stacked, st, promotion = self._run_window(imgs, st)
+            self.idx_f2k = st["idx"]
+            self._chain = dict(kf_idx=self._chain["kf_idx"], feat=st["kf_feat"],
+                               pos=st["kf_pos"], X=st["kf_X"], C=st["kf_C"], N=st["kN"],
+                               T=st["kf_T"], T_prev=st["T_prev"])
+            rows = [{k: v[j] for k, v in stacked.items()} for j in range(len(stacked["stats"]))]
             done = self._window_done()
-        rows, stats, st, promotion = res
-        out = dict(rows=rows, stats=stats, final={k: st[k] for k in _STATE})
-        return dict(frames=frames, out=out, window=True, promotion_launches=promotion,
-                    corr=(self._chain_gen, self._corr_cum), trace_window=wid, done=done)
+        return dict(frames=frames, out=dict(rows=rows, stats=stacked["stats"], final=st),
+                    corr=(self._chain_gen, self._corr_cum), trace_window=wid, done=done,
+                    promotion_launches=promotion)
 
     def _window_done(self) -> Optional[torch.cuda.Event]:
         """The completion event of the window just dispatched, recorded on
@@ -735,39 +708,41 @@ class FrameTracker:
         return done
 
     def _read(self, stats: list, done: list) -> np.ndarray:
-        """`stats` (tensors of one shape) stacked, in one host read that
-        waits for the windows' completion events `done` only: on the card
-        it is issued on the tracker's side stream after that stream waits
-        for each event, so the blocking copy synchronises the side stream
-        and not the windows queued after these on the current stream. A
-        plain read where there is no event (the CPU)."""
+        """`stats` concatenated, in one host read that waits for the
+        windows' completion events `done` only: on the card it is issued on
+        the tracker's side stream after that stream waits for each event, so
+        the blocking copy synchronises the side stream and not the windows
+        queued after these on the current stream. A plain read where there
+        is no event (the CPU)."""
         events = [d for d in done if d is not None]
         if not events:
-            return torch.stack(stats).cpu().numpy()
+            return torch.cat(stats).cpu().numpy()
         if self._read_stream is None:
             self._read_stream = torch.cuda.Stream(self.device)
         side = self._read_stream
         for ev in events:
             side.wait_event(ev)
         with torch.cuda.stream(side):
-            return torch.stack(stats).cpu().numpy()  # the drain's one host read
+            return torch.cat(stats).cpu().numpy()  # the drain's one host read
 
     def sync_chain(self, handles: list) -> np.ndarray:
-        """The drain: the handles' stats bundles, [K, 6] (match_frac,
-        match_frac_k, unique_frac_f, event, kf_N_next, retired_N) each, in
-        one host read that waits for the handles' windows to complete, not
-        for what was dispatched after them (`_read`); counts the launches
-        of the promotions their graphs ran (once per handle)."""
-        fids = tuple(f.frame_id for h in handles for f in h.get("frames", [h.get("frame")])
-                     if f is not None) if TRACER.on else ()
-        with span("tracker.drain_read", window=handles[-1].get("trace_window"), frames=fids):
-            stats = self._read([h["out"]["stats"] for h in handles],
-                               [h.get("done") for h in handles])
+        """The drain: the stats of the window handles `handles`, in frame
+        order [sum K, 6] (match_frac, match_frac_k, unique_frac_f, event,
+        kf_N_next, retired_N), in one host read that waits for the handles'
+        windows to complete, not for what was dispatched after them
+        (`_read`); credits each handle's promotion launches once per NEW_KF
+        event in its rows, once per handle."""
+        fids = tuple(f.frame_id for h in handles for f in h["frames"]) if TRACER.on else ()
+        with span("tracker.drain_read", window=handles[-1]["trace_window"], frames=fids):
+            stats = self._read([h["out"]["stats"] for h in handles], [h["done"] for h in handles])
         TRACER.count("tracker.drain_reads")
         TRACER.mark(fids, "drained")
-        for h, s in zip(handles, stats):
-            graphs.add_launches(h.pop("promotion_launches", {}),
-                                int((s[..., 3] == EVENT_NEW_KF).sum()))
+        a = 0
+        for h in handles:
+            b = a + len(h["out"]["stats"])
+            launches, h["promotion_launches"] = h["promotion_launches"], {}
+            graphs.add_launches(launches, int((stats[a:b, 3] == EVENT_NEW_KF).sum()))
+            a = b
         return stats
 
     def commit_chain_frame(self, frame: Frame, row: dict, stats_row, tracked: bool = True):

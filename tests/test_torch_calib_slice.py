@@ -2,8 +2,9 @@
 step `_make_fused_track_chain(use_calib=True)` on the tiny model: the same
 tiny weights, the same numpy-seeded frames drifting 2 px per frame, the same
 intrinsics. The port runs through its arena path (`FrameTracker` over a
-`Keyframes` arena holding K, `dispatch_window`), so the calibrated step is
-picked per step by `_calib_live`.
+`Keyframes` arena holding K, `test_torch_helpers.arena_tracker`, and
+`dispatch_window`), so the calibrated step is picked per step by
+`_calib_live`.
 
 Two settings: (a) the eurocalib shape, the simple matcher (`method: auto`
 with `use_simple`) and no promotion; (b) the euroc_nocalib shape, the dense
@@ -29,11 +30,9 @@ import torch
 from mast3r_slam_tpu.frame import create_frame as jax_create_frame
 from mast3r_slam_tpu.inference import mast3r_inference_mono as jax_mono
 from mast3r_slam_tpu.tracker import EVENT_NEW_KF, EVENT_TRACKED, _make_fused_track_chain
-from mast3r_slam_torch.frame import Keyframes, create_frame
-from mast3r_slam_torch.inference import mast3r_inference_mono
-from mast3r_slam_torch.tracker import FrameTracker
+from mast3r_slam_torch.frame import create_frame
 from mast3r_slam_torch.workload import drift_frames
-from test_torch_helpers import BENCH_SETTINGS, both_configs, tiny_pair
+from test_torch_helpers import BENCH_SETTINGS, arena_tracker, both_configs, tiny_pair
 
 N_FRAMES = 4
 SETTINGS = {
@@ -75,14 +74,7 @@ def test_calib_chained_step_matches_jax(matcher):
             st = dict(feat=out["kf_feat"], pos=out["kf_pos"], idx=out["idx"], X=out["kf_X"],
                       C=out["kf_C"], N=out["kN"], Tp=out["T_WCf"], Tk=out["kf_T"])
 
-        kfs = Keyframes(h, w, device="cpu")
-        kfs.set_intrinsics(torch.from_numpy(K))
-        tracker = FrameTracker(tm, cfg, keyframes=kfs)
-        assert tracker._calib_live()
-        f0 = create_frame(0, torch.from_numpy(base))
-        f0.X_canon, f0.C, f0.feat, f0.pos = mast3r_inference_mono(tm, f0)
-        f0.N = f0.N_updates = 1
-        kfs.append(f0)
+        tracker = arena_tracker(tm, cfg, base, K)
         frames = [create_frame(j + 1, torch.from_numpy(imgs[j])) for j in range(N_FRAMES)]
         handle = tracker.dispatch_window(frames, torch.from_numpy(imgs))
 

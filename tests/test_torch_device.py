@@ -15,6 +15,7 @@ import torch
 
 from mast3r_slam_torch.config import Config
 from mast3r_slam_torch.device import resolve_device
+from mast3r_slam_torch.frame import create_frame
 from mast3r_slam_torch.models import MASt3RModel
 from mast3r_slam_torch.tracker import FrameTracker
 
@@ -74,8 +75,8 @@ def test_parallel_entry_points_without_device_raise(no_cuda, tmp_path):
 def test_frame_tracker_rejects_calib_and_untracked_use(monkeypatch):
     """A calibrated tracker builds on the CPU when asked for it (its
     calibrated step waits for intrinsics in an arena) and, like any tracker,
-    raises without CUDA when no device is named; tracking before a keyframe
-    raises."""
+    raises without CUDA when no device is named; a dispatch before any
+    keyframe returns no handle."""
     model = MASt3RModel.create(model_type="tiny", resolution=64, device="cpu")
     calib = Config.from_dict({"use_calib": True})
     tracker = FrameTracker(model, calib, device="cpu")
@@ -86,8 +87,7 @@ def test_frame_tracker_rejects_calib_and_untracked_use(monkeypatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             FrameTracker(model, calib)
     tracker = FrameTracker(model, Config(), device="cpu")
-    with pytest.raises(RuntimeError, match="init_keyframe"):
-        tracker.track_window(torch.zeros(1, 48, 64, 3))
+    assert tracker.dispatch(create_frame(1, torch.zeros(48, 64, 3))) is None
 
 
 def test_port_imports_no_jax():
@@ -103,6 +103,7 @@ def test_port_imports_no_jax():
         import torch
         import mast3r_slam_torch
         from mast3r_slam_torch.config import Config, set_config
+        from mast3r_slam_torch.frame import create_frame
         from mast3r_slam_torch.models import MASt3RModel
         from mast3r_slam_torch.models import io, heads, vit  # noqa: F401
         from mast3r_slam_torch.ops import attention, build, dense_match, gauss_newton  # noqa
@@ -113,8 +114,15 @@ def test_port_imports_no_jax():
         tracker = FrameTracker(model, cfg, device="cpu")
         rng = np.random.default_rng(0)
         tracker.init_keyframe(rng.uniform(0, 1, (48, 64, 3)).astype(np.float32))
-        out = tracker.track_window(rng.uniform(0, 1, (2, 48, 64, 3)).astype(np.float32))
-        assert out["stats"].shape == (2, 6) and bool(torch.isfinite(out["T_WCf"]).all())
+
+        def window():
+            imgs = torch.from_numpy(rng.uniform(0, 1, (2, 48, 64, 3)).astype(np.float32))
+            handle = tracker.dispatch_window([create_frame(1 + j, x) for j, x in enumerate(imgs)],
+                                             imgs)
+            return tracker.sync_chain([handle]), [r["T_WCf"] for r in handle["out"]["rows"]]
+
+        stats, poses = window()
+        assert stats.shape == (2, 6) and bool(torch.isfinite(torch.stack(poses)).all())
 
         from mast3r_slam_torch.matching import match_iterative_proj
         from mast3r_slam_torch.models import asmk
@@ -143,8 +151,7 @@ def test_port_imports_no_jax():
         model.quantize_weights("int8")
         tracker = FrameTracker(model, cfg, device="cpu")
         tracker.init_keyframe(rng.uniform(0, 1, (48, 64, 3)).astype(np.float32))
-        out = tracker.track_window(rng.uniform(0, 1, (2, 48, 64, 3)).astype(np.float32))
-        assert bool(torch.isfinite(out["T_WCf"]).all())
+        assert bool(torch.isfinite(torch.stack(window()[1])).all())
 
         import mast3r_slam_torch.parallel
         from mast3r_slam_torch.parallel import multihost, pipeline, sequence, sharding  # noqa

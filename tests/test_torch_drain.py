@@ -1,4 +1,4 @@
-"""The drain's read (`FrameTracker.sync_chain`, `sync_window`) on the CPU.
+"""The drain's read (`FrameTracker.sync_chain`) on the CPU.
 
 * On the CPU there is no stream and no event: a dispatched handle carries
   ``done`` None, the drain is the plain read of the handles' stats, one a
@@ -22,6 +22,7 @@ import torch
 from mast3r_slam_torch.config import Config, reset_config, set_config
 from mast3r_slam_torch.utils.profiling import TRACER
 from mast3r_slam_torch.workload import BENCH_SETTINGS
+from test_torch_window_graph_cuda import dispatch
 
 
 @pytest.fixture
@@ -73,7 +74,7 @@ def test_cpu_slam_run_drains_with_the_plain_read(tracer, monkeypatch):
     def drain(tracker, handles):
         stats = sync_chain(tracker, handles)
         reads.append(([h["done"] for h in handles], stats,
-                      torch.stack([h["out"]["stats"] for h in handles]).numpy()))
+                      torch.cat([h["out"]["stats"] for h in handles]).numpy()))
         return stats
 
     monkeypatch.setattr(FrameTracker, "sync_chain", drain)
@@ -95,22 +96,22 @@ def test_cpu_slam_run_drains_with_the_plain_read(tracer, monkeypatch):
     assert "tracker.dispatch_ahead" not in c
 
 
-def test_cpu_sync_window_is_the_plain_read(tracer):
-    """`track_window` on the CPU leaves no event; `sync_window` reads the
+def test_cpu_drain_of_a_window_is_the_plain_read(tracer):
+    """`dispatch_window` on the CPU leaves no event; `sync_chain` reads the
     window's stats as they are; nothing is counted ahead."""
     try:
         tracker, model = _tiny_tracker()
         imgs = _frames(5, model.out_hw)
         tracker.init_keyframe(imgs[0])
         tracer.start()
-        results = [tracker.track_window(np.stack(imgs[a:a + 2])) for a in (1, 3)]
-        stats = [tracker.sync_window(r) for r in results]
+        handles = [dispatch(tracker, np.stack(imgs[a:a + 2]), a) for a in (1, 3)]
+        stats = [tracker.sync_chain([h]) for h in handles]
         tracer.stop()
     finally:
         reset_config()
-    for r, s in zip(results, stats):
-        assert r["done"] is None
-        np.testing.assert_array_equal(s, r["stats"].numpy())
+    for h, s in zip(handles, stats):
+        assert h["done"] is None
+        np.testing.assert_array_equal(s, h["out"]["stats"].numpy())
     assert tracer.counters["tracker.drain_reads"] == tracer.counters["tracker.windows"] == 2
     assert "tracker.dispatch_ahead" not in tracer.counters
 
@@ -160,8 +161,8 @@ class _Card:
 def test_card_drain_waits_on_each_windows_event_on_its_side_stream(tracer, monkeypatch):
     """On a card (stand-ins): each window's event is recorded on the current
     stream; the drain makes the tracker's one side stream wait for every
-    handle's event, then stacks and reads inside it, and returns the
-    handles' stats."""
+    handle's event, then joins and reads inside it, and returns the
+    handles' stats in frame order."""
     try:
         tracker, _model = _tiny_tracker()
     finally:
@@ -173,15 +174,15 @@ def test_card_drain_waits_on_each_windows_event_on_its_side_stream(tracer, monke
     assert [e for e in card.log if e[0] == "record"] == [("record", n, "main") for n in range(3)]
     assert not [e for e in card.log if e[0] == "query"]  # the tracer is off: no query
     stats = [torch.full((2, 6), float(j)) for j in range(3)]
-    handles = [dict(out=dict(stats=s), done=d) for s, d in zip(stats, done)]
+    handles = [dict(frames=[], out=dict(stats=s), done=d, trace_window=None,
+                    promotion_launches={}) for s, d in zip(stats, done)]
     card.log.clear()
     got = tracker.sync_chain(handles[:2])
     assert card.log == [("new stream", "cuda"), ("wait", 0), ("wait", 1), ("enter", "Stream"),
                         ("exit", "Stream")]
-    np.testing.assert_array_equal(got, torch.stack(stats[:2]).numpy())
+    np.testing.assert_array_equal(got, torch.cat(stats[:2]).numpy())
     card.log.clear()
-    np.testing.assert_array_equal(tracker.sync_window(dict(stats=stats[2], done=done[2])),
-                                  stats[2].numpy())
+    np.testing.assert_array_equal(tracker.sync_chain(handles[2:]), stats[2].numpy())
     assert card.log == [("wait", 2), ("enter", "Stream"), ("exit", "Stream")]  # the same stream
 
 

@@ -4,13 +4,12 @@ repository's conftest (which imports JAX):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_drain_cuda.py
 
-A window's stats read (`FrameTracker.sync_chain`, `sync_window`) waits for
-that window's completion event, not for what was queued on the stream after
-it. On phase 5's small bf16 model (chip_smoke.py), windows of K = 4 frames:
+A window's stats read (`FrameTracker.sync_chain`) waits for that window's
+completion event, not for what was queued on the stream after it. On phase 5's small bf16 model (chip_smoke.py), windows of K = 4 frames:
 
 * the read of a window returns while a ``torch.cuda._sleep`` queued behind
   the window is still running, and reads what a read after a full
-  synchronise reads (`dispatch_window`, `dispatch`, `track_window`);
+  synchronise reads (`dispatch_window`, and `dispatch`'s windows of one);
 * `SLAM.run` over 32 drifting frames (7 full windows) gives bit-equal
   poses, events and per-frame stats to a run whose drain synchronises the
   card first (a patch of the test, not a setting of the port), with one
@@ -87,7 +86,7 @@ def _started_slam(model, u8: torch.Tensor):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("api", ["dispatch_window", "dispatch", "track_window"])
+@pytest.mark.parametrize("api", ["dispatch_window", "dispatch"])
 def test_drain_returns_before_the_work_queued_after_its_window(api):
     """(a) The read of a window returns while device work queued after the
     window is still pending, and reads what a read after a full synchronise
@@ -95,37 +94,26 @@ def test_drain_returns_before_the_work_queued_after_its_window(api):
     _skip_without_card()
     from mast3r_slam_torch.config import reset_config
     from mast3r_slam_torch.frame import create_frame
-    from mast3r_slam_torch.tracker import FrameTracker
 
     model = _model()
     u8 = torch.from_numpy(_frames(model.out_hw, 1 + 2 * K)).cuda()
     try:
-        cfg = _config(trace=False)
-        if api == "track_window":
-            tracker = FrameTracker(model, cfg)
-            tracker.init_keyframe(u8[0])
-            tracker.sync_window(tracker.track_window(u8[1:1 + K]))  # captures the graph
-            result = tracker.track_window(u8[1 + K:])
-            held = result["stats"]
+        _config(trace=False)
+        slam, f0 = _started_slam(model, u8)
+        tracker = slam.tracker
 
-            def read():
-                return tracker.sync_window(result)
-        else:
-            slam, f0 = _started_slam(model, u8)
-            tracker = slam.tracker
+        def window(a):
+            frames = [create_frame(i, u8[i]) for i in range(a, a + K)]
+            if api == "dispatch_window":
+                return [tracker.dispatch_window(frames, u8[a:a + K], T_init=f0.T_WC)]
+            return [tracker.dispatch(f, T_init=f0.T_WC) for f in frames]
 
-            def window(a):
-                frames = [create_frame(i, u8[i]) for i in range(a, a + K)]
-                if api == "dispatch_window":
-                    return [tracker.dispatch_window(frames, u8[a:a + K], T_init=f0.T_WC)]
-                return [tracker.dispatch(f, T_init=f0.T_WC) for f in frames]
+        tracker.sync_chain(window(1))  # captures the graph
+        handles = window(1 + K)
+        held = torch.cat([h["out"]["stats"] for h in handles])
 
-            tracker.sync_chain(window(1))  # captures the graph
-            handles = window(1 + K)
-            held = torch.stack([h["out"]["stats"] for h in handles])
-
-            def read():
-                return tracker.sync_chain(handles)
+        def read():
+            return tracker.sync_chain(handles)
 
         torch.cuda._sleep(10 * SLEEP_CYCLES)  # behind the window
         after = torch.cuda.Event()

@@ -62,6 +62,27 @@ def tiny_pair(head_type: str = "linear", resolution: int = 64):
     return jm, tm
 
 
+def arena_tracker(tm, cfg, base, K=None):
+    """A tracker over a keyframe arena holding `base` [H, W, 3] as its
+    keyframe (made by `mast3r_inference_mono`, as the SLAM loop's INIT does)
+    and, if given, the intrinsics K [3, 3]."""
+    from mast3r_slam_torch.frame import Keyframes, create_frame
+    from mast3r_slam_torch.inference import mast3r_inference_mono
+    from mast3r_slam_torch.tracker import FrameTracker
+
+    h, w = base.shape[:2]
+    kfs = Keyframes(h, w, device="cpu")
+    if K is not None:
+        kfs.set_intrinsics(torch.as_tensor(K))
+    tracker = FrameTracker(tm, cfg, keyframes=kfs)
+    f0 = create_frame(0, torch.as_tensor(base))
+    f0.X_canon, f0.C, f0.feat, f0.pos = mast3r_inference_mono(tm, f0)
+    f0.N = f0.N_updates = 1
+    kfs.append(f0)
+    assert tracker._calib_live() == (K is not None and cfg.use_calib)
+    return tracker
+
+
 def slam_settings(extra: dict, sync_every: int = 2) -> dict:
     """bench.py's settings updated by `extra`, with the windowed chained path
     on (windows of `sync_every`)."""

@@ -40,7 +40,7 @@ import pytest
 import torch
 
 from test_torch_match_taps import compare_to_plain, scene, tap_costs64
-from test_torch_window_graph_cuda import no_host_reads
+from test_torch_window_graph_cuda import dispatch, no_host_reads
 
 SHAPES = [(1, 384, 512), (1, 252, 336), (8, 384, 512), (2, 37, 53)]
 LATTICES = [(3, (2, 1)), (6, (1,))]
@@ -225,7 +225,7 @@ def test_a_captured_window_matches_through_the_kernel(card, monkeypatch):
         tracker = FrameTracker(model, cfg)
         tracker.init_keyframe(base)
         for j in range(2):
-            tracker.sync_window(tracker.track_window(imgs[j * k:(j + 1) * k]))
+            tracker.sync_chain([dispatch(tracker, imgs[j * k:(j + 1) * k], 1 + j * k)])
     finally:
         reset_config()
     (graph,) = tracker.graphs.graphs.values()

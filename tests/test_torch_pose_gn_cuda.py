@@ -34,7 +34,7 @@ import pytest
 import torch
 
 from mast3r_slam_torch.ops.pose_gn import REL_ERROR  # the loop's own relative-cost stop
-from test_torch_window_graph_cuda import no_host_reads
+from test_torch_window_graph_cuda import dispatch, no_host_reads
 
 VITL_N, DUNE_N, RAGGED_N = 196_608, 84_672, 100_003  # 512x384, 336x252, neither
 NEAR = 1e-3  # a stopping quantity this close (relative) to its threshold may flip
@@ -236,7 +236,7 @@ def test_a_captured_window_solves_through_the_kernel(card, monkeypatch):
         tracker = FrameTracker(model, cfg)
         tracker.init_keyframe(base)
         for j in range(2):
-            tracker.sync_window(tracker.track_window(imgs[j * k:(j + 1) * k]))
+            tracker.sync_chain([dispatch(tracker, imgs[j * k:(j + 1) * k], 1 + j * k)])
     finally:
         reset_config()
     (graph,) = tracker.graphs.graphs.values()

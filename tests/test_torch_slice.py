@@ -3,7 +3,7 @@
 The JAX reference is `_make_fused_track_chain` run frame by frame (as
 tests/test_window_scan.py drives it), from a keyframe made by
 `mast3r_inference_mono`; the port runs `FrameTracker.init_keyframe` and
-`track_window` on the CPU. Same tiny weights (flax init carried over), same
+`dispatch_window` on the CPU. Same tiny weights (flax init carried over), same
 numpy-seeded frames drifting 2 px per frame, the deployment matcher and tanh
 gelu (configs/base.yaml), gates as bench.py opens them. This file: no
 promotion (match_frac_thresh 0); test_torch_slice_promote.py: promotion on
@@ -30,6 +30,7 @@ from mast3r_slam_tpu.tracker import EVENT_TRACKED, _make_fused_track_chain
 from mast3r_slam_torch.tracker import FrameTracker
 from test_torch_model import _assert_pts_close
 from test_torch_helpers import BENCH_SETTINGS, both_configs, tiny_pair
+from test_torch_window_graph_cuda import dispatch, stacked
 
 K = 4
 
@@ -69,7 +70,7 @@ def run_both(match_frac_thresh: float, seed: int = 11):
 
         tracker = FrameTracker(tm, cfg, device="cpu")
         tracker.init_keyframe(base)
-        ours = tracker.track_window(torch.from_numpy(imgs))
+        ours = stacked(dispatch(tracker, imgs))
     return ref, ours, n
 
 

@@ -10,7 +10,7 @@ the benchmark that take it (`slam_bench.program_trace`, the eleven
   calibration pairs, with their uncertainty and drift.
 * Device stamps: `FakeCard` does on the host what ``csrc/trace_stamp.cu``
   does on the card (a row per window from a counter, a slot per stamp), so
-  a window of the tiny model through `FrameTracker.track_window` gives its
+  a window of the tiny model through `FrameTracker.dispatch_window` gives its
   row layout: window.begin, K frames x six stages x (begin, end),
   window.end.
 * Every reader on a synthetic trace whose answers are known.
@@ -35,6 +35,7 @@ from mast3r_slam_torch.utils.profiling import (TRACER, WINDOW_BEGIN, WINDOW_END,
 from mast3r_slam_torch.workload import BENCH_SETTINGS
 from slam_bench import manifest, program_trace
 from slam_bench.record import p90
+from test_torch_window_graph_cuda import dispatch
 
 STAGES = ("track.encode", "track.decode", "track.match", "track.pose", "track.fuse",
           "track.promote")
@@ -168,7 +169,7 @@ def test_stamp_row_layout_is_k_frames_by_stages(tracer):
         card = tracer.device = FakeCard()
         tracer.calibration = [card.calibrate()]
         for j in range(2):
-            tracker.sync_window(tracker.track_window(imgs[j * k:(j + 1) * k]))
+            tracker.sync_chain([dispatch(tracker, imgs[j * k:(j + 1) * k], 1 + j * k)])
         tracer.stop()
     finally:
         reset_config()

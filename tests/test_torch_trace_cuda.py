@@ -47,6 +47,7 @@ def test_traced_window_graph_stamps_rows_on_the_card():
         pytest.skip("needs an NVIDIA GPU")
     from mast3r_slam_torch import graphs
     from mast3r_slam_torch.config import Config, reset_config, set_config
+    from mast3r_slam_torch.frame import create_frame
     from mast3r_slam_torch.tracker import FrameTracker
     from mast3r_slam_torch.utils.profiling import TRACER, WINDOW_BEGIN, WINDOW_END
     from mast3r_slam_torch.workload import BENCH_SETTINGS
@@ -59,17 +60,19 @@ def test_traced_window_graph_stamps_rows_on_the_card():
         cfg = set_config(Config.from_dict(BENCH_SETTINGS))
         tracker = FrameTracker(model, cfg)
         tracker.init_keyframe(base)
-        tracker.sync_window(tracker.track_window(wins[0]))  # the untraced graph
+        frames = [[create_frame(1 + j * K + i, x) for i, x in enumerate(w)]
+                  for j, w in enumerate(wins)]
+        tracker.sync_chain([tracker.dispatch_window(frames[0], wins[0])])  # the untraced graph
         set_config(Config.from_dict(traced))
         TRACER.start("cuda")
-        tracker.sync_window(tracker.track_window(wins[1]))  # the traced graph
+        tracker.sync_chain([tracker.dispatch_window(frames[1], wins[1])])  # the traced graph
         first = len(TRACER.rows)
         with no_host_reads():
-            outs = [tracker.track_window(w) for w in wins[2:5]]
+            outs = [tracker.dispatch_window(frames[j], wins[j]) for j in range(2, 5)]
         for o in outs:
-            tracker.sync_window(o)
+            tracker.sync_chain([o])
         tracker.capture_windows = False
-        tracker.sync_window(tracker.track_window(wins[5]))  # eager, on the card
+        tracker.sync_chain([tracker.dispatch_window(frames[5], wins[5])])  # eager, on the card
         TRACER.stop()
     finally:
         TRACER.stop()

@@ -180,7 +180,7 @@ def _step_inputs(models, use_calib: bool, cfg):
     tracker.init_keyframe(base)
     step = make_track_step(tm, cfg.tracking, cfg.tracking.filtering_mode, use_calib=use_calib)
     K = torch.from_numpy(_intrinsics(h, w)) if use_calib else None
-    return step, torch.from_numpy(np.clip(base + 0.01, 0, 1)), tracker.state, K
+    return step, torch.from_numpy(np.clip(base + 0.01, 0, 1)), tracker._chain_state(None), K
 
 
 @pytest.mark.parametrize("use_calib", [False, True])

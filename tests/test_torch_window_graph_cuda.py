@@ -5,12 +5,15 @@ without it, outside the repository's conftest (which imports JAX):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_window_graph_cuda.py
 
-On phase 5's small bf16 model (chip_smoke.py), two windows of K = 4 frames,
-every tracked frame promoting: the captured window against the eager one
-(`capture_windows` False, `branch`'s select form) with events exact and
-statistics within phase 5's 0.02, the IF body's device counter equal to
-the NEW_KF events at the drain, and a later window of the same length
-replayed with no host read.
+On phase 5's small bf16 model (chip_smoke.py), two windows of K = 4 frames
+through `dispatch_window` and one drain (`sync_chain`), every tracked frame
+promoting: the captured window against the eager one (`capture_windows`
+False, `branch`'s select form) with events exact and statistics within
+phase 5's 0.02, the IF body's device counter equal to the NEW_KF events at
+the drain, and a later window of the same length replayed with no host
+read.
+
+`dispatch` and `stacked` drive the tracker's window program in the port's tests.
 """
 
 import contextlib
@@ -53,11 +56,30 @@ def no_host_reads():
                 setattr(torch.Tensor, n, fn)
 
 
+def dispatch(tracker, imgs, first: int = 1, **kw):
+    """`FrameTracker.dispatch_window` over imgs [K, H, W, 3] (a tensor or an
+    array) as the frames first, first + 1, ... -> the window handle."""
+    from mast3r_slam_torch.frame import create_frame
+
+    imgs = torch.as_tensor(imgs)
+    return tracker.dispatch_window([create_frame(first + j, x) for j, x in enumerate(imgs)],
+                                   imgs, **kw)
+
+
+def stacked(handle) -> dict:
+    """A window handle's per-frame rows stacked [K, ...], and its final chain
+    state under "final"."""
+    rows = handle["out"]["rows"]
+    return dict({k: torch.stack([r[k] for r in rows]) for k in rows[0]},
+                final=handle["out"]["final"])
+
+
 @pytest.mark.cuda
 def test_captured_window_matches_eager_window_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     from mast3r_slam_torch.config import Config, reset_config, set_config
+    from mast3r_slam_torch.frame import create_frame
     from mast3r_slam_torch.models import MASt3RConfig, MASt3RModel
     from mast3r_slam_torch.tracker import _PER_FRAME, EVENT_NEW_KF, FrameTracker
     from mast3r_slam_torch.workload import BENCH_SETTINGS, drift_frames
@@ -78,16 +100,17 @@ def test_captured_window_matches_eager_window_on_the_card():
             tracker = FrameTracker(model, cfg)
             tracker.capture_windows = not eager
             tracker.init_keyframe(base)
-            outs = [tracker.track_window(imgs[j * K:(j + 1) * K]) for j in range(2)]
-            stats = np.concatenate([tracker.sync_window(o) for o in outs])
+            outs = [dispatch(tracker, imgs[j * K:(j + 1) * K], 1 + j * K) for j in range(2)]
+            stats = tracker.sync_chain(outs)
             results.append(stats)
             if not eager:
                 runs = int(tracker.graphs.body_runs)
                 assert runs == int((stats[:, 3] == EVENT_NEW_KF).sum()) > 0
+                frames = [create_frame(1 + 2 * K + j, x) for j, x in enumerate(imgs[:K])]
                 with no_host_reads():
-                    tracker.track_window(imgs[:K])
+                    tracker.dispatch_window(frames, imgs[:K])
     finally:
         reset_config()
     np.testing.assert_array_equal(results[0][:, 3], results[1][:, 3])
     np.testing.assert_allclose(results[0][:, :3], results[1][:, :3], atol=0.02, rtol=0)
-    assert set(_PER_FRAME) <= set(outs[0])
+    assert set(_PER_FRAME) <= set(stacked(outs[0]))

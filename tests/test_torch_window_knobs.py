@@ -1,6 +1,6 @@
 """The window program's knobs (`runtime.window_batched_encode`,
 `window_spec_decode`, `window_decode_microbatch`) in the port's
-`FrameTracker.track_window` against JAX's `_make_fused_track_chain_scan`.
+`FrameTracker.dispatch_window` against JAX's `_make_fused_track_chain_scan`.
 
 The world is tests/test_window_scan.py's (a seeded image, K = 4 frames rolled
 2 px each plus noise, keyframe capacity 8) with its "spec+dense" matcher
@@ -31,8 +31,10 @@ import torch
 from mast3r_slam_tpu.frame import create_frame as jax_create_frame
 from mast3r_slam_tpu.inference import mast3r_inference_mono as jax_mono
 from mast3r_slam_tpu.tracker import EVENT_NEW_KF, _make_fused_track_chain_scan
+from mast3r_slam_torch.frame import create_frame
 from mast3r_slam_torch.tracker import FrameTracker
 from test_torch_helpers import both_configs, tiny_pair
+from test_torch_window_graph_cuda import stacked
 
 K = 4
 PROMOTES_AT = 1
@@ -88,9 +90,10 @@ def _port_window(tm, base, imgs, case):
     with both_configs(_settings(*case)) as cfg:
         tracker = FrameTracker(tm, cfg, device="cpu")
         tracker.init_keyframe(base)
+        frames = [create_frame(j + 1, torch.from_numpy(x)) for j, x in enumerate(imgs)]
         tm.encode, tm.decode = count("encode", enc), count("decode", dec)
         try:
-            out = tracker.track_window(torch.from_numpy(imgs))
+            out = stacked(tracker.dispatch_window(frames, torch.from_numpy(imgs)))
         finally:
             del tm.encode, tm.decode
     return out, calls

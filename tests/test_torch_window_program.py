@@ -11,9 +11,9 @@ calibrated core (tests/test_torch_calib_slice.py's intrinsics, pixel_border
 0.5 so that f32 rounding does not decide the strict border gate).
 
 * (a) With `Tensor.__bool__`, `item`, `tolist`, `cpu`, `numpy`, `__int__`
-  and `__float__` made to raise, `track_window` and `dispatch_window` run
-  their promoting window to the end: nothing is read back to the host
-  inside a window. The drain (`sync_chain`, `sync_window`) is the read.
+  and `__float__` made to raise, `dispatch_window` runs its promoting
+  window to the end: nothing is read back to the host inside a window. The
+  drain (`sync_chain`) is the read.
 * (b) The window against JAX's window program: events and fusion counts
   exact, statistics within 2/N and poses within 5e-4 (the bands of
   test_torch_window_knobs for the two packages: their f32 model outputs
@@ -23,6 +23,11 @@ calibrated core (tests/test_torch_calib_slice.py's intrinsics, pixel_border
 * (d) `GraphCache` and the launch-count arithmetic, in Python: the window
   key, the cache dropped when the parameters are replaced, each replay's
   launches and the body's counted per NEW_KF event at the drain.
+* (e) One way to drive a window: `dispatch` is `dispatch_window` over a
+  window of one (the same handle, bit-equal rows); `sync_chain` joins any
+  handles' stats in frame order in one read and credits each handle's
+  promotions; and `init_keyframe` on a tracker without an arena makes an
+  arena of one slot whose chain is the keyframe's initial state.
 On a card: tests/test_torch_window_graph_cuda.py.
 """
 
@@ -37,14 +42,14 @@ from mast3r_slam_tpu.frame import create_frame as jax_create_frame
 from mast3r_slam_tpu.inference import mast3r_inference_mono as jax_mono
 from mast3r_slam_tpu.tracker import _make_fused_track_chain_scan
 from mast3r_slam_torch import graphs
-from mast3r_slam_torch.frame import Keyframes, create_frame
-from mast3r_slam_torch.inference import mast3r_inference_mono
+from mast3r_slam_torch.frame import create_frame
 from mast3r_slam_torch.models import MASt3RModel
 from mast3r_slam_torch.models.quant import dequantize_module
 from mast3r_slam_torch.ops import attention, lane_shift
-from mast3r_slam_torch.tracker import _STATE, EVENT_NEW_KF, EVENT_TRACKED, FrameTracker
-from test_torch_helpers import both_configs, tiny_pair
-from test_torch_window_graph_cuda import HostRead, no_host_reads
+from mast3r_slam_torch.tracker import (_STATE, EVENT_NEW_KF, EVENT_TRACKED, FrameTracker,
+                                       _mono_pointmap)
+from test_torch_helpers import arena_tracker, both_configs, tiny_pair
+from test_torch_window_graph_cuda import HostRead, dispatch, no_host_reads, stacked
 
 K = 4
 PROMOTES_AT = 1
@@ -76,54 +81,25 @@ def world():
     return jm, tm, base, imgs
 
 
-def _arena_tracker(tm, cfg, base, calib: bool):
-    """A tracker over an arena holding `base` as its keyframe (and K)."""
-    h, w = base.shape[:2]
-    kfs = Keyframes(h, w, device="cpu")
-    if calib:
-        kfs.set_intrinsics(torch.from_numpy(INTRINSICS))
-    tracker = FrameTracker(tm, cfg, keyframes=kfs)
-    f0 = create_frame(0, torch.from_numpy(base))
-    f0.X_canon, f0.C, f0.feat, f0.pos = mast3r_inference_mono(tm, f0)
-    f0.N = f0.N_updates = 1
-    kfs.append(f0)
-    assert tracker._calib_live() == calib
-    return tracker
-
-
-def _port_window(tm, base, imgs, api: str, calib: bool, guard) -> np.ndarray:
-    """One window through `api` under `guard` -> (stats [K, 6], poses [K, 8],
-    final state), read after the window."""
+def _port_window(tm, base, imgs, calib: bool, guard) -> np.ndarray:
+    """One window through `dispatch_window` under `guard` -> (stats [K, 6],
+    poses [K, 8], final state), read after the window."""
     with both_configs(_settings(calib)) as cfg:
-        if api == "track_window":
-            tracker = FrameTracker(tm, cfg, device="cpu")
-            tracker.init_keyframe(base)
-            with guard():
-                out = tracker.track_window(torch.from_numpy(imgs))
-            stats, final = tracker.sync_window(out), out["final"]
-            poses = out["T_WCf"].numpy()
-        else:
-            tracker = _arena_tracker(tm, cfg, base, calib)
-            frames = [create_frame(j + 1, torch.from_numpy(imgs[j])) for j in range(K)]
-            with guard():
-                handle = tracker.dispatch_window(frames, torch.from_numpy(imgs))
-            stats, final = tracker.sync_chain([handle])[0], handle["out"]["final"]
-            poses = np.stack([r["T_WCf"].numpy() for r in handle["out"]["rows"]])
+        tracker = arena_tracker(tm, cfg, base, INTRINSICS if calib else None)
+        frames = [create_frame(j + 1, torch.from_numpy(imgs[j])) for j in range(K)]
+        with guard():
+            handle = tracker.dispatch_window(frames, torch.from_numpy(imgs))
+        stats, final = tracker.sync_chain([handle]), handle["out"]["final"]
+        poses = stacked(handle)["T_WCf"].numpy()
     assert list(np.nonzero(stats[:, 3] == EVENT_NEW_KF)[0]) == [PROMOTES_AT], stats[:, 3]
     return stats, poses, final
 
 
-CASES = {"rays-track_window": ("track_window", False),
-         "rays-dispatch_window": ("dispatch_window", False),
-         "calib-dispatch_window": ("dispatch_window", True)}
-
-
-@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("name", ["rays-dispatch_window", "calib-dispatch_window"])
 def test_no_host_read_inside_a_promoting_window(world, name):
     _jm, tm, base, imgs = world
-    api, calib = CASES[name]
     try:
-        _port_window(tm, base, imgs, api, calib, no_host_reads)
+        _port_window(tm, base, imgs, name.startswith("calib"), no_host_reads)
     except HostRead as e:
         pytest.fail(f"{name}: {e}")
 
@@ -148,8 +124,7 @@ def _jax_window(jm, base, imgs, calib: bool):
 def test_window_matches_jax_window_program(world, core):
     jm, tm, base, imgs = world
     calib = core == "calib"
-    api = "dispatch_window" if calib else "track_window"
-    stats, poses, final = _port_window(tm, base, imgs, api, calib, contextlib.nullcontext)
+    stats, poses, final = _port_window(tm, base, imgs, calib, contextlib.nullcontext)
     jstats, jposes, jfinal = _jax_window(jm, base, imgs, calib)
     n = base.shape[0] * base.shape[1]
     np.testing.assert_array_equal(stats[:, 3:], jstats[:, 3:])
@@ -170,7 +145,7 @@ def test_select_branch_equals_python_branch(world):
     with both_configs(_settings(False)) as cfg:
         tracker = FrameTracker(tm, cfg, device="cpu")
         tracker.init_keyframe(base)
-        st = tracker.state
+        st = tracker._chain_state(None)
         events = []
         for j in range(PROMOTES_AT + 1):
             got, got_st = tracker._step(torch.from_numpy(imgs[j]), st)
@@ -211,17 +186,14 @@ def test_launch_count_arithmetic(counts):
     stats = torch.zeros(2, K, 6)
     stats[0, :, 3] = torch.tensor([EVENT_TRACKED, EVENT_NEW_KF, EVENT_NEW_KF, 2.0])
     stats[1, 0, 3] = EVENT_NEW_KF
-    handles = [dict(out=dict(stats=s), promotion_launches={"flash_attention": 48})
-               for s in stats]
+    handles = [dict(frames=[], out=dict(stats=s), done=None, trace_window=None,
+                    promotion_launches={"flash_attention": 48}) for s in stats]
     tracker = FrameTracker.__new__(FrameTracker)
     got = tracker.sync_chain(handles)
-    np.testing.assert_array_equal(got, stats.numpy())
+    np.testing.assert_array_equal(got, stats.reshape(2 * K, 6).numpy())
     assert attention.flash_attention.launches == before["flash_attention"] + 48 * 3
     tracker.sync_chain(handles)  # a handle is counted once
     assert attention.flash_attention.launches == before["flash_attention"] + 48 * 3
-    result = dict(stats=stats[0], promotion_launches={"flash_attention": 5})
-    tracker.sync_window(result)
-    assert attention.flash_attention.launches == before["flash_attention"] + 48 * 3 + 10
 
 
 def test_graph_cache_key_and_parameter_signature(world):
@@ -264,3 +236,83 @@ def test_branch_select_form_refuses_nothing_on_the_cpu():
     assert torch.equal(got, b)
     with pytest.raises(ValueError, match="one bool on the card"):
         graphs.if_node(pred, None)
+
+
+def test_dispatch_is_a_window_of_one(world):
+    """`dispatch(frame)` returns `dispatch_window`'s handle, its rows, stats
+    and final state bit-equal to `dispatch_window([frame], frame.img[None])`
+    from the same chain."""
+    _jm, tm, base, imgs = world
+    with both_configs(_settings(False)) as cfg:
+        frame = create_frame(1, torch.from_numpy(imgs[0]))
+        one = arena_tracker(tm, cfg, base).dispatch(frame)
+        window = arena_tracker(tm, cfg, base).dispatch_window([frame], frame.img[None])
+    assert one.keys() == window.keys() == {"frames", "out", "corr", "trace_window", "done",
+                                           "promotion_launches"}
+    assert one["frames"] == window["frames"] == [frame]
+    assert torch.equal(one["out"]["stats"], window["out"]["stats"])
+    assert one["out"]["stats"].shape == (1, 6)
+    (row,), (want,) = one["out"]["rows"], window["out"]["rows"]
+    assert row.keys() == want.keys()
+    for key in want:
+        assert torch.equal(row[key], want[key]), key
+    for key in _STATE:
+        assert torch.equal(one["out"]["final"][key], window["out"]["final"][key]), key
+
+
+def test_one_drain_joins_handles_in_frame_order(world, counts, monkeypatch):
+    """`sync_chain` over three windows of one and over one window of four:
+    the stats [sum K, 6] in frame order, in one read each, and each handle's
+    promotion launches credited once per NEW_KF event in its own rows."""
+    _jm, tm, base, imgs = world
+    with both_configs(_settings(False)) as cfg:
+        ones, four = arena_tracker(tm, cfg, base), arena_tracker(tm, cfg, base)
+        handles = [ones.dispatch(create_frame(j + 1, torch.from_numpy(imgs[j]))) for j in range(3)]
+        window = dispatch(four, imgs)
+    reads = []  # the handles each read takes
+    for tracker in (ones, four):
+        monkeypatch.setattr(tracker, "_read", lambda stats, done, read=tracker._read:
+                            reads.append(len(stats)) or read(stats, done))
+    for j, h in enumerate(handles + [window]):
+        h["promotion_launches"] = {"flash_attention": 10 ** j}
+    before = attention.flash_attention.launches
+    got = ones.sync_chain(handles)
+    assert reads == [3]
+    np.testing.assert_array_equal(got, np.concatenate([h["out"]["stats"].numpy() for h in handles]))
+    assert list(got[:, 3]) == [EVENT_TRACKED, EVENT_NEW_KF, EVENT_TRACKED]
+    assert attention.flash_attention.launches == before + 10  # the second handle's, once
+    got4 = four.sync_chain([window])
+    assert reads == [3, 1] and got4.shape == (K, 6)
+    np.testing.assert_array_equal(got4, window["out"]["stats"].numpy())
+    np.testing.assert_array_equal(got4[:3], got)  # the same chain, frame by frame
+    assert attention.flash_attention.launches == before + 10 + 1000
+    ones.sync_chain(handles)  # each handle is credited once
+    assert attention.flash_attention.launches == before + 10 + 1000
+
+
+def test_init_keyframe_without_an_arena_makes_an_arena_of_one(world):
+    """`init_keyframe` on a tracker built without an arena appends the
+    keyframe to a new arena of one slot, and the chain the next window
+    starts from is the keyframe's initial state: its encode, its mono
+    pointmap, the identity match indices, a fusion count of 1, and its pose
+    as both the keyframe's and the previous frame's."""
+    _jm, tm, base, _imgs = world
+    T = torch.tensor([0.1, -0.2, 0.3, 0.0, 0.0, np.sin(0.1), np.cos(0.1), 1.2],
+                     dtype=torch.float32)
+    with both_configs(_settings(False)) as cfg:
+        tracker = FrameTracker(tm, cfg, device="cpu")
+        assert tracker.keyframes is None
+        tracker.init_keyframe(base, T)
+        st = tracker._chain_state(None)
+        with torch.no_grad():
+            feat, pos = tm.encode(torch.from_numpy(base)[None] * 2.0 - 1.0)
+            X, C = _mono_pointmap(tm, feat[0], pos[0], 1)
+    kfs = tracker.keyframes
+    assert (kfs.capacity, len(kfs), kfs.device.type) == (1, 1, "cpu")
+    assert (kfs.h, kfs.w) == base.shape[:2]
+    n = base.shape[0] * base.shape[1]
+    want = dict(kf_feat=feat[0], kf_pos=pos[0], idx=torch.arange(n)[None], kf_X=X, kf_C=C,
+                kN=torch.ones(()), T_prev=T, kf_T=T)
+    assert set(st) == set(_STATE)
+    for key in _STATE:
+        assert st[key].dtype == want[key].dtype and torch.equal(st[key], want[key]), key
