@@ -295,6 +295,20 @@ Phases, in order; any failure exits non-zero before the result line:
                its kernels, and of the plain loop; the bounds: bytes read and
                written once over 3.35 TB/s, f32 operations over 67 TFLOP/s,
                shared-memory reads over 128 bytes a clock an SM.
+ 21. rope    - run after phase 20: the RoPE kernel (csrc/rope.cu) at the
+               paths' calls (vitl's encoder self-attention (1, 16, 768),
+               its decoders' self and cross (1, 12, 768), dune's (1, 12,
+               432) self and cross, serving's encoder (8, 16, 768)), q and
+               k as the projections hand them over: the route raises on
+               f32 CUDA tensors; q and k bit-equal to the plain rotation
+               (apply_rope, then the cast to bf16), two calls bit-equal,
+               one launch a call; a call that records a gradient one launch
+               forward and one backward, the gradients of q and k bit-equal
+               to autograd's through the plain rotation; device ms in a graph, warm and cold (a
+               rotation of copies of q and k beyond the 50 MB L2), and of
+               the plain rotation (its kernels counted by torch.profiler);
+               the bound: q and k read and written once and the tables
+               read once, over 3.35 TB/s.
 Every phase that tracks also holds its pose_gn launches to a prediction:
 1 + max_iters a rays pose solve (a tracked frame, a chunk of serving
 streams, a batch of offline chain pairs), none in calibrated mode or on the
@@ -302,6 +316,11 @@ CPU; and its match_taps launches: with the dense matcher one a tracked
 frame (rays or calibrated), a chunk of serving streams, an offline decode
 and a decode of keyframe pairs (backend, relocalisation), none with
 another matcher or on the CPU. The kernels line reports both by path.
+Every path that counts attention launches also holds its RoPE launches to
+them (`check_rope`: an attention call rotates q and k in one launch), and
+training to its attention launches forward and backward (the backward
+rotates the gradients of q and k in one more launch); the kernels line
+reports the counts by path, as check_rope read them.
 Then it prints the kernels JSON line, the card line, and last
 {"ok": true, "device": {...}}.
 """
@@ -429,6 +448,13 @@ POSE_GN_F32 = 11  # f32 an iteration reads a point: Xf 3, rd_k 4, sqrt_info 4
 POSE_GN_SLACK = 1e-6  # phase 19: pose error the kernel may add beyond twice the plain loop's
 POSE_GN_COST_RTOL = 1e-4  # phase 19: the kernel's final cost against the plain loop's (relative)
 MATCH_SHAPES = ((1, 384, 512), (1, 252, 336), (8, 384, 512))  # phase 20: vitl, dune, serving
+# phase 21: (name, attention kind, B, H, S, patch grid) of the paths' RoPE calls
+ROPE_CASES = (("vitl enc", "self", 1, 16, 768, (24, 32)),
+              ("vitl dec", "self", 1, 12, 768, (24, 32)),
+              ("vitl dec", "cross", 1, 12, 768, (24, 32)),
+              ("dune", "self", 1, 12, 432, (18, 24)),
+              ("dune dec", "cross", 1, 12, 432, (18, 24)),
+              ("serving enc", "self", 8, 16, 768, (24, 32)))
 MATCH_LATTICE = (3, (2, 1))  # the benchmark's and configs/base.yaml's: radius 3, dilations (2, 1)
 MATCH_DIST = 0.002  # phase 20: splits its scenes' pixels (a correct match lies ~1.7 mm off)
 # bytes a pixel the kernel reads or writes once: rays 2 x 6, descriptors 2 x 96, points 2 x 12,
@@ -567,6 +593,33 @@ def time_eager(fn, x, iters: int = 50) -> float:
         x = fn(x)
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def zero_rope() -> None:
+    """Zero the RoPE kernel's launch count, beside a path's zeroed attention
+    count."""
+    from mast3r_slam_torch.ops import rope
+
+    rope.rope.launches = 0
+
+
+ROPE_BY_PATH: dict = {}  # check_rope's counts, a list by path: the kernels line's rope launches_by_path
+
+
+def check_rope(tag: str, attention: int, backward: int = 0) -> int:
+    """The RoPE kernel's launches since `zero_rope`, held to the path's
+    attention launches, forward (`attention`) and backward (`backward`): an
+    attention call rotates q and k in one launch, and where it records a
+    gradient its backward rotates their gradients in one more. Kept in
+    ROPE_BY_PATH under `tag`, beside the attention launches."""
+    from mast3r_slam_torch.ops import rope
+
+    n, want = rope.rope.launches, attention + backward
+    print(f"[{tag}] rope launches {n}, predicted {attention} + {backward} backward", flush=True)
+    check(n == want, f"{tag}: rope launched {n}, not {attention} + {backward} backward")
+    ROPE_BY_PATH.setdefault(tag, []).append(
+        dict(rope=n, attention=attention, attention_backward=backward))
+    return n
 
 
 # -- phase 3 ---------------------------------------------------------------
@@ -1249,6 +1302,90 @@ def match_taps_phase() -> list:
     return [match_taps_row(b, h, w, seed=20 + i) for i, (b, h, w) in enumerate(MATCH_SHAPES)]
 
 
+# -- phase 21 --------------------------------------------------------------
+
+
+def rope_row(name: str, kind: str, b: int, h: int, s: int, grid: tuple, seed: int) -> dict:
+    """The RoPE kernel at one of the paths' calls: checked, counted and timed
+    (see phase 21)."""
+    import torch
+
+    from mast3r_slam_torch.models.vit import rope_2d_angles
+    from mast3r_slam_torch.ops import rope
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    yy, xx = torch.meshgrid(torch.arange(grid[0], device="cuda"),
+                            torch.arange(grid[1], device="cuda"), indexing="ij")
+    pos = torch.stack([xx.reshape(-1), yy.reshape(-1)], -1).to(torch.int32)[None].expand(b, -1, -1)
+    t_q = rope_2d_angles(pos, 64)
+    t_k = t_q if kind == "self" else rope_2d_angles(pos + 1, 64)
+
+    def operands():  # as the projections hand them over: views, not copies
+        if kind == "self":
+            qkv = torch.randn(b, s, 3, h, 64, device="cuda", generator=gen).to(torch.bfloat16)
+            return tuple(qkv.permute(2, 0, 3, 1, 4).unbind(0)[:2])
+        return tuple(torch.randn(b, s, h * 64, device="cuda", generator=gen).to(torch.bfloat16)
+                     .view(b, s, h, 64).transpose(1, 2) for _ in range(2))
+
+    q, k = operands()
+    before = rope.rope.launches
+    got = rope.rotate_qk(q, k, t_q, t_k)
+    launches = rope.rope.launches - before
+    want = rope.rotate_qk_reference(q, k, t_q, t_k)
+    again = rope.rotate_qk(q, k, t_q, t_k)
+    check(launches == 1, f"rope {name} {kind}: {launches} launches a call")
+    check(all(torch.equal(a, w) for a, w in zip(got, want)),
+          f"rope {name} {kind} {(b, h, s)}: the kernel differs from the plain rotation")
+    check(all(torch.equal(a, w) for a, w in zip(again, got)), f"rope {name} {kind}: two calls "
+          "differ")
+    # a call that records a gradient: one launch forward and one backward, autograd's bits
+    leaves = [[x.detach().clone().requires_grad_() for x in (q, k)] for _ in range(2)]
+    cot = [torch.randn(x.shape, device="cuda", generator=gen).to(torch.bfloat16) for x in (q, k)]
+    before = rope.rope.launches
+    torch.autograd.backward(rope.rotate_qk(*leaves[0], t_q, t_k), cot)
+    grad_launches = rope.rope.launches - before
+    torch.autograd.backward(rope.rotate_qk_reference(*leaves[1], t_q, t_k), cot)
+    check(grad_launches == 2, f"rope {name} {kind}: {grad_launches} launches forward and backward")
+    check(all(torch.equal(a.grad, b.grad) for a, b in zip(*leaves)),
+          f"rope {name} {kind}: the kernel's gradient differs from the plain rotation's")
+    ms = time_graph_calls(lambda: rope.rotate_qk(q, k, t_q, t_k), iters=20, reps=10)
+    moved = 2 * 2 * 2 * b * h * s * 64 + 2 * 4 * b * s * 64 * (1 if kind == "self" else 2)
+    copies = max(2, -(-120_000_000 // moved))  # > 2x the L2
+    xs = [(q, k)] + [operands() for _ in range(copies - 1)]
+    cold_ms = time_cold(lambda x: rope.rotate_qk(*x, t_q, t_k), xs, reps=5)
+    plain_ms = time_graph_calls(lambda: rope.rotate_qk_reference(q, k, t_q, t_k), iters=20,
+                                reps=10)
+    prof = profile_solve("rope", f"rope_plain_{kind}_{b}x{h}x{s}",
+                         lambda: rope.rotate_qk_reference(q, k, t_q, t_k))
+    bound = moved / HBM_BYTES_PER_S * 1e3
+    row = dict(shape=f"{name} {kind} ({b}, {h}, {s}, 64)", launches=launches, ms=ms,
+               cold_ms=cold_ms, bound_ms=bound, bound_by="bytes", of_bound=bound / ms,
+               of_bound_cold=bound / cold_ms, plain_ms=plain_ms, plain_kernels=prof["kernels"],
+               library_ms=None, bit_equal=True, grad_bit_equal=True)
+    print(f"[rope] {name} {kind} ({b}, {h}, {s}, 64): bit-equal to the plain rotation, "
+          f"{launches} launch a call, its gradient too in one more; device ms in a graph: kernel warm {ms:.5f}, cold "
+          f"{cold_ms:.5f} ({copies} copies of q and k), plain rotation {plain_ms:.5f} "
+          f"({prof['kernels']:.0f} kernels); bound {bound:.5f} ({moved / 1e6:.2f} MB), "
+          f"{100 * bound / ms:.0f}% warm, {100 * bound / cold_ms:.0f}% cold", flush=True)
+    return row
+
+
+def rope_phase() -> list:
+    import torch
+
+    from mast3r_slam_torch.ops import rope
+
+    # On the card the route launches the kernel or raises; it never falls back.
+    x = torch.zeros(1, 2, 8, 64, dtype=torch.float32, device="cuda")
+    t = (torch.zeros(1, 8, 64, device="cuda"),) * 2
+    try:
+        rope.rotate_qk(x, x, t, t)
+        check(False, "rope took float32 CUDA tensors instead of raising")
+    except TypeError:
+        pass
+    return [rope_row(*case, seed=21 + i) for i, case in enumerate(ROPE_CASES)]
+
+
 # -- phase 5 ---------------------------------------------------------------
 
 
@@ -1341,6 +1478,7 @@ def main_path_phase(cfg) -> dict:
 
     flash_attention.launches = graphs.if_node.launches = pose_gn.pose_gn_rays.launches = 0
     match_taps.match_taps.launches = 0
+    zero_rope()
     frames = create_frames(imgs)
     tracker = FrameTracker(model, cfg)
     tracker.init_keyframe(base)
@@ -1359,6 +1497,7 @@ def main_path_phase(cfg) -> dict:
     torch.cuda.synchronize()
     win1, win2, win3 = stacked(win1), stacked(win2), stacked(win3)
     launches, if_launches = flash_attention.launches, graphs.if_node.launches
+    rope_launches = check_rope("main", launches)
     pose_launches = pose_gn.pose_gn_rays.launches
     match_launches = match_taps.match_taps.launches
 
@@ -1400,7 +1539,8 @@ def main_path_phase(cfg) -> dict:
           f"promotions {promotions}/{PROMOTION_FRAMES}, IF nodes run {if_launches}, stats frame "
           f"16 {win2['stats'][-1].tolist()}", flush=True)
     return dict(launches=launches, if_launches=if_launches, pose_gn_launches=pose_launches,
-                match_taps_launches=match_launches, ms_frame=ms_frame, promotions=promotions)
+                match_taps_launches=match_launches, rope_launches=rope_launches, ms_frame=ms_frame,
+                promotions=promotions)
 
 
 # -- phase 7 ---------------------------------------------------------------
@@ -1517,6 +1657,7 @@ def slam_phase() -> dict:
         solves.clear()
         torch.cuda.synchronize()
         flash_attention.launches = pose_gn_rays.launches = match_taps.launches = 0
+        zero_rope()
         t0 = time.perf_counter()
         results = []
         syncs = count_syncs(lambda: results.append(slam.run(frames_dataset(imgs[:n]))))
@@ -1524,6 +1665,7 @@ def slam_phase() -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches, pose_launches = flash_attention.launches, pose_gn_rays.launches
+        check_rope(f"slam {name}", launches)
         match_launches = match_taps.launches
         n_syncs = sum(syncs.values())
         ev, fg = slam.events, slam.factor_graph
@@ -1848,6 +1990,7 @@ def calib_runs(model) -> dict:
             first_pointmap.clear()
             torch.cuda.synchronize()
             flash_attention.launches = pose_gn_rays.launches = match_taps.launches = 0
+            zero_rope()
             t0 = time.perf_counter()
             results = []
             syncs = count_syncs(lambda: results.append(slam.run(frames_dataset(imgs[:n]))))
@@ -1855,6 +1998,7 @@ def calib_runs(model) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches, pose_launches = flash_attention.launches, pose_gn_rays.launches
+            check_rope(f"calib {name}", launches)
             match_launches = match_taps.launches
             ev, fg, kfs = slam.events, slam.factor_graph, slam.keyframes
             predicted, how = predicted_attention(ev, fg.n_decodes, slam.model.cfg)
@@ -2161,6 +2305,7 @@ def config_runs(model) -> tuple[dict, dict]:
             queries.clear()
             torch.cuda.synchronize()
             flash_attention.launches = pose_gn_rays.launches = match_taps.launches = 0
+            zero_rope()
             t0 = time.perf_counter()
             results = []
             syncs = count_syncs(lambda: results.append(slam.run(frames_dataset(imgs[:n]))))
@@ -2168,6 +2313,7 @@ def config_runs(model) -> tuple[dict, dict]:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches, pose_launches = flash_attention.launches, pose_gn_rays.launches
+            check_rope(f"configs {name}", launches)
             match_launches = match_taps.launches
             ev, fg, kfs, db = slam.events, slam.factor_graph, slam.keyframes, slam.retrieval_db
             predicted, how = predicted_attention(ev, fg.n_decodes, slam.model.cfg)
@@ -2665,11 +2811,13 @@ def serving_phase(model) -> dict:
             bt.resolve_stats(handle)
         torch.cuda.synchronize()
         flash_attention.launches = pose_gn_rays.launches = match_taps.launches = 0
+        zero_rope()
         t1 = time.perf_counter()
         chain = [bt.step_async(feats[t][:b], pos[:b]) for t in range(SERVING_WARM, steps)]
         torch.stack(chain).cpu()  # the chain's one stats fetch
         ms_batch = (time.perf_counter() - t1) / SERVING_CHAIN * 1e3
         launches, pose_launches = flash_attention.launches, pose_gn_rays.launches
+        check_rope(f"serving B {b}", launches)
         match_launches = match_taps.launches
         chunks = b // SERVING_MB
         predicted = SERVING_CHAIN * chunks * 4 * c.dec_depth
@@ -2712,11 +2860,13 @@ def serving_phase(model) -> dict:
             bti.resolve_stats(bti.step_images_async(u8[t, :b]))
         torch.cuda.synchronize()
         flash_attention.launches = pose_gn_rays.launches = match_taps.launches = 0
+        zero_rope()
         t1 = time.perf_counter()
         chain_i = [bti.step_images_async(u8[t, :b]) for t in range(SERVING_WARM, steps)]
         stats_i = torch.stack(chain_i).cpu()
         ms_img = (time.perf_counter() - t1) / SERVING_CHAIN * 1e3
         launches_i, pose_launches_i = flash_attention.launches, pose_gn_rays.launches
+        check_rope(f"serving images B {b}", launches_i)
         check_match_taps(f"serving images B {b}", match_taps.launches, match_predicted,
                          f"{SERVING_CHAIN} batches x {chunks} chunks")
         predicted_i = predicted + SERVING_CHAIN * c.enc_depth
@@ -3005,6 +3155,7 @@ def _window_run(model, settings: dict, imgs: list, base, windows: int) -> dict:
     try:
         torch.cuda.synchronize()
         flash_attention.launches = pose_gn_rays.launches = match_taps.launches = 0
+        zero_rope()
         for j in range(windows):
             t0 = time.perf_counter()
             w = slice(j * WINDOW, (j + 1) * WINDOW)
@@ -3013,6 +3164,7 @@ def _window_run(model, settings: dict, imgs: list, base, windows: int) -> dict:
             ms = (time.perf_counter() - t0) / WINDOW * 1e3
             outs.append(stacked(handle))
         launches, pose_launches = flash_attention.launches, pose_gn_rays.launches
+        check_rope("window", launches)
         match_launches = match_taps.launches
     finally:
         del model.encode, model.decode
@@ -3169,12 +3321,14 @@ def offline_phase(model) -> dict:
     try:
         torch.cuda.synchronize()
         flash_attention.launches = pose_gn_rays.launches = match_taps.launches = 0
+        zero_rope()
         t1 = time.perf_counter()
         recon = OfflineReconstructor(model, pair_k=3, pair_batch=OFFLINE_PAIR_BATCH)
         out = recon.reconstruct(frames)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
         launches, pose_launches = flash_attention.launches, pose_gn_rays.launches
+        check_rope("offline", launches)
         match_launches = match_taps.launches
     finally:
         global_opt.gauss_newton_graph = graph_solve
@@ -3269,7 +3423,9 @@ def _track_run(model, settings: dict, fused: bool, imgs: tuple) -> dict:
         if call:
             add_keyframe(2, img_kf2)
         flash_attention.launches = pose_gn_rays.launches = match_taps.launches = 0
+        zero_rope()
         new_kf, info, reloc = tracker.track(frame, mast3r_match_asymmetric)
+        check_rope(f"track on {dev.type}", flash_attention.launches)
         check(pose_gn_rays.launches == per_solve, f"track on {dev.type} (use_calib "
               f"{cfg.use_calib}): pose_gn launched {pose_gn_rays.launches}, not {per_solve}")
         # one dense match a call on the card, rays or calibrated
@@ -3481,10 +3637,12 @@ def track_api_phase(model) -> dict:
     set_config(Config.from_dict(BENCH_SETTINGS))
     a_img, b_img = imgs[0], imgs[2]
     flash_attention.launches = 0
+    zero_rope()
     sym = mast3r_symmetric_inference(model, create_frame(0, a_img, device=dev),
                                      create_frame(1, b_img, device=dev))
     _sync(dev)
     sym_launches = flash_attention.launches
+    check_rope("symmetric inference", sym_launches)
     check(len(sym) == 4 and tuple(sym[0].shape) == (4, h, w, 3),
           f"symmetric inference shapes {[tuple(t.shape) for t in sym]}")
     check(all(bool(torch.isfinite(t.float()).all()) for t in sym),
@@ -3493,9 +3651,11 @@ def track_api_phase(model) -> dict:
           f"{sym_launches}, predicted 2*{enc} + {dec}")
     pair = torch.stack([torch.from_numpy(a_img), torch.from_numpy(b_img)]).to(dev) * 2.0 - 1.0
     flash_attention.launches = 0
+    zero_rope()
     rec = model.reconstruct(pair, pair.flip(0))
     _sync(dev)
     rec_launches = flash_attention.launches
+    check_rope("reconstruct", rec_launches)
     for view, o in enumerate(rec):
         check(tuple(o["pts3d"].shape) == (2, h, w, 3), f"reconstruct view {view + 1} shape")
         check(all(bool(torch.isfinite(t.float()).all()) for t in o.values()),
@@ -3641,12 +3801,14 @@ def quant_phase(model) -> dict:
     results = []
     torch.cuda.synchronize()
     flash_attention.launches = pose_gn_rays.launches = match_taps.launches = 0
+    zero_rope()
     t1 = time.perf_counter()
     try:
         syncs = count_syncs(lambda: results.append(slam.run(frames_dataset(imgs))))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
         launches, pose_launches = flash_attention.launches, pose_gn_rays.launches
+        check_rope("slam int8", launches)
         match_launches = match_taps.launches
         page = _get(slam.viewer.port, "/")
         state = _json.loads(_get(slam.viewer.port, "/state.json"))
@@ -4444,7 +4606,7 @@ def parallel_serving_inputs(model) -> dict:
     return {k: v.cpu() for k, v in out.items()}
 
 
-def parallel_serving_run(model, mesh, inputs: dict) -> dict:
+def parallel_serving_run(model, mesh, inputs: dict, tag: str) -> dict:
     """BatchTracker(mesh=) at PAR_B streams, microbatch PAR_MB: PAR_STEPS
     feature-fed steps and one image-fed step, every rank passed the global
     batch -> the global statistics, flags and poses of each step, and the
@@ -4460,6 +4622,7 @@ def parallel_serving_run(model, mesh, inputs: dict) -> dict:
     bt = BatchTracker(model, mesh=mesh, microbatch=PAR_MB)
     bt.init_from_keyframes(x["kf_feat"], x["kf_pos"], x["kf_X"], x["kf_C"])
     flash_attention.launches = pose_gn_rays.launches = match_taps.launches = 0
+    zero_rope()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     stats, tracked, poses = [], [], []
@@ -4471,6 +4634,7 @@ def parallel_serving_run(model, mesh, inputs: dict) -> dict:
         tracked.append(torch.from_numpy(r["tracked"]))
         poses.append(r["poses"].cpu())
     seconds = time.perf_counter() - t0
+    check_rope(f"parallel serving {tag}", flash_attention.launches)
     return dict(stats=torch.stack(stats), tracked=torch.stack(tracked), poses=torch.stack(poses),
                 launches=flash_attention.launches, pose_gn_launches=pose_gn_rays.launches,
                 pose_gn_per_solve=1 + bt.cfg.max_iters, match_taps_launches=match_taps.launches,
@@ -4529,19 +4693,22 @@ def _world1_rank(rank: int, workdir: str) -> dict:
     model = MASt3RModel.create(model_type="mast3r_full", resolution=512, device="cuda")
     mesh = make_mesh()
     res["inputs"] = parallel_serving_inputs(model)
-    res["serving"] = parallel_serving_run(model, mesh, res["inputs"])
+    res["serving"] = parallel_serving_run(model, mesh, res["inputs"], "world 1")
     res["solve"] = world_solve(make_mesh(tp=1))
     res["solve_plain"] = world_solve(None)
 
     # pp = sp = 1 and the multihost layer at world 1
     gen = torch.Generator(device="cuda").manual_seed(16)
     imgs = torch.rand(2, 384, 512, 3, device="cuda", generator=gen) * 2 - 1
+    flash_attention.launches = 0
+    zero_rope()
     ref = model.encode(imgs)[0]
     enc = dict(pp=pipelined_encode(model.cfg, model, imgs, make_pipeline_mesh(1), 1)[0],
                pp_m2=pipelined_encode(model.cfg, model, imgs, make_pipeline_mesh(1), 2)[0],
                sp=sequence_parallel_encode(model.cfg, model, imgs,
                                            make_mesh(1, tp=1, axis_names=("dp", "sp")))[0])
     res["encode_equal"] = {k: bool(torch.equal(v, ref)) for k, v in enc.items()}
+    check_rope("pp / sp at world 1", flash_attention.launches)
     res["encode_gap"] = {k: (v.float() - ref.float()).abs().max().item() for k, v in enc.items()}
     gmesh = multihost.make_global_mesh()
     x = torch.arange(6.0, device="cuda").reshape(2, 3)
@@ -4569,11 +4736,14 @@ def _world1_rank(rank: int, workdir: str) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     flash_attention.launches = 0
+    zero_rope()
     bwd_launches = flash_attention_backward.launches
     bwd_launches.update(dict.fromkeys(bwd_launches, 0))
     flash_attention_backward.launches_by_shape.clear()
     t0 = time.perf_counter()
     _, timed = train_loop(tmodel, mesh, TRAIN_STEPS, batch, log=stamp)
+    check_rope("train (gradient)", flash_attention.launches,
+               bwd_launches["flash_attention_bwd_dq"])
     res["train"] = dict(timed_losses=timed, step_s=np.diff([t0] + stamps).tolist(),
                         launches=flash_attention.launches, backward_launches=dict(bwd_launches),
                         backward_by_shape={key: dict(n) for key, n in
@@ -4656,6 +4826,7 @@ def _world1_rank(rank: int, workdir: str) -> dict:
         worst_own_gap=max(own.values()), median_own_gap=float(np.median(list(own.values()))),
         zero_card=[n for n, g in zip(names, g_card) if g.abs().max().item() == 0],
         params=len(names), seconds=time.perf_counter() - t0)
+    res["rope_by_path"] = ROPE_BY_PATH
     return res
 
 
@@ -4677,17 +4848,22 @@ def _world2_rank(rank: int, inputs: dict) -> dict:
     model = MASt3RModel.create(model_type="mast3r_full", resolution=512, device="cuda")
     res["solve"] = world_solve(make_mesh(tp=1))
     # sequence parallel at sp 2 (gloo's all_gather of CUDA tensors), before tp splits the model
+    from mast3r_slam_torch.ops.attention import flash_attention
     from mast3r_slam_torch.parallel.sequence import sequence_parallel_encode
 
     gen = torch.Generator(device="cuda").manual_seed(16)
     imgs = torch.rand(2, 384, 512, 3, device="cuda", generator=gen) * 2 - 1
+    flash_attention.launches = 0
+    zero_rope()
     ref = model.encode(imgs)[0]
     sp = sequence_parallel_encode(model.cfg, model, imgs, make_mesh(tp=2, axis_names=("dp", "sp")),
                                   batch_axis=None)[0]
+    check_rope(f"sp 2 rank {rank}", flash_attention.launches)
     res["sp2"] = dict(gap=(sp.float() - ref.float()).abs().max().item(),
                       scale=ref.float().abs().max().item(), equal=bool(torch.equal(sp, ref)))
-    res["dp2"] = parallel_serving_run(model, make_mesh(tp=1), inputs)
-    res["tp2"] = parallel_serving_run(model, make_mesh(tp=2), inputs)
+    res["dp2"] = parallel_serving_run(model, make_mesh(tp=1), inputs, f"dp 2 rank {rank}")
+    res["tp2"] = parallel_serving_run(model, make_mesh(tp=2), inputs, f"tp 2 rank {rank}")
+    res["rope_by_path"] = ROPE_BY_PATH
     return res
 
 
@@ -4751,6 +4927,9 @@ def parallel_phase() -> dict:
     t_two = time.perf_counter() - t1
     print(f"[parallel] world {two[0]['world']} over {two[0]['backend']}, both ranks on one card "
           f"(NCCL refuses two ranks on one device) ({t_two:.1f} s; {card})", flush=True)
+    for r in (one, *two):  # the ranks' rope counts, checked in their processes
+        for tag, counts in r.pop("rope_by_path").items():
+            ROPE_BY_PATH.setdefault(tag, []).extend(counts)
     import shutil
 
     shutil.rmtree(workdir, ignore_errors=True)
@@ -5133,6 +5312,7 @@ def main(argv=None) -> int:
         probe = probe_phase()
         pose_rows = pose_gn_phase()
         match_rows = match_taps_phase()
+        rope_rows = rope_phase()
         if parent:
             own.append(time_other(REPO))
             runs.append(time_other(parent))
@@ -5321,6 +5501,18 @@ def main(argv=None) -> int:
                                  for k, v in parallel["match_taps_launches"].items()}),
         **{k: v for k, v in match_rows[0].items() if k != "launches"},
         by_shape=match_rows,
+    ))
+    kernels.append(dict(
+        name="rope",
+        route="cuda",
+        source="mast3r_slam_torch/csrc/rope.cu",
+        replaces=None,
+        replaces_note="the RoPE rotation of q and k that the JAX package leaves to XLA "
+                      "(mast3r_slam_tpu/models/vit.py apply_rope): no Pallas kernel",
+        launches=main["rope_launches"],
+        launches_by_path=ROPE_BY_PATH,
+        **{k: v for k, v in rope_rows[0].items() if k != "launches"},
+        by_shape=rope_rows,
     ))
     for name, row in probe.items():
         kernels.append(dict(

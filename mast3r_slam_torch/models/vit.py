@@ -13,7 +13,9 @@ stay in the compute dtype. One deliberate difference from the JAX package:
 there, RoPE multiplies bf16 q/k by f32 tables and so promotes q/k to f32
 before attention; here the rotation is computed in f32 and rounded back to
 the compute dtype so that the kernel takes bf16 q/k/v. In an f32 model the
-two are the same computation.
+two are the same computation. Every attention call rotates q and k through
+`ops.rope.rotate_qk`: on the card one launch of the hand-written kernel
+``csrc/rope.cu``, which keeps that one rounding, elsewhere `apply_rope`.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch.nn.functional as F
 from mast3r_slam_torch.config import get_config
 from mast3r_slam_torch.device import Conv2d, LayerNorm, Linear
 from mast3r_slam_torch.ops.attention import flash_attention
+from mast3r_slam_torch.ops.rope import apply_rope, rotate_qk  # noqa: F401 (JAX's vit name)
 
 
 def rope_2d_angles(positions: torch.Tensor, head_dim: int, base: float = 100.0):
@@ -42,15 +45,6 @@ def rope_2d_angles(positions: torch.Tensor, head_dim: int, base: float = 100.0):
     ang_x = positions[..., 0].float()[..., None] * freqs
     ang = torch.cat([ang_y, ang_y, ang_x, ang_x], dim=-1)
     return torch.cos(ang), torch.sin(ang)
-
-
-def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """x [B, H, S, D] rotated per half (y-half, x-half), GPT-NeoX style, in f32."""
-    q = x.shape[-1] // 4
-    xf = x.float()
-    y1, y2, x1, x2 = xf.split(q, dim=-1)
-    rot = torch.cat([-y2, y1, -x2, x1], dim=-1)
-    return xf * cos[:, None] + rot * sin[:, None]
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -101,9 +95,7 @@ class Attention(nn.Module):
         # rank's share of the heads under tensor parallelism (parallel/sharding.py).
         qkv = self.qkv(x).view(b, s, 3, self.num_heads, -1)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)  # each [B, H, S, hd], no copy
-        if rope is not None:
-            q = apply_rope(q, *rope).to(v.dtype)
-            k = apply_rope(k, *rope).to(v.dtype)
+        q, k = rotate_qk(q, k, rope, rope)
         return self.proj(_merge_heads(flash_attention(q, k, v)))
 
 
@@ -122,10 +114,7 @@ class CrossAttention(nn.Module):
         q = _split_heads(self.projq(x), self.num_heads)
         k = _split_heads(self.projk(y), self.num_heads)
         v = _split_heads(self.projv(y), self.num_heads)
-        if rope_q is not None:
-            q = apply_rope(q, *rope_q).to(v.dtype)
-        if rope_k is not None:
-            k = apply_rope(k, *rope_k).to(v.dtype)
+        q, k = rotate_qk(q, k, rope_q, rope_k)
         return self.proj(_merge_heads(flash_attention(q, k, v)))
 
 

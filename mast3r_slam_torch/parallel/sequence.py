@@ -19,8 +19,9 @@ import functools
 
 import torch
 
-from mast3r_slam_torch.models.vit import _merge_heads, apply_rope, rope_2d_angles
+from mast3r_slam_torch.models.vit import _merge_heads, rope_2d_angles
 from mast3r_slam_torch.ops.attention import flash_attention
+from mast3r_slam_torch.ops.rope import rotate_qk
 from mast3r_slam_torch.parallel.mesh import all_gather, axis_rank, axis_size
 
 
@@ -31,8 +32,7 @@ def _sp_block(blk, x, rope, sizes, group):
     b, s, _ = h.shape
     qkv = a.qkv(h).view(b, s, 3, a.num_heads, -1)
     q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
-    q = apply_rope(q, *rope).to(v.dtype)
-    k = apply_rope(k, *rope).to(v.dtype)
+    q, k = rotate_qk(q, k, rope, rope)
     if group is not None:
         k, v = all_gather(k, group, 2, sizes), all_gather(v, group, 2, sizes)
     x = x + a.proj(_merge_heads(flash_attention(q, k, v)))
