@@ -309,6 +309,24 @@ Phases, in order; any failure exits non-zero before the result line:
                the plain rotation (its kernels counted by torch.profiler);
                the bound: q and k read and written once and the tables
                read once, over 3.35 TB/s.
+ 22. layer_norm - run after phase 21: the LayerNorm kernel
+               (csrc/layer_norm.cu) at the paths' norms (`LN_CASES`: vitl's
+               and dune's block norms to bf16 and enc_norm / dec_norm to
+               f32, the backend's batch of 6 views, serving's 16 streams),
+               bf16 tokens with their own offsets and scales and a few loud
+               channels: the route raises on f16 CUDA tensors; the output
+               bit-equal to the plain norm (PyTorch's f32 norm, then the
+               cast), and a norm with bf16 statistics neither bit-equal nor
+               inside tests/test_torch_layer_norm_cuda.py's bands; two calls
+               bit-equal; one launch a call; a call that records a gradient
+               one launch forward, the output and the gradients of x,
+               weight and bias bit-equal to autograd's through the plain
+               norm; device ms in a graph, warm and cold (a rotation of
+               copies of x beyond the 50 MB L2), and of the plain norm it
+               replaces (the f32 copy, the f32 norm and the readers' bf16
+               casts, their kernels counted by torch.profiler, all cases
+               in one profile); the bound: x read once, the output written
+               once, weight and bias read once, over 3.35 TB/s.
 Every phase that tracks also holds its pose_gn launches to a prediction:
 1 + max_iters a rays pose solve (a tracked frame, a chunk of serving
 streams, a batch of offline chain pairs), none in calibrated mode or on the
@@ -317,10 +335,13 @@ frame (rays or calibrated), a chunk of serving streams, an offline decode
 and a decode of keyframe pairs (backend, relocalisation), none with
 another matcher or on the CPU. The kernels line reports both by path.
 Every path that counts attention launches also holds its RoPE launches to
-them (`check_rope`: an attention call rotates q and k in one launch), and
-training to its attention launches forward and backward (the backward
-rotates the gradients of q and k in one more launch); the kernels line
-reports the counts by path, as check_rope read them.
+them (`check_net_kernels`: an attention call rotates q and k in one
+launch), and training to its attention launches forward and backward (the
+backward rotates the gradients of q and k in one more launch); and its
+LayerNorm launches to two a forward attention call plus one an encode and
+two a decode (enc_norm, dec_norm), as each path counts its encodes and
+decodes, training's forward too (the norms' backward is PyTorch's); the
+kernels line reports the counts by path, as check_net_kernels read them.
 Then it prints the kernels JSON line, the card line, and last
 {"ok": true, "device": {...}}.
 """
@@ -455,6 +476,17 @@ ROPE_CASES = (("vitl enc", "self", 1, 16, 768, (24, 32)),
               ("dune", "self", 1, 12, 432, (18, 24)),
               ("dune dec", "cross", 1, 12, 432, (18, 24)),
               ("serving enc", "self", 8, 16, 768, (24, 32)))
+# phase 22: (name, rows, C, output dtype, bf16 casts of the f32 output its plain version makes)
+LN_CASES = (("vitl enc norm1/norm2", 768, 1024, "bf16", 1),
+            ("vitl enc_norm", 768, 1024, "f32", 0),
+            ("vitl dec norm1/norm2/norm3", 768, 768, "bf16", 1),
+            ("vitl dec norm_y", 768, 768, "bf16", 2),
+            ("vitl dec_norm", 768, 768, "f32", 0),
+            ("dune enc/dec norm", 432, 768, "bf16", 1),
+            ("dune enc_norm", 432, 768, "f32", 0),
+            ("backend dec (6 views)", 6 * 768, 768, "bf16", 1),
+            ("serving enc (16 streams)", 16 * 768, 1024, "bf16", 1))
+LN_EPS = 1e-6
 MATCH_LATTICE = (3, (2, 1))  # the benchmark's and configs/base.yaml's: radius 3, dilations (2, 1)
 MATCH_DIST = 0.002  # phase 20: splits its scenes' pixels (a correct match lies ~1.7 mm off)
 # bytes a pixel the kernel reads or writes once: rays 2 x 6, descriptors 2 x 96, points 2 x 12,
@@ -595,31 +627,53 @@ def time_eager(fn, x, iters: int = 50) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def zero_rope() -> None:
-    """Zero the RoPE kernel's launch count, beside a path's zeroed attention
-    count."""
-    from mast3r_slam_torch.ops import rope
+def zero_net_kernels() -> None:
+    """Zero the RoPE and LayerNorm kernels' launch counts, beside a path's
+    zeroed attention count."""
+    from mast3r_slam_torch.ops import layer_norm, rope
 
-    rope.rope.launches = 0
-
-
-ROPE_BY_PATH: dict = {}  # check_rope's counts, a list by path: the kernels line's rope launches_by_path
+    rope.rope.launches = layer_norm.layer_norm.launches = 0
 
 
-def check_rope(tag: str, attention: int, backward: int = 0) -> int:
-    """The RoPE kernel's launches since `zero_rope`, held to the path's
-    attention launches, forward (`attention`) and backward (`backward`): an
-    attention call rotates q and k in one launch, and where it records a
-    gradient its backward rotates their gradients in one more. Kept in
-    ROPE_BY_PATH under `tag`, beside the attention launches."""
-    from mast3r_slam_torch.ops import rope
+# check_net_kernels's counts, a list by path: the kernels line's rope and layer_norm
+# launches_by_path
+NET_KERNELS_BY_PATH: dict = {}
+
+
+def check_net_kernels(tag: str, attention: int, outputs: int, backward: int = 0) -> int:
+    """The RoPE and LayerNorm kernels' launches since `zero_net_kernels`,
+    held to the path's attention launches, forward (`attention`) and
+    backward (`backward`). RoPE: an attention call rotates q and k in one
+    launch, and where it records a gradient its backward rotates their
+    gradients in one more. LayerNorm: a block norms its input before each of
+    its attention calls and once more (an encoder block's norm1 and norm2 for
+    its one, a decoder block's norm1, norm2, norm_y and norm3 for its two), so
+    two launches a forward attention call, and `outputs` more: each encode's
+    enc_norm, each decode's two dec_norms, as the path counts its encodes and
+    decodes. A path that records a gradient (training) launches the same
+    norms forward; their backward is PyTorch's. Kept in NET_KERNELS_BY_PATH
+    under `tag`, beside the attention launches. Returns the RoPE launches."""
+    from mast3r_slam_torch.ops import layer_norm, rope
 
     n, want = rope.rope.launches, attention + backward
     print(f"[{tag}] rope launches {n}, predicted {attention} + {backward} backward", flush=True)
     check(n == want, f"{tag}: rope launched {n}, not {attention} + {backward} backward")
-    ROPE_BY_PATH.setdefault(tag, []).append(
-        dict(rope=n, attention=attention, attention_backward=backward))
+    norms = layer_norm.layer_norm.launches
+    want_norms = 2 * attention + outputs
+    print(f"[{tag}] layer_norm launches {norms}, predicted 2*{attention} + {outputs}", flush=True)
+    check(norms == want_norms, f"{tag}: layer_norm launched {norms}, not {want_norms}")
+    NET_KERNELS_BY_PATH.setdefault(tag, []).append(
+        dict(rope=n, layer_norm=norms, attention=attention, attention_backward=backward))
     return n
+
+
+def predicted_norm_outputs(events, n_decodes: int) -> int:
+    """The enc_norm and dec_norm calls that a SLAM.run makes, from its event
+    log (the encodes and decodes of `predicted_attention`): one an encode,
+    two a decode."""
+    steps = events["init"] + events["chained_step"] + events["sync_step"]
+    monos = events["chained_promotion"] + events["sync_promotion"] + events["reloc"]
+    return steps + events["reloc_encode"] + 2 * (steps + monos + n_decodes)
 
 
 # -- phase 3 ---------------------------------------------------------------
@@ -1386,6 +1440,96 @@ def rope_phase() -> list:
     return [rope_row(*case, seed=21 + i) for i, case in enumerate(ROPE_CASES)]
 
 
+# -- phase 22 --------------------------------------------------------------
+
+
+def layer_norm_row(name: str, rows: int, c: int, out: str, casts: int, seed: int) -> dict:
+    """The LayerNorm kernel at one of the paths' norms: checked, counted and
+    timed (see phase 22)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mast3r_slam_torch.ops import layer_norm as ln
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from test_torch_layer_norm_cuda import affine, bands, bf16_statistics_norm, tokens
+
+    out_dtype = dict(bf16=torch.bfloat16, f32=torch.float32)[out]
+    x = tokens(rows, c, torch.bfloat16, "cuda", seed)
+    w, b = affine(c, "cuda", seed + 1)
+    before = ln.layer_norm.launches
+    got = ln.layer_norm(x, w, b, LN_EPS, out_dtype)
+    launches = ln.layer_norm.launches - before
+    want = ln.layer_norm_reference(x, w, b, LN_EPS, out_dtype)
+    check(launches == 1, f"layer_norm {name}: {launches} launches a call")
+    check(torch.equal(got, want), f"layer_norm {name} ({rows}, {c}) -> {out}: the kernel differs "
+          "from the plain norm")
+    check(torch.equal(ln.layer_norm(x, w, b, LN_EPS, out_dtype), got),
+          f"layer_norm {name}: two calls differ")
+    planted = bf16_statistics_norm(x, w, b, LN_EPS, out_dtype)
+    reading = bands(planted, x, w, b, LN_EPS)
+    check(not torch.equal(planted, want) and not reading["ok"],
+          f"layer_norm {name}: statistics in bf16 pass {reading}")
+    # a call that records a gradient: one launch forward, autograd's bits forward and backward
+    leaves = [[t.detach().clone().requires_grad_() for t in (x, w, b)] for _ in range(2)]
+    cot = torch.randn(x.shape, device="cuda", generator=torch.Generator("cuda").manual_seed(seed))
+    before = ln.layer_norm.launches
+    y = ln.layer_norm(*leaves[0], LN_EPS, out_dtype)
+    y.backward(cot.to(out_dtype))
+    grad_launches = ln.layer_norm.launches - before
+    y_plain = F.layer_norm(leaves[1][0].float(), (c,), *leaves[1][1:], LN_EPS).to(out_dtype)
+    y_plain.backward(cot.to(out_dtype))
+    check(grad_launches == 1, f"layer_norm {name}: {grad_launches} launches forward and backward")
+    check(torch.equal(y, y_plain) and all(torch.equal(a.grad, p.grad) for a, p in zip(*leaves)),
+          f"layer_norm {name}: a gradient-recording call differs from autograd's plain norm")
+
+    def plain():  # the norm as it ran before the kernel: f32 copy, f32 norm, the readers' casts
+        y = F.layer_norm(x.float(), (c,), w, b, LN_EPS)
+        return [y.to(torch.bfloat16) for _ in range(casts)] or [y]
+
+    ms = time_graph_calls(lambda: ln.layer_norm(x, w, b, LN_EPS, out_dtype), iters=20, reps=10)
+    moved = rows * c * (2 + got.element_size()) + 2 * 4 * c
+    copies = max(2, -(-120_000_000 // moved))  # > 2x the L2
+    xs = [x] + [tokens(rows, c, torch.bfloat16, "cuda", seed + 2 + i) for i in range(copies - 1)]
+    cold_ms = time_cold(lambda t: ln.layer_norm(t, w, b, LN_EPS, out_dtype), xs, reps=5)
+    plain_ms = time_graph_calls(plain, iters=20, reps=10)
+    bound = moved / HBM_BYTES_PER_S * 1e3
+    row = dict(shape=f"{name} ({rows}, {c}) bf16 -> {out}", launches=launches, ms=ms,
+               cold_ms=cold_ms, bound_ms=bound, bound_by="bytes", of_bound=bound / ms,
+               of_bound_cold=bound / cold_ms, plain_ms=plain_ms, plain_kernels=2 + casts,
+               library_ms=None, bit_equal=True, grad_bit_equal=True,
+               planted_bf16_statistics=reading)
+    print(f"[layer_norm] {name} ({rows}, {c}) bf16 -> {out}: bit-equal to the plain norm; planted "
+          f"bf16 statistics {reading}; {launches} launch a call, its gradient autograd's bits; "
+          f"device ms in a graph: kernel warm {ms:.5f}, cold {cold_ms:.5f} ({copies} copies of "
+          f"x), plain norm {plain_ms:.5f} ({2 + casts} kernels); bound {bound:.5f} "
+          f"({moved / 1e6:.2f} MB), {100 * bound / ms:.0f}% warm, {100 * bound / cold_ms:.0f}% "
+          "cold", flush=True)
+    return row, plain
+
+
+def layer_norm_phase() -> list:
+    import torch
+
+    from mast3r_slam_torch.ops import layer_norm as ln
+
+    # On the card the route launches the kernel or raises; it never falls back.
+    x = torch.zeros(4, 64, dtype=torch.float16, device="cuda")
+    w = torch.ones(64, device="cuda")
+    try:
+        ln.layer_norm(x, w, w, LN_EPS, torch.bfloat16)
+        check(False, "layer_norm took float16 CUDA tensors instead of raising")
+    except TypeError:
+        pass
+    rows, plains = zip(*(layer_norm_row(*case, seed=31 + 7 * i) for i, case in enumerate(LN_CASES)))
+    # the plain norms' kernels (the f32 copy, the norm, the readers' casts), in one profile
+    prof = profile_solve("layer_norm", "layer_norm_plain", lambda: [f() for f in plains])
+    want = sum(row["plain_kernels"] for row in rows)
+    check(prof["kernels"] == want, f"layer_norm: the plain norms ran {prof['kernels']:.0f} "
+          f"kernels, not {want}")
+    return list(rows)
+
+
 # -- phase 5 ---------------------------------------------------------------
 
 
@@ -1460,7 +1604,7 @@ def main_path_phase(cfg) -> dict:
 
     from mast3r_slam_torch import graphs
     from mast3r_slam_torch.models import MASt3RModel
-    from mast3r_slam_torch.ops import match_taps, pose_gn
+    from mast3r_slam_torch.ops import layer_norm, match_taps, pose_gn
     from mast3r_slam_torch.ops.attention import flash_attention
     from mast3r_slam_torch.tracker import EVENT_NEW_KF, EVENT_TRACKED, FrameTracker
     from mast3r_slam_torch.workload import drift_frames
@@ -1478,7 +1622,7 @@ def main_path_phase(cfg) -> dict:
 
     flash_attention.launches = graphs.if_node.launches = pose_gn.pose_gn_rays.launches = 0
     match_taps.match_taps.launches = 0
-    zero_rope()
+    zero_net_kernels()
     frames = create_frames(imgs)
     tracker = FrameTracker(model, cfg)
     tracker.init_keyframe(base)
@@ -1497,7 +1641,7 @@ def main_path_phase(cfg) -> dict:
     torch.cuda.synchronize()
     win1, win2, win3 = stacked(win1), stacked(win2), stacked(win3)
     launches, if_launches = flash_attention.launches, graphs.if_node.launches
-    rope_launches = check_rope("main", launches)
+    ln_launches = layer_norm.layer_norm.launches
     pose_launches = pose_gn.pose_gn_rays.launches
     match_launches = match_taps.match_taps.launches
 
@@ -1516,6 +1660,9 @@ def main_path_phase(cfg) -> dict:
     events = win3["stats"][:, 3]
     promotions = int((events == EVENT_NEW_KF).sum())
     check(promotions >= 1, f"no promotion with match_frac_thresh=1.0 (events {events})")
+    # the keyframe and each frame an encode and a two-view decode, a promotion a mono decode
+    rope_launches = check_net_kernels("main", launches, 3 * (1 + 2 * WINDOW + PROMOTION_FRAMES)
+                                      + 2 * promotions)
 
     c = model.cfg
     frames = 2 * WINDOW + PROMOTION_FRAMES
@@ -1539,7 +1686,8 @@ def main_path_phase(cfg) -> dict:
           f"promotions {promotions}/{PROMOTION_FRAMES}, IF nodes run {if_launches}, stats frame "
           f"16 {win2['stats'][-1].tolist()}", flush=True)
     return dict(launches=launches, if_launches=if_launches, pose_gn_launches=pose_launches,
-                match_taps_launches=match_launches, rope_launches=rope_launches, ms_frame=ms_frame,
+                match_taps_launches=match_launches, rope_launches=rope_launches,
+                layer_norm_launches=ln_launches, ms_frame=ms_frame,
                 promotions=promotions)
 
 
@@ -1657,7 +1805,7 @@ def slam_phase() -> dict:
         solves.clear()
         torch.cuda.synchronize()
         flash_attention.launches = pose_gn_rays.launches = match_taps.launches = 0
-        zero_rope()
+        zero_net_kernels()
         t0 = time.perf_counter()
         results = []
         syncs = count_syncs(lambda: results.append(slam.run(frames_dataset(imgs[:n]))))
@@ -1665,7 +1813,8 @@ def slam_phase() -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches, pose_launches = flash_attention.launches, pose_gn_rays.launches
-        check_rope(f"slam {name}", launches)
+        check_net_kernels(f"slam {name}", launches,
+                          predicted_norm_outputs(slam.events, slam.factor_graph.n_decodes))
         match_launches = match_taps.launches
         n_syncs = sum(syncs.values())
         ev, fg = slam.events, slam.factor_graph
@@ -1853,21 +2002,37 @@ def check_graph_solves(captured) -> dict:
 def profile_solve(label: str, name: str, solve) -> dict:
     """One more call of `solve` under torch.profiler: its kernel launches,
     device busy time and host time (the trace is summarised by
-    profile_step's reader and written to build/profile/<name>_trace.json)."""
+    profile_step's reader and written to build/profile/<name>_trace.json).
+    A trace that holds no device event, though the host launched kernels,
+    is reported with its counts and profiled once more; a second such trace
+    fails the phase."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from mast3r_slam_torch.profile_step import summarize_trace
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        solve()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
     path = os.path.join(REPO, "build", "profile", f"{name}_trace.json")
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    prof.export_chrome_trace(path)
+    for attempt in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            solve()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        cats = collections.Counter(e.get("cat") for e in events if e.get("ph") == "X")
+        device = sum(cats[c] for c in ("kernel", "gpu_memcpy", "gpu_memset"))
+        if device:
+            break
+        launches = sum(1 for e in events if e.get("cat") == "cuda_runtime"
+                       and "Launch" in e.get("name", ""))
+        print(f"[{label}] profiled {name.replace('_', ' ')} (attempt {attempt + 1}): the trace "
+              f"holds no device event; host launches {launches}, {wall:.2f} ms wall; events by "
+              f"category {dict(cats)}", flush=True)
+        check(attempt == 0, f"{label}: two profiles of {name} held no device event")
     trace = summarize_trace(path, frames=1)
     out = dict(wall_ms_profiled=wall, kernels=trace["kernels_per_frame"],
                device_busy_ms=trace["device_busy_ms_per_frame"],
@@ -1990,7 +2155,7 @@ def calib_runs(model) -> dict:
             first_pointmap.clear()
             torch.cuda.synchronize()
             flash_attention.launches = pose_gn_rays.launches = match_taps.launches = 0
-            zero_rope()
+            zero_net_kernels()
             t0 = time.perf_counter()
             results = []
             syncs = count_syncs(lambda: results.append(slam.run(frames_dataset(imgs[:n]))))
@@ -1998,7 +2163,8 @@ def calib_runs(model) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches, pose_launches = flash_attention.launches, pose_gn_rays.launches
-            check_rope(f"calib {name}", launches)
+            check_net_kernels(f"calib {name}", launches, predicted_norm_outputs(
+                slam.events, slam.factor_graph.n_decodes))
             match_launches = match_taps.launches
             ev, fg, kfs = slam.events, slam.factor_graph, slam.keyframes
             predicted, how = predicted_attention(ev, fg.n_decodes, slam.model.cfg)
@@ -2305,7 +2471,7 @@ def config_runs(model) -> tuple[dict, dict]:
             queries.clear()
             torch.cuda.synchronize()
             flash_attention.launches = pose_gn_rays.launches = match_taps.launches = 0
-            zero_rope()
+            zero_net_kernels()
             t0 = time.perf_counter()
             results = []
             syncs = count_syncs(lambda: results.append(slam.run(frames_dataset(imgs[:n]))))
@@ -2313,7 +2479,8 @@ def config_runs(model) -> tuple[dict, dict]:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches, pose_launches = flash_attention.launches, pose_gn_rays.launches
-            check_rope(f"configs {name}", launches)
+            check_net_kernels(f"configs {name}", launches, predicted_norm_outputs(
+                slam.events, slam.factor_graph.n_decodes))
             match_launches = match_taps.launches
             ev, fg, kfs, db = slam.events, slam.factor_graph, slam.keyframes, slam.retrieval_db
             predicted, how = predicted_attention(ev, fg.n_decodes, slam.model.cfg)
@@ -2811,15 +2978,15 @@ def serving_phase(model) -> dict:
             bt.resolve_stats(handle)
         torch.cuda.synchronize()
         flash_attention.launches = pose_gn_rays.launches = match_taps.launches = 0
-        zero_rope()
+        zero_net_kernels()
         t1 = time.perf_counter()
         chain = [bt.step_async(feats[t][:b], pos[:b]) for t in range(SERVING_WARM, steps)]
         torch.stack(chain).cpu()  # the chain's one stats fetch
         ms_batch = (time.perf_counter() - t1) / SERVING_CHAIN * 1e3
         launches, pose_launches = flash_attention.launches, pose_gn_rays.launches
-        check_rope(f"serving B {b}", launches)
         match_launches = match_taps.launches
         chunks = b // SERVING_MB
+        check_net_kernels(f"serving B {b}", launches, 2 * SERVING_CHAIN * chunks)  # decodes
         predicted = SERVING_CHAIN * chunks * 4 * c.dec_depth
         check(launches == predicted, f"serving B {b}: attention launched {launches}, predicted "
               f"{SERVING_CHAIN} batches x {chunks} chunks x {4 * c.dec_depth} = {predicted}")
@@ -2860,13 +3027,15 @@ def serving_phase(model) -> dict:
             bti.resolve_stats(bti.step_images_async(u8[t, :b]))
         torch.cuda.synchronize()
         flash_attention.launches = pose_gn_rays.launches = match_taps.launches = 0
-        zero_rope()
+        zero_net_kernels()
         t1 = time.perf_counter()
         chain_i = [bti.step_images_async(u8[t, :b]) for t in range(SERVING_WARM, steps)]
         stats_i = torch.stack(chain_i).cpu()
         ms_img = (time.perf_counter() - t1) / SERVING_CHAIN * 1e3
         launches_i, pose_launches_i = flash_attention.launches, pose_gn_rays.launches
-        check_rope(f"serving images B {b}", launches_i)
+        # a batch's one encode, then its chunks' decodes
+        check_net_kernels(f"serving images B {b}", launches_i,
+                          SERVING_CHAIN * (1 + 2 * (b // SERVING_MB)))
         check_match_taps(f"serving images B {b}", match_taps.launches, match_predicted,
                          f"{SERVING_CHAIN} batches x {chunks} chunks")
         predicted_i = predicted + SERVING_CHAIN * c.enc_depth
@@ -3155,7 +3324,7 @@ def _window_run(model, settings: dict, imgs: list, base, windows: int) -> dict:
     try:
         torch.cuda.synchronize()
         flash_attention.launches = pose_gn_rays.launches = match_taps.launches = 0
-        zero_rope()
+        zero_net_kernels()
         for j in range(windows):
             t0 = time.perf_counter()
             w = slice(j * WINDOW, (j + 1) * WINDOW)
@@ -3164,7 +3333,6 @@ def _window_run(model, settings: dict, imgs: list, base, windows: int) -> dict:
             ms = (time.perf_counter() - t0) / WINDOW * 1e3
             outs.append(stacked(handle))
         launches, pose_launches = flash_attention.launches, pose_gn_rays.launches
-        check_rope("window", launches)
         match_launches = match_taps.launches
     finally:
         del model.encode, model.decode
@@ -3174,8 +3342,10 @@ def _window_run(model, settings: dict, imgs: list, base, windows: int) -> dict:
                 captured=bool(tracker.graphs.graphs))
 
 
-def predicted_window_attention(events, model_cfg, batched: bool, spec: bool, mb: int) -> int:
-    """Attention launches of one window of K = len(events) frames: an encode
+def predicted_window_attention(events, model_cfg, batched: bool, spec: bool,
+                               mb: int) -> tuple[int, int]:
+    """Attention launches of one window of K = len(events) frames, and its
+    encodes plus two a decode (the norms' outputs, `check_net_kernels`): an encode
     (of any batch) is one launch per encoder block, a decode (two-view of any
     batch, or a promotion's mono) one per decoder block, direction and
     attention. Batched encode: one encode per window, else one per frame.
@@ -3198,7 +3368,8 @@ def predicted_window_attention(events, model_cfg, batched: bool, spec: bool, mb:
         n_dec = k // size + (1 if k % size else 0) + live
     else:
         n_dec = k
-    return enc * n_enc + dec * (n_dec + (k if batched or spec else len(promoted)))
+    n_dec += k if batched or spec else len(promoted)
+    return enc * n_enc + dec * n_dec, n_enc + 2 * n_dec
 
 
 def window_phase(model) -> dict:
@@ -3234,8 +3405,9 @@ def window_phase(model) -> dict:
             settings["tracking"]["match_frac_thresh"] = thresh
         run = _window_run(model, settings, imgs, base, windows)
         check(run["captured"] != on, f"window {name}: captured {run['captured']}, knobs {on}")
-        predicted = sum(predicted_window_attention(o["stats"][:, 3].tolist(), model.cfg, on, on,
-                                                   WINDOW_MB) for o in run["outs"])
+        predicted, outputs = map(sum, zip(*(predicted_window_attention(
+            o["stats"][:, 3].tolist(), model.cfg, on, on, WINDOW_MB) for o in run["outs"])))
+        check_net_kernels("window", run["launches"], outputs)
         events = [o["stats"][:, 3].tolist() for o in run["outs"]]
         print(f"[window] {name}: {windows} x {WINDOW} frames "
               f"{'captured' if run['captured'] else 'eager'}, {run['ms_frame']:.2f} ms/frame "
@@ -3321,14 +3493,13 @@ def offline_phase(model) -> dict:
     try:
         torch.cuda.synchronize()
         flash_attention.launches = pose_gn_rays.launches = match_taps.launches = 0
-        zero_rope()
+        zero_net_kernels()
         t1 = time.perf_counter()
         recon = OfflineReconstructor(model, pair_k=3, pair_batch=OFFLINE_PAIR_BATCH)
         out = recon.reconstruct(frames)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
         launches, pose_launches = flash_attention.launches, pose_gn_rays.launches
-        check_rope("offline", launches)
         match_launches = match_taps.launches
     finally:
         global_opt.gauss_newton_graph = graph_solve
@@ -3341,6 +3512,7 @@ def offline_phase(model) -> dict:
     n_sym = -(-len(pairs) // OFFLINE_PAIR_BATCH)
     n_chain = -(-(f - 1) // OFFLINE_PAIR_BATCH)
     predicted = enc * f + dec * (f + n_sym + n_chain)
+    check_net_kernels("offline", launches, f + 2 * (f + n_sym + n_chain))
     # the chain's pose initialisation: one batched pose solve a chain decode
     per_solve = 1 + recon.cfg.tracking.max_iters
     print(f"[offline] {f} frames in {wall:.2f} s; {len(pairs)} pairs {pairs}; edges "
@@ -3423,9 +3595,11 @@ def _track_run(model, settings: dict, fused: bool, imgs: tuple) -> dict:
         if call:
             add_keyframe(2, img_kf2)
         flash_attention.launches = pose_gn_rays.launches = match_taps.launches = 0
-        zero_rope()
+        zero_net_kernels()
         new_kf, info, reloc = tracker.track(frame, mast3r_match_asymmetric)
-        check_rope(f"track on {dev.type}", flash_attention.launches)
+        # the fresh frame is encoded and decoded, the held one decoded only
+        check_net_kernels(f"track on {dev.type}", flash_attention.launches,
+                          (2 if call else 3) if dev.type == "cuda" else 0)
         check(pose_gn_rays.launches == per_solve, f"track on {dev.type} (use_calib "
               f"{cfg.use_calib}): pose_gn launched {pose_gn_rays.launches}, not {per_solve}")
         # one dense match a call on the card, rays or calibrated
@@ -3637,12 +3811,12 @@ def track_api_phase(model) -> dict:
     set_config(Config.from_dict(BENCH_SETTINGS))
     a_img, b_img = imgs[0], imgs[2]
     flash_attention.launches = 0
-    zero_rope()
+    zero_net_kernels()
     sym = mast3r_symmetric_inference(model, create_frame(0, a_img, device=dev),
                                      create_frame(1, b_img, device=dev))
     _sync(dev)
     sym_launches = flash_attention.launches
-    check_rope("symmetric inference", sym_launches)
+    check_net_kernels("symmetric inference", sym_launches, 2 + 2)  # two encodes, one decode
     check(len(sym) == 4 and tuple(sym[0].shape) == (4, h, w, 3),
           f"symmetric inference shapes {[tuple(t.shape) for t in sym]}")
     check(all(bool(torch.isfinite(t.float()).all()) for t in sym),
@@ -3651,11 +3825,11 @@ def track_api_phase(model) -> dict:
           f"{sym_launches}, predicted 2*{enc} + {dec}")
     pair = torch.stack([torch.from_numpy(a_img), torch.from_numpy(b_img)]).to(dev) * 2.0 - 1.0
     flash_attention.launches = 0
-    zero_rope()
+    zero_net_kernels()
     rec = model.reconstruct(pair, pair.flip(0))
     _sync(dev)
     rec_launches = flash_attention.launches
-    check_rope("reconstruct", rec_launches)
+    check_net_kernels("reconstruct", rec_launches, 2 + 2)  # one encode each way, one decode
     for view, o in enumerate(rec):
         check(tuple(o["pts3d"].shape) == (2, h, w, 3), f"reconstruct view {view + 1} shape")
         check(all(bool(torch.isfinite(t.float()).all()) for t in o.values()),
@@ -3801,14 +3975,15 @@ def quant_phase(model) -> dict:
     results = []
     torch.cuda.synchronize()
     flash_attention.launches = pose_gn_rays.launches = match_taps.launches = 0
-    zero_rope()
+    zero_net_kernels()
     t1 = time.perf_counter()
     try:
         syncs = count_syncs(lambda: results.append(slam.run(frames_dataset(imgs))))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
         launches, pose_launches = flash_attention.launches, pose_gn_rays.launches
-        check_rope("slam int8", launches)
+        check_net_kernels("slam int8", launches,
+                          predicted_norm_outputs(slam.events, slam.factor_graph.n_decodes))
         match_launches = match_taps.launches
         page = _get(slam.viewer.port, "/")
         state = _json.loads(_get(slam.viewer.port, "/state.json"))
@@ -4622,7 +4797,7 @@ def parallel_serving_run(model, mesh, inputs: dict, tag: str) -> dict:
     bt = BatchTracker(model, mesh=mesh, microbatch=PAR_MB)
     bt.init_from_keyframes(x["kf_feat"], x["kf_pos"], x["kf_X"], x["kf_C"])
     flash_attention.launches = pose_gn_rays.launches = match_taps.launches = 0
-    zero_rope()
+    zero_net_kernels()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     stats, tracked, poses = [], [], []
@@ -4634,7 +4809,8 @@ def parallel_serving_run(model, mesh, inputs: dict, tag: str) -> dict:
         tracked.append(torch.from_numpy(r["tracked"]))
         poses.append(r["poses"].cpu())
     seconds = time.perf_counter() - t0
-    check_rope(f"parallel serving {tag}", flash_attention.launches)
+    check_net_kernels(f"parallel serving {tag}", flash_attention.launches,
+                      predicted_parallel_outputs())
     return dict(stats=torch.stack(stats), tracked=torch.stack(tracked), poses=torch.stack(poses),
                 launches=flash_attention.launches, pose_gn_launches=pose_gn_rays.launches,
                 pose_gn_per_solve=1 + bt.cfg.max_iters, match_taps_launches=match_taps.launches,
@@ -4701,14 +4877,15 @@ def _world1_rank(rank: int, workdir: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(16)
     imgs = torch.rand(2, 384, 512, 3, device="cuda", generator=gen) * 2 - 1
     flash_attention.launches = 0
-    zero_rope()
+    zero_net_kernels()
     ref = model.encode(imgs)[0]
     enc = dict(pp=pipelined_encode(model.cfg, model, imgs, make_pipeline_mesh(1), 1)[0],
                pp_m2=pipelined_encode(model.cfg, model, imgs, make_pipeline_mesh(1), 2)[0],
                sp=sequence_parallel_encode(model.cfg, model, imgs,
                                            make_mesh(1, tp=1, axis_names=("dp", "sp")))[0])
     res["encode_equal"] = {k: bool(torch.equal(v, ref)) for k, v in enc.items()}
-    check_rope("pp / sp at world 1", flash_attention.launches)
+    # four encodes, each one enc_norm: pp_m2's two microbatches share one
+    check_net_kernels("pp / sp at world 1", flash_attention.launches, 4)
     res["encode_gap"] = {k: (v.float() - ref.float()).abs().max().item() for k, v in enc.items()}
     gmesh = multihost.make_global_mesh()
     x = torch.arange(6.0, device="cuda").reshape(2, 3)
@@ -4736,14 +4913,15 @@ def _world1_rank(rank: int, workdir: str) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     flash_attention.launches = 0
-    zero_rope()
+    zero_net_kernels()
     bwd_launches = flash_attention_backward.launches
     bwd_launches.update(dict.fromkeys(bwd_launches, 0))
     flash_attention_backward.launches_by_shape.clear()
     t0 = time.perf_counter()
     _, timed = train_loop(tmodel, mesh, TRAIN_STEPS, batch, log=stamp)
-    check_rope("train (gradient)", flash_attention.launches,
-               bwd_launches["flash_attention_bwd_dq"])
+    # a step's forward: two encodes and a two-view decode
+    check_net_kernels("train (gradient)", flash_attention.launches, 4 * TRAIN_STEPS,
+                      bwd_launches["flash_attention_bwd_dq"])
     res["train"] = dict(timed_losses=timed, step_s=np.diff([t0] + stamps).tolist(),
                         launches=flash_attention.launches, backward_launches=dict(bwd_launches),
                         backward_by_shape={key: dict(n) for key, n in
@@ -4826,7 +5004,7 @@ def _world1_rank(rank: int, workdir: str) -> dict:
         worst_own_gap=max(own.values()), median_own_gap=float(np.median(list(own.values()))),
         zero_card=[n for n, g in zip(names, g_card) if g.abs().max().item() == 0],
         params=len(names), seconds=time.perf_counter() - t0)
-    res["rope_by_path"] = ROPE_BY_PATH
+    res["net_kernels_by_path"] = NET_KERNELS_BY_PATH
     return res
 
 
@@ -4854,16 +5032,16 @@ def _world2_rank(rank: int, inputs: dict) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(16)
     imgs = torch.rand(2, 384, 512, 3, device="cuda", generator=gen) * 2 - 1
     flash_attention.launches = 0
-    zero_rope()
+    zero_net_kernels()
     ref = model.encode(imgs)[0]
     sp = sequence_parallel_encode(model.cfg, model, imgs, make_mesh(tp=2, axis_names=("dp", "sp")),
                                   batch_axis=None)[0]
-    check_rope(f"sp 2 rank {rank}", flash_attention.launches)
+    check_net_kernels(f"sp 2 rank {rank}", flash_attention.launches, 2)  # two encodes
     res["sp2"] = dict(gap=(sp.float() - ref.float()).abs().max().item(),
                       scale=ref.float().abs().max().item(), equal=bool(torch.equal(sp, ref)))
     res["dp2"] = parallel_serving_run(model, make_mesh(tp=1), inputs, f"dp 2 rank {rank}")
     res["tp2"] = parallel_serving_run(model, make_mesh(tp=2), inputs, f"tp 2 rank {rank}")
-    res["rope_by_path"] = ROPE_BY_PATH
+    res["net_kernels_by_path"] = NET_KERNELS_BY_PATH
     return res
 
 
@@ -4875,6 +5053,14 @@ def predicted_parallel_launches(c) -> int:
     PAR_MB / dp; tp: H / tp heads a launch)."""
     decode = (PAR_B // PAR_MB) * 2 * c.dec_depth * 2
     return PAR_STEPS * decode + c.enc_depth + decode
+
+
+def predicted_parallel_outputs() -> int:
+    """The enc_norm and dec_norm calls of `parallel_serving_run` on one rank,
+    as `predicted_parallel_launches` counts its encodes and decodes: the
+    image-fed step's one encode, every step's PAR_B / PAR_MB chunk decodes
+    (two dec_norms each)."""
+    return 1 + 2 * (PAR_STEPS + 1) * (PAR_B // PAR_MB)
 
 
 def parallel_phase() -> dict:
@@ -4928,8 +5114,8 @@ def parallel_phase() -> dict:
     print(f"[parallel] world {two[0]['world']} over {two[0]['backend']}, both ranks on one card "
           f"(NCCL refuses two ranks on one device) ({t_two:.1f} s; {card})", flush=True)
     for r in (one, *two):  # the ranks' rope counts, checked in their processes
-        for tag, counts in r.pop("rope_by_path").items():
-            ROPE_BY_PATH.setdefault(tag, []).extend(counts)
+        for tag, counts in r.pop("net_kernels_by_path").items():
+            NET_KERNELS_BY_PATH.setdefault(tag, []).extend(counts)
     import shutil
 
     shutil.rmtree(workdir, ignore_errors=True)
@@ -5313,6 +5499,7 @@ def main(argv=None) -> int:
         pose_rows = pose_gn_phase()
         match_rows = match_taps_phase()
         rope_rows = rope_phase()
+        ln_rows = layer_norm_phase()
         if parent:
             own.append(time_other(REPO))
             runs.append(time_other(parent))
@@ -5510,9 +5697,21 @@ def main(argv=None) -> int:
         replaces_note="the RoPE rotation of q and k that the JAX package leaves to XLA "
                       "(mast3r_slam_tpu/models/vit.py apply_rope): no Pallas kernel",
         launches=main["rope_launches"],
-        launches_by_path=ROPE_BY_PATH,
+        launches_by_path=NET_KERNELS_BY_PATH,
         **{k: v for k, v in rope_rows[0].items() if k != "launches"},
         by_shape=rope_rows,
+    ))
+    kernels.append(dict(
+        name="layer_norm",
+        route="cuda",
+        source="mast3r_slam_torch/csrc/layer_norm.cu",
+        replaces=None,
+        replaces_note="the LayerNorms with their casts that the JAX package leaves to XLA "
+                      "(flax nn.LayerNorm, mast3r_slam_tpu/models/vit.py): no Pallas kernel",
+        launches=main["layer_norm_launches"],
+        launches_by_path=NET_KERNELS_BY_PATH,
+        **{k: v for k, v in ln_rows[0].items() if k != "launches"},
+        by_shape=ln_rows,
     ))
     for name, row in probe.items():
         kernels.append(dict(

@@ -6,11 +6,13 @@ only when the caller asks for it (``device="cpu"``), as the tests do.
 
 The dtype policy is the JAX package's (``mast3r_slam_tpu/models``): matmuls
 and convolutions run in the model's compute dtype (bf16 for the deployment
-model), LayerNorms in f32, the pts3d regression conv of the DPT head and the
-linear pts3d head in f32, and everything downstream of the network (matcher
-costs, Gauss-Newton, Lie groups, fusion) in f32. `apply_dtype_policy` casts
-the parameters once; each layer casts its input to its weight's dtype, which
-is what flax's ``dtype=`` does on every call. With ``master_weights=True``
+model), LayerNorms in f32 (those that feed only compute-dtype layers write
+the compute dtype, the cast those layers would make), the pts3d regression
+conv of the DPT head and the linear pts3d head in f32, and everything
+downstream of the network (matcher costs, Gauss-Newton, Lie groups, fusion)
+in f32. `apply_dtype_policy` casts the parameters once; each layer casts its
+input to its weight's dtype, which is what flax's ``dtype=`` does on every
+call. With ``master_weights=True``
 (training) the parameters stay f32 and each layer casts its weight and bias
 to its compute dtype at every call instead, as flax computes in ``dtype``
 from f32 parameters.
@@ -20,6 +22,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
+
+from mast3r_slam_torch.ops.layer_norm import layer_norm
 
 _PRECISIONS = {"fp32": torch.float32, "bf16": torch.bfloat16, "fp16": torch.bfloat16}
 
@@ -95,21 +99,34 @@ class ConvTranspose2d(_LayerWeight, nn.ConvTranspose2d):
 
 
 class LayerNorm(nn.LayerNorm):
-    """f32 LayerNorm (eps 1e-6, flax and upstream): output is f32."""
+    """f32 LayerNorm (eps 1e-6, flax and upstream): statistics and affine in
+    f32, the output rounded once to `out_dtype`, f32 unless
+    `apply_dtype_policy` gives a norm marked by `feeds_compute` the model's
+    compute dtype. Through `ops.layer_norm.layer_norm`: one kernel launch on
+    the card, the plain f32 norm and a cast elsewhere."""
+
+    feeds_compute = False
+    out_dtype = torch.float32
 
     def __init__(self, dim: int):
         super().__init__(dim, eps=1e-6)
 
     def forward(self, x):
-        return nn.functional.layer_norm(
-            x.float(), self.normalized_shape, self.weight, self.bias, self.eps
-        )
+        return layer_norm(x, self.weight, self.bias, self.eps, self.out_dtype)
 
 
 def keep_f32(layer: nn.Module) -> nn.Module:
     """Mark a Linear/Conv layer to stay in f32 under `apply_dtype_policy`."""
     layer.keep_f32 = True
     return layer
+
+
+def feeds_compute(norm: LayerNorm) -> LayerNorm:
+    """Mark a LayerNorm whose output only compute-dtype layers read: under
+    `apply_dtype_policy` it writes the model's compute dtype, the cast those
+    layers would make (what they compute is unchanged)."""
+    norm.feeds_compute = True
+    return norm
 
 
 def apply_dtype_policy(model: nn.Module, dtype: torch.dtype,
@@ -119,9 +136,12 @@ def apply_dtype_policy(model: nn.Module, dtype: torch.dtype,
     values, f32 scales) keeps them and computes in the layer's dtype. With
     `master_weights` every parameter stays f32 and each layer computes in
     its dtype from casts made at every call (the f32 master weights of
-    training)."""
+    training). The LayerNorms marked by `feeds_compute` write `dtype`, the
+    others f32 (all f32 under `master_weights`)."""
     for m in model.modules():
-        if isinstance(m, (Linear, Conv2d, ConvTranspose2d)):
+        if isinstance(m, LayerNorm):
+            m.out_dtype = dtype if m.feeds_compute and not master_weights else torch.float32
+        elif isinstance(m, (Linear, Conv2d, ConvTranspose2d)):
             layer_dtype = torch.float32 if m.keep_f32 else dtype
             if master_weights:
                 if m.quant_dtype is not None:

@@ -43,7 +43,7 @@ from typing import Callable, Optional
 import torch
 
 from mast3r_slam_torch.config import get_config
-from mast3r_slam_torch.ops import attention, lane_shift, match_taps, pose_gn, rope
+from mast3r_slam_torch.ops import attention, lane_shift, layer_norm, match_taps, pose_gn, rope
 from mast3r_slam_torch.utils import profiling
 from mast3r_slam_torch.utils.profiling import TRACER, span
 
@@ -53,11 +53,11 @@ from mast3r_slam_torch.utils.profiling import TRACER, span
 def launch_counts() -> dict[str, int]:
     """Every kernel wrapper's launch count, flat: "flash_attention",
     "flash_attention_backward.<symbol>", "lane_shift.<symbol>",
-    "graph_cond", "trace_stamp", "pose_gn", "match_taps", "rope"."""
+    "graph_cond", "trace_stamp", "pose_gn", "match_taps", "rope", "layer_norm"."""
     counts = {"flash_attention": attention.flash_attention.launches,
               "graph_cond": if_node.launches, "pose_gn": pose_gn.pose_gn_rays.launches,
               "match_taps": match_taps.match_taps.launches, "rope": rope.rope.launches,
-              **profiling.launches}
+              "layer_norm": layer_norm.layer_norm.launches, **profiling.launches}
     for sym, n in attention.flash_attention_backward.launches.items():
         counts[f"flash_attention_backward.{sym}"] = n
     for sym, n in lane_shift.launches.items():
@@ -85,6 +85,8 @@ def add_launches(delta: dict[str, int], times: int = 1) -> None:
             match_taps.match_taps.launches += n
         elif name == "rope":
             rope.rope.launches += n
+        elif name == "layer_norm":
+            layer_norm.layer_norm.launches += n
         elif name in profiling.launches:
             profiling.launches[name] += n
         elif group == "flash_attention_backward":

@@ -8,12 +8,16 @@ Tokens are [B, S, C]; attention runs on [B, H, S, D] through
 `runtime.attention_impl` says (see `config.RuntimeConfig`).
 
 Dtype policy (see `device.py`): Linear/Conv layers compute in the model
-dtype, LayerNorms in f32 (their output is f32, as in flax), residual streams
-stay in the compute dtype. One deliberate difference from the JAX package:
-there, RoPE multiplies bf16 q/k by f32 tables and so promotes q/k to f32
-before attention; here the rotation is computed in f32 and rounded back to
-the compute dtype so that the kernel takes bf16 q/k/v. In an f32 model the
-two are the same computation. Every attention call rotates q and k through
+dtype, LayerNorms in f32, residual streams stay in the compute dtype. The
+norms inside the blocks feed only the blocks' projections and MLPs, so they
+write the model dtype (`device.feeds_compute`), the cast those layers make;
+`enc_norm` and `dec_norm` write f32, as in flax. Every norm runs through
+`ops.layer_norm.layer_norm`: on the card one launch of ``csrc/layer_norm.cu``.
+One deliberate difference from the JAX package: there, RoPE multiplies bf16
+q/k by f32 tables and so promotes q/k to f32 before attention; here the
+rotation is computed in f32 and rounded back to the compute dtype so that
+the kernel takes bf16 q/k/v. In an f32 model the two are the same
+computation. Every attention call rotates q and k through
 `ops.rope.rotate_qk`: on the card one launch of the hand-written kernel
 ``csrc/rope.cu``, which keeps that one rounding, elsewhere `apply_rope`.
 """
@@ -25,7 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from mast3r_slam_torch.config import get_config
-from mast3r_slam_torch.device import Conv2d, LayerNorm, Linear
+from mast3r_slam_torch.device import Conv2d, LayerNorm, Linear, feeds_compute
 from mast3r_slam_torch.ops.attention import flash_attention
 from mast3r_slam_torch.ops.rope import apply_rope, rotate_qk  # noqa: F401 (JAX's vit name)
 
@@ -121,9 +125,9 @@ class CrossAttention(nn.Module):
 class EncoderBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0):
         super().__init__()
-        self.norm1 = LayerNorm(dim)
+        self.norm1 = feeds_compute(LayerNorm(dim))
         self.attn = Attention(dim, num_heads)
-        self.norm2 = LayerNorm(dim)
+        self.norm2 = feeds_compute(LayerNorm(dim))
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
 
     def forward(self, x, rope=None):
@@ -137,12 +141,12 @@ class DecoderBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0):
         super().__init__()
-        self.norm1 = LayerNorm(dim)
+        self.norm1 = feeds_compute(LayerNorm(dim))
         self.attn = Attention(dim, num_heads)
-        self.norm2 = LayerNorm(dim)
-        self.norm_y = LayerNorm(dim)
+        self.norm2 = feeds_compute(LayerNorm(dim))
+        self.norm_y = feeds_compute(LayerNorm(dim))
         self.cross_attn = CrossAttention(dim, num_heads)
-        self.norm3 = LayerNorm(dim)
+        self.norm3 = feeds_compute(LayerNorm(dim))
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
 
     def forward(self, x, y, rope_x=None, rope_y=None):

@@ -1,6 +1,6 @@
 """Device ops of the port: the attention kernel and its RoPE rotation, the
-dense and iterative matchers, the Gauss-Newton solvers and their dense
-solves. The top level exports the JAX package's ``ops`` names."""
+LayerNorm, the dense and iterative matchers, the Gauss-Newton solvers and
+their dense solves. The top level exports the JAX package's ``ops`` names."""
 
 from mast3r_slam_torch.ops.gauss_newton import (
     GNParams,

@@ -42,7 +42,7 @@ NVCC_FLAGS = [
 ]
 GXX_FLAGS = ["-O3", "-fopenmp", "-shared", "-fPIC"]
 KERNEL_SOURCES = ("flash_attention", "flash_attention_bwd", "lane_shift", "graph_cond",
-                  "trace_stamp", "pose_gn", "match_taps", "rope")
+                  "trace_stamp", "pose_gn", "match_taps", "rope", "layer_norm")
 NATIVE_SOURCES = ("preprocess",)
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)

@@ -63,7 +63,8 @@ def sequence_parallel_encode(cfg, model, imgs: torch.Tensor, mesh, batch_axis: s
     sizes = [len(c) for c in torch.arange(x.shape[1]).tensor_split(sp)]
     lo = sum(sizes[:sr])
     mine = slice(lo, lo + sizes[sr])
-    x, rope = x[:, mine], (cos[:, mine], sin[:, mine])
+    # this rank's tokens, contiguous: the norms' kernel reads contiguous rows
+    x, rope = x[:, mine].contiguous(), (cos[:, mine], sin[:, mine])
     for blk in net.enc_blocks:
         x = _sp_block(blk, x, rope, sizes, group)
     tokens = net.enc_norm(x)
